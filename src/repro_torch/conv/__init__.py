@@ -1,0 +1,36 @@
+"""repro_torch.conv — plan/execute convolution engine.
+
+    from repro_torch.conv import plan_conv
+    plan = plan_conv(x.shape, k.shape, padding=1)    # cached
+    y = plan(x, k)
+"""
+from repro_torch.conv.registry import (
+    BackendInfo, ScheduleInfo, register_backend, register_schedule,
+    get_backend, get_schedule, available_backends, available_schedules,
+    backend_schedule_pairs,
+)
+from repro_torch.conv.epilogue import Epilogue
+from repro_torch.conv.plan import (
+    ConvPlan, PreparedConv, plan_conv, conv2d,
+    plan_cache_info, clear_plan_cache, plan_cache_capacity,
+    prepared_cache_info, clear_prepared_cache,
+)
+from repro_torch.conv.stages import stage_trace
+from repro_torch.conv.netplan import (
+    NetworkConv, NetworkPlan, PreparedNetwork, plan_network,
+)
+from repro_torch.conv import backends as _backends
+
+_backends.register_builtin()
+
+__all__ = [
+    "ConvPlan", "PreparedConv", "plan_conv", "conv2d", "Epilogue",
+    "NetworkConv", "NetworkPlan", "PreparedNetwork", "plan_network",
+    "plan_cache_info", "clear_plan_cache", "plan_cache_capacity",
+    "prepared_cache_info", "clear_prepared_cache",
+    "stage_trace",
+    "BackendInfo", "ScheduleInfo",
+    "register_backend", "register_schedule",
+    "get_backend", "get_schedule",
+    "available_backends", "available_schedules", "backend_schedule_pairs",
+]

@@ -1,0 +1,107 @@
+"""Built-in backends/schedules for the plan-execute convolution engine.
+
+Schedules:
+  local  single device, no collectives.
+
+Backends:
+  direct     ``F.conv2d`` (cuDNN on the card; the oracle path, and the
+             winner for small channel counts / tiny kernels by the cost
+             model).  Opaque execute, native autograd; the plan epilogue
+             is applied right after the conv.
+  fft-torch  the paper's 4-stage pipeline composed from
+             ``repro_torch.conv.stages`` with the PyTorch matmul CGEMM.
+  fft-cuda   the same stage graph with the hot CGEMM swapped for the
+             hand-written CUDA kernel (``kernels/cgemm``).  On the
+             ``local`` schedule with the ``real`` spectrum a bias/activation
+             epilogue is fused into the CUDA ``dft_tile`` output-inverse
+             kernel (the inverse never round-trips to device memory before
+             the elementwise pass).  On CPU tensors both kernels run their
+             plain PyTorch versions.
+
+The two FFT backends differ *only* in the stage ops they inject into the
+pipeline; transforms and prepare/execute are shared composition.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.conv import stages
+from repro_torch.conv.epilogue import apply_epilogue
+from repro_torch.conv.registry import register_backend, register_schedule
+from repro_torch.core import fftconv as F
+
+
+def _cuda_cgemm_fn(plan):
+    from repro_torch.kernels.cgemm import cgemm_cuda
+    return functools.partial(cgemm_cuda, three_m=plan.three_m)
+
+
+def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias):
+    """The ``spectrum="real"`` fused stage-4 tail: compact-layout scatter +
+    inverse DFT + bias + activation in one ``dft_tile`` kernel pass.
+
+    The activation runs on whole tiles before the overlap-save crop; the
+    crop only *selects* elements, so elementwise-before-crop equals
+    crop-then-elementwise on everything kept.  The kernel reads one tile's
+    spectrum per row, so the CGEMM's (P, M, C') output is transposed to
+    (tiles, P) first.
+    """
+    from repro_torch.kernels.dft_tile import tile_irfft_epilogue_cuda
+    from repro_torch.core.dft import num_freq_real
+    P = num_freq_real(spec.delta)
+    Zrt = F.z_to_flat_tiles(Zr, spec, P)    # (B, C', X, Dl, P) view
+    Zit = F.z_to_flat_tiles(Zi, spec, P)
+    B, Co, X, Dl = Zrt.shape[:4]
+    n = B * Co * X * Dl
+    d = spec.delta
+    b = bias if bias is not None else torch.zeros(
+        (Co,), dtype=Zr.dtype, device=Zr.device)
+    # one bias scalar per tile: broadcast over (B, ., X, Dl) tile indices
+    b_tile = b.to(Zr.dtype)[None, :, None, None].expand(
+        B, Co, X, Dl).reshape(n).contiguous()
+    y = tile_irfft_epilogue_cuda(Zrt.reshape(n, P).contiguous(),
+                                 Zit.reshape(n, P).contiguous(), b_tile,
+                                 activation=epilogue.activation, delta=d)
+    return F.assemble_output_tiles(y.reshape(B, Co, X, Dl, d, d), spec)
+
+
+def _exec_direct(plan, x, k, bias=None, residual=None):
+    y = F.conv2d_direct(x, k, padding=plan.padding,
+                        compute_dtype=plan.compute_dtype)
+    out_dtype = y.dtype
+    return apply_epilogue(y, plan.epilogue, bias=bias,
+                          residual=residual).to(out_dtype)
+
+
+def _fft_torch_pipeline(plan):
+    return stages.pipeline_for(plan.schedule, cgemm_fn=None)
+
+
+def _fft_cuda_pipeline(plan):
+    inverse_fn = None
+    if plan.schedule == "local" and plan.spectrum == "real":
+        # fused dft_tile tail for the compact layout; the full-spectrum
+        # twin takes the composed stage-4 path
+        inverse_fn = _cuda_fused_inverse_real
+    return stages.pipeline_for(plan.schedule,
+                               cgemm_fn=_cuda_cgemm_fn(plan),
+                               inverse_fn=inverse_fn)
+
+
+def register_builtin() -> None:
+    register_schedule("local", requires_mesh=False,
+                      description="single device, no collectives")
+
+    register_backend("direct", _exec_direct, schedules=("local",),
+                     native_autodiff=True, supports_epilogue=True,
+                     description="torch.nn.functional.conv2d (cuDNN)")
+    register_backend("fft-torch", pipeline_factory=_fft_torch_pipeline,
+                     schedules=("local",),
+                     description="FFT conv stage graph, PyTorch matmul "
+                                 "CGEMM")
+    register_backend("fft-cuda", pipeline_factory=_fft_cuda_pipeline,
+                     schedules=("local",),
+                     description="FFT conv stage graph, CUDA CGEMM kernel"
+                                 " (+ fused epilogue inverse kernel)")

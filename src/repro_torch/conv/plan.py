@@ -1,0 +1,496 @@
+"""Plan/execute convolution engine (FFTW-style).
+
+The best convolution algorithm is geometry-dependent (direct vs FFT
+crossover; tile size; 3M vs 4M complex product), so selection lives in a
+planner rather than at call sites:
+
+    plan = plan_conv(x.shape, k.shape, padding=1)   # plan once
+    y = plan(x, k)                                  # execute many times
+
+``ConvPlan`` freezes everything the execution needs: the geometry
+(``ConvSpec``), the (backend, schedule) pair, precision, ``three_m`` and the
+fused epilogue.  Plans are memoized in a keyed LRU cache so repeated layer
+shapes pay planning once.  A plan holds no tensors: it runs on whatever
+device its operands lie on.
+
+On top of the one-shot ``plan(x, k)`` there is a prepare/execute split for
+fixed kernels (serving):
+
+    prepared = plan.prepare(k, weights_version=step)   # stage 2 runs here
+    y = prepared(x)                                    # stage 2 never again
+
+The prepared cache is keyed by (plan, kernel object) and checked against
+``weights_version``: prepare with a new version recomputes (invalidation),
+with the same version returns the cached ``PreparedConv``.
+
+``backend="auto"`` picks direct vs FFT from the ``ConvSpec`` cost model;
+``schedule="auto"`` is ``local``.
+
+This slice serves: the FFT backends run forward only, under
+``torch.inference_mode()``.  Not ported yet (they raise): meshes and the
+sharded schedules, ``overlap``, ``backend="tuned"``, the TPU block sizes
+``bm``/``bn``/``bk``/``dft_bt`` (the CUDA kernels' tiles are fixed), and
+training through an FFT plan (the plan-level VJP).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import threading
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.conv_spec import ConvSpec
+from repro_torch.conv import registry
+from repro_torch.conv.epilogue import Epilogue
+from repro_torch.core.fftconv import SPECTRA
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to repro_torch")
+
+
+def _check_no_grad(plan, *tensors):
+    """FFT plans are forward-only until the plan-level VJP is ported."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"backend {plan.backend!r} is forward-only in repro_torch: "
+            "training through an FFT plan needs the plan-level VJP "
+            "(repro's conv/autodiff.py), which comes with the training "
+            "slice; run under torch.no_grad()/torch.inference_mode() or "
+            "use backend='direct'")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """Frozen, executable schedule for one convolution geometry.
+
+    Execute with ``plan(x, k)``; ``x`` must be ``(B, C, H, W)`` and ``k``
+    ``(C', C, kh, kw)`` matching the planned shapes exactly (plan again
+    for a new geometry — planning is cached, so this is cheap).
+    """
+    spec: ConvSpec
+    backend: str                       # resolved registry name
+    schedule: str                      # resolved registry name
+    padding: tuple                     # (pad_h, pad_w)
+    three_m: bool = True               # 3M (Karatsuba) vs 4M complex product
+    compute_dtype: Any = None          # CGEMM operand dtype (e.g. bf16)
+    epilogue: Epilogue = Epilogue()    # fused elementwise tail (stage 4)
+    spectrum: str = "real"             # "real" (compact Hermitian) | "complex"
+
+    # ---- execution --------------------------------------------------------
+    def __call__(self, x, k, *, bias=None, residual=None):
+        """Execute the plan.  Plans with a non-noop ``epilogue`` take the
+        epilogue *operands* here: ``plan(x, k, bias=b, residual=r)``."""
+        self._check_x(x)
+        if tuple(k.shape) != self.k_shape:
+            raise ValueError(
+                f"plan was built for kernel {self.k_shape}, got "
+                f"{tuple(k.shape)}; call plan_conv for the new geometry")
+        self._check_epilogue_operands(bias, residual)
+        be = registry.get_backend(self.backend)
+        if be.pipeline_factory is not None:
+            _check_no_grad(self, x, k, bias, residual)
+            with torch.inference_mode():
+                return be.make_pipeline(self).full(
+                    self, x, k, bias=bias, residual=residual)
+        if not self.epilogue.is_noop:
+            return be.execute(self, x, k, bias=bias, residual=residual)
+        return be.execute(self, x, k)
+
+    def _check_x(self, x):
+        if tuple(x.shape) != self.x_shape:
+            raise ValueError(
+                f"plan was built for input {self.x_shape}, got "
+                f"{tuple(x.shape)}; call plan_conv for the new geometry")
+
+    def _check_epilogue_operands(self, bias, residual):
+        ep = self.epilogue
+        if ep.bias != (bias is not None):
+            raise ValueError(
+                f"plan epilogue declares bias={ep.bias} but bias "
+                f"{'was not' if ep.bias else 'was'} passed at execution")
+        if ep.residual != (residual is not None):
+            raise ValueError(
+                f"plan epilogue declares residual={ep.residual} but "
+                f"residual {'was not' if ep.residual else 'was'} passed "
+                "at execution")
+        if bias is not None and tuple(bias.shape) != (self.spec.Cout,):
+            raise ValueError(
+                f"epilogue bias must have shape ({self.spec.Cout},), got "
+                f"{tuple(bias.shape)}")
+        if residual is not None and tuple(residual.shape) != self.out_shape:
+            raise ValueError(
+                f"epilogue residual must match the output {self.out_shape},"
+                f" got {tuple(residual.shape)}")
+
+    # ---- prepare/execute split --------------------------------------------
+    def prepare(self, k, *, weights_version=None) -> "PreparedConv":
+        """Run the kernel transform (stage 2) once; return a ``PreparedConv``
+        executing the remaining stages against the cached result.
+
+        The prepared cache is keyed by (plan, kernel object): each layer's
+        kernel gets its own entry even when same-geometry layers share a
+        plan.  ``weights_version`` is the staleness check — preparing the
+        same kernel under the same version returns the memoized
+        ``PreparedConv`` without re-transforming; a different version
+        recomputes and replaces it (weight update -> invalidation).
+        ``None`` always recomputes and is never cached.  The prepared
+        kernel is frozen (computed under ``torch.inference_mode()``).
+        """
+        if tuple(k.shape) != self.k_shape:
+            raise ValueError(
+                f"plan was built for kernel {self.k_shape}, got "
+                f"{tuple(k.shape)}; call plan_conv for the new geometry")
+        global _prepared_hits, _prepared_misses, _prepared_invalidations
+        # Key by (plan, kernel object): same-geometry layers share one
+        # ConvPlan, so the plan alone would hand layer B layer A's cached
+        # transform.  The PreparedConv pins k, so id(k) is unambiguous for
+        # as long as its entry lives.
+        cache_key = (self, id(k))
+        if weights_version is not None:
+            with _prepared_lock:
+                slot = _prepared_cache.get(cache_key)
+                if slot is not None and slot[0] == weights_version:
+                    _prepared_hits += 1
+                    _prepared_cache.move_to_end(cache_key)
+                    return slot[1]
+        be = registry.get_backend(self.backend)
+        if be.pipeline_factory is not None:
+            with torch.inference_mode():
+                state = be.make_pipeline(self).prepare(self, k)
+        else:
+            state = k              # opaque backend: nothing to pre-transform
+        prepared = PreparedConv(plan=self, state=state, kernel=k,
+                                weights_version=weights_version)
+        if weights_version is not None:
+            with _prepared_lock:
+                if cache_key in _prepared_cache:
+                    _prepared_invalidations += 1
+                    _prepared_cache.move_to_end(cache_key)
+                _prepared_misses += 1
+                _prepared_cache[cache_key] = (weights_version, prepared)
+                # same LRU bound as the plan cache: prepared G slabs are
+                # the big tensors, don't let them accumulate unboundedly
+                cap = plan_cache_capacity()
+                while len(_prepared_cache) > cap:
+                    _prepared_cache.popitem(last=False)
+        return prepared
+
+    # ---- introspection ----------------------------------------------------
+    @property
+    def x_shape(self) -> tuple:
+        s = self.spec
+        return (s.B, s.C, s.H, s.W)
+
+    @property
+    def k_shape(self) -> tuple:
+        s = self.spec
+        return (s.Cout, s.C, s.kh, s.kw)
+
+    @property
+    def out_shape(self) -> tuple:
+        s = self.spec
+        return (s.B, s.Cout, s.Ho, s.Wo)
+
+    @property
+    def differentiable(self) -> bool:
+        be = registry.get_backend(self.backend)
+        return self.schedule in be.differentiable
+
+    def flops(self) -> int:
+        """Cost-model FLOPs of the planned path (for rooflines)."""
+        if self.backend == "direct":
+            return self.spec.direct_flops()
+        return self.spec.cgemm_flops(three_m=self.three_m,
+                                     spectrum=self.spectrum) \
+            + self.spec.transform_flops()
+
+    def describe(self) -> str:
+        s = self.spec
+        lines = [
+            f"ConvPlan {self.x_shape} * {self.k_shape} -> {self.out_shape}",
+            f"  backend={self.backend} schedule={self.schedule} "
+            f"three_m={self.three_m} delta={s.delta} "
+            f"spectrum={self.spectrum} epilogue={self.epilogue.describe()}",
+            f"  cost-model FLOPs: direct {s.direct_flops():.3e}, fft "
+            f"{s.cgemm_flops(three_m=self.three_m) + s.transform_flops():.3e}",
+        ]
+        if self.compute_dtype is not None:
+            lines.append(f"  compute_dtype={self.compute_dtype}")
+        return "\n".join(lines)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PreparedConv:
+    """A plan bound to a prepared (already-transformed) kernel.
+
+    ``prepared(x)`` runs stages 1/3/4; stage 2 was paid once in
+    ``plan.prepare``.
+    """
+    plan: ConvPlan
+    state: Any                          # pipeline G pair, or raw k (opaque)
+    kernel: Any = None                  # original k
+    weights_version: Any = None
+
+    def __call__(self, x, *, bias=None, residual=None):
+        self.plan._check_x(x)
+        self.plan._check_epilogue_operands(bias, residual)
+        be = registry.get_backend(self.plan.backend)
+        if be.pipeline_factory is not None:
+            _check_no_grad(self.plan, x, bias, residual)
+            with torch.inference_mode():
+                return be.make_pipeline(self.plan).execute(
+                    self.plan, x, self.state, bias=bias, residual=residual)
+        if not self.plan.epilogue.is_noop:
+            return be.execute(self.plan, x, self.state, bias=bias,
+                              residual=residual)
+        return be.execute(self.plan, x, self.state)
+
+    @property
+    def out_shape(self) -> tuple:
+        return self.plan.out_shape
+
+
+# --------------------------------------------------------------------------
+# Plan cache (bounded LRU) + prepared-kernel cache
+# --------------------------------------------------------------------------
+
+PlanCacheInfo = collections.namedtuple("PlanCacheInfo",
+                                       ["hits", "misses", "size"])
+PreparedCacheInfo = collections.namedtuple(
+    "PreparedCacheInfo", ["hits", "misses", "invalidations", "size"])
+
+_DEFAULT_CACHE_SIZE = 256
+
+_cache_lock = threading.Lock()
+_plan_cache: "collections.OrderedDict" = collections.OrderedDict()
+_cache_hits = 0
+_cache_misses = 0
+
+_prepared_lock = threading.Lock()
+# (plan, id(k)) -> (weights_version, prepared); LRU-bounded like the plans
+_prepared_cache: "collections.OrderedDict" = collections.OrderedDict()
+_prepared_hits = 0
+_prepared_misses = 0
+_prepared_invalidations = 0
+
+
+def plan_cache_capacity() -> int:
+    """Max cached plans (env ``REPRO_CONV_PLAN_CACHE_SIZE``, default 256)."""
+    try:
+        cap = int(os.environ.get("REPRO_CONV_PLAN_CACHE_SIZE",
+                                 _DEFAULT_CACHE_SIZE))
+    except ValueError:
+        cap = _DEFAULT_CACHE_SIZE
+    return max(1, cap)
+
+
+def plan_cache_info() -> PlanCacheInfo:
+    with _cache_lock:
+        return PlanCacheInfo(_cache_hits, _cache_misses, len(_plan_cache))
+
+
+def clear_plan_cache() -> None:
+    global _cache_hits, _cache_misses
+    with _cache_lock:
+        _plan_cache.clear()
+        _cache_hits = 0
+        _cache_misses = 0
+
+
+def prepared_cache_info() -> PreparedCacheInfo:
+    with _prepared_lock:
+        return PreparedCacheInfo(_prepared_hits, _prepared_misses,
+                                 _prepared_invalidations,
+                                 len(_prepared_cache))
+
+
+def clear_prepared_cache() -> None:
+    global _prepared_hits, _prepared_misses, _prepared_invalidations
+    with _prepared_lock:
+        _prepared_cache.clear()
+        _prepared_hits = 0
+        _prepared_misses = 0
+        _prepared_invalidations = 0
+
+
+# --------------------------------------------------------------------------
+# Planner
+# --------------------------------------------------------------------------
+
+def _normalize_padding(padding) -> tuple:
+    if isinstance(padding, int):
+        return (padding, padding)
+    ph, pw = padding
+    return (int(ph), int(pw))
+
+
+def _build_spec(x_shape, k_shape, padding, delta) -> ConvSpec:
+    """Validated ``ConvSpec`` for a conv geometry.  Kernels larger than the
+    tile get a widened (then-unused) tile so the spec validates; only
+    ``direct`` can execute them."""
+    B, C, H, W = x_shape
+    Cout, C2, kh, kw = k_shape
+    if C != C2:
+        raise ValueError(f"channel mismatch: input C={C}, kernel C={C2}")
+    return ConvSpec(B=B, C=C, Cout=Cout, H=H, W=W, kh=kh, kw=kw,
+                    pad_h=padding[0], pad_w=padding[1],
+                    delta=max(delta, kh, kw))
+
+
+def _auto_backend(spec: ConvSpec, three_m: bool) -> str:
+    """Direct-vs-FFT crossover on the ConvSpec cost model."""
+    fft = spec.cgemm_flops(three_m=three_m) + spec.transform_flops()
+    return "direct" if spec.direct_flops() <= fft else "fft-torch"
+
+
+def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
+             compute_dtype, epilogue, spectrum) -> ConvPlan:
+    _, _, kh, kw = k_shape
+    if spectrum not in SPECTRA:
+        raise ValueError(
+            f"unknown spectrum {spectrum!r} (choose 'real', 'complex', or "
+            "'auto')")
+    # Kernels larger than the FFT tile rule out the FFT backends but are
+    # fine for direct conv: _build_spec widens the (then-unused) tile so
+    # the spec validates, and auto resolves to direct below.
+    oversize = max(kh, kw) > delta
+    if oversize and backend not in ("auto", "direct"):
+        registry.get_backend(backend)        # unknown names error first
+        raise ValueError(
+            f"kernel {kh}x{kw} exceeds tile size delta={delta}; only the "
+            f"'direct' backend supports it (requested {backend!r})")
+    spec = _build_spec(x_shape, k_shape, padding, delta)
+
+    if schedule == "auto":
+        schedule = "local"
+    registry.get_schedule(schedule)
+
+    if backend == "auto":
+        backend = "direct" if oversize else _auto_backend(spec, three_m)
+    be = registry.get_backend(backend)
+    if schedule not in be.schedules:
+        raise ValueError(
+            f"backend {backend!r} does not support schedule {schedule!r} "
+            f"(supported: {be.schedules})")
+    if not epilogue.is_noop and not be.epilogue_capable:
+        raise ValueError(
+            f"backend {backend!r} cannot fuse an epilogue "
+            f"({epilogue.describe()}); register it with "
+            "supports_epilogue=True or use a stage-pipeline backend")
+    if spectrum == "complex" and be.pipeline_factory is None:
+        raise ValueError(
+            f"spectrum='complex' (the full-spectrum twin) only applies to "
+            f"the FFT stage pipelines; backend {backend!r} has no spectrum")
+    return ConvPlan(spec=spec, backend=backend, schedule=schedule,
+                    padding=padding, three_m=three_m,
+                    compute_dtype=compute_dtype, epilogue=epilogue,
+                    spectrum=spectrum)
+
+
+def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
+              backend: str = "auto", schedule: str = "auto", mesh=None,
+              three_m: bool = True, bm=None, bn=None, bk=None, dft_bt=None,
+              compute_dtype=None, epilogue: Optional[Epilogue] = None,
+              spectrum: str = "auto", overlap: str = "off",
+              cache: bool = True) -> ConvPlan:
+    """Create (or fetch from the plan cache) a ``ConvPlan``.
+
+    Args:
+      spec: a ``ConvSpec`` (geometry + padding + delta in one object), or
+        the input shape ``(B, C, H, W)`` with ``k_shape``/``padding``/
+        ``delta`` given separately.
+      k_shape: kernel shape ``(C', C, kh, kw)`` with ``kh, kw <= delta``
+        (shape-tuple form only — a ``ConvSpec`` already carries it).
+      padding: int or ``(ph, pw)`` zero padding (default 0).
+      delta: FFT tile size (the paper uses 16).
+      backend: ``"direct"`` | ``"fft-torch"`` | ``"fft-cuda"`` | ``"auto"``
+        (cost-model crossover between direct and ``fft-torch``; never
+        auto-selects the CUDA kernels).
+      schedule: ``"local"`` | ``"auto"`` (= local).
+      three_m: 3-matmul (Karatsuba) vs 4-matmul complex product.
+      compute_dtype: CGEMM operand dtype (e.g. ``torch.bfloat16``; float32
+        accumulation).
+      epilogue: ``Epilogue`` fused into stage 4 (bias add, activation,
+        residual add).  The operand values are execution arguments:
+        ``plan(x, k, bias=b, residual=r)``.
+      spectrum: frequency-domain layout of the FFT pipelines: ``"real"``
+        (the ``"auto"`` default, the compact Hermitian half-spectrum) or
+        ``"complex"`` (the full-spectrum twin).
+      cache: memoize the plan under its argument key (bounded LRU, see
+        ``plan_cache_capacity``).
+
+    Not ported yet, and rejected with ``NotImplementedError``: ``mesh``
+    (and the ``nfft``/``wfft`` schedules), ``overlap`` other than
+    ``"off"``, ``backend="tuned"`` and the block sizes ``bm``/``bn``/
+    ``bk``/``dft_bt``.
+
+    Returns:
+      A frozen ``ConvPlan``; call it as ``plan(x, k)`` or split with
+      ``plan.prepare(k)``.
+    """
+    global _cache_hits, _cache_misses
+    if mesh is not None or schedule in ("nfft", "wfft"):
+        raise _not_ported("sharded execution (mesh, nfft/wfft schedules)")
+    if overlap != "off":
+        raise _not_ported(f"overlap={overlap!r}")
+    if backend == "tuned":
+        raise _not_ported("backend='tuned' (the measured autotuner)")
+    if any(v is not None for v in (bm, bn, bk, dft_bt)):
+        raise _not_ported(
+            "bm/bn/bk/dft_bt (TPU block sizes; the CUDA kernels' tiles are "
+            "fixed)")
+    if isinstance(spec, ConvSpec):
+        if k_shape is not None or padding is not None or delta is not None:
+            raise TypeError(
+                "plan_conv(spec, ...): a ConvSpec already carries k_shape/"
+                "padding/delta — pass them only with the shape-tuple form")
+        x_shape = (spec.B, spec.C, spec.H, spec.W)
+        k_shape = (spec.Cout, spec.C, spec.kh, spec.kw)
+        padding = (spec.pad_h, spec.pad_w)
+        delta = spec.delta
+    else:
+        if k_shape is None:
+            raise TypeError(
+                "plan_conv(x_shape, k_shape, ...): k_shape is required "
+                "with the shape-tuple form (or pass a ConvSpec)")
+        x_shape = spec
+        padding = 0 if padding is None else padding
+        delta = 16 if delta is None else delta
+    x_shape, k_shape = tuple(map(int, x_shape)), tuple(map(int, k_shape))
+    padding = _normalize_padding(padding)
+    epilogue = Epilogue() if epilogue is None else epilogue
+    if spectrum == "auto":
+        spectrum = "real"    # deterministic default — share the cache entry
+    key = (x_shape, k_shape, padding, delta, backend, schedule, three_m,
+           compute_dtype, epilogue, spectrum)
+    if cache:
+        with _cache_lock:
+            plan = _plan_cache.get(key)
+            if plan is not None:
+                _cache_hits += 1
+                _plan_cache.move_to_end(key)
+                return plan
+    plan = _resolve(x_shape, k_shape, padding, delta, backend, schedule,
+                    three_m, compute_dtype, epilogue, spectrum)
+    if cache:
+        with _cache_lock:
+            _cache_misses += 1
+            _plan_cache[key] = plan
+            _plan_cache.move_to_end(key)
+            cap = plan_cache_capacity()
+            while len(_plan_cache) > cap:
+                _plan_cache.popitem(last=False)
+    return plan
+
+
+def conv2d(x, k, **kwargs):
+    """One-shot convenience: ``plan_conv(x.shape, k.shape, **kwargs)(x, k)``.
+
+    The plan cache makes repeated same-shape calls pay planning once.
+    """
+    return plan_conv(tuple(x.shape), tuple(k.shape), **kwargs)(x, k)

@@ -1,0 +1,96 @@
+"""The port's CUDA kernels on the card, held to their plain PyTorch
+versions; and an ``fft-cuda`` plan on the card held to cuDNN.
+
+Every test here needs an NVIDIA GPU and skips without one (the kernels
+have no CPU mode).  The file imports neither jax nor repro, so it runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: CGEMM scaled atol 2e-5 in float32 and 5e-2 with bf16
+operands (as tests/test_kernels.py); fused inverse 1e-4 absolute on
+unit-scale spectra; a whole conv 3e-4 against cuDNN with TF32 off.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+
+from repro_torch.conv import Epilogue, plan_conv  # noqa: E402
+from repro_torch.core.dft import num_freq_real  # noqa: E402
+from repro_torch.kernels.cgemm import cgemm_cuda, cgemm_ref  # noqa: E402
+from repro_torch.kernels.dft_tile import (  # noqa: E402
+    tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref)
+
+pytestmark = pytest.mark.cuda
+
+ACTIVATIONS = ["none", "relu", "gelu", "silu"]
+CGEMM_CASES = [(4, 128, 128, 128), (3, 200, 67, 130), (2, 16, 3, 5),
+               (1, 256, 64, 256), (9, 32, 512, 64), (130, 4, 512, 512)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rand(shape, seed):
+    return torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(shape).astype(
+            np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("three_m", [True, False])
+def test_cgemm_kernel_matches_plain(cuda, dtype, three_m):
+    for P, M, C, N in CGEMM_CASES:
+        ops = [_rand(s, i).to(cuda, dtype) for i, s in enumerate(
+            [(P, M, C), (P, M, C), (P, C, N), (P, C, N)])]
+        before = cgemm_cuda.launches
+        Zr, Zi = cgemm_cuda(*ops, three_m=three_m)
+        Rr, Ri = cgemm_ref(*ops, three_m=three_m)
+        torch.cuda.synchronize()
+        assert cgemm_cuda.launches == before + 1
+        assert Zr.dtype == dtype
+        scale = Rr.float().abs().max().item() + 1e-9
+        tol = 2e-5 if dtype == torch.float32 else 5e-2
+        for ours, ref in ((Zr, Rr), (Zi, Ri)):
+            err = (ours.float() - ref.float()).abs().max().item() / scale
+            assert err <= tol, ((P, M, C, N), err)
+
+
+@pytest.mark.parametrize("delta,pad", [(8, 0), (15, 0), (16, 0), (16, 6),
+                                       (32, 0)])
+def test_irfft_epilogue_kernel_matches_plain(cuda, delta, pad):
+    P = num_freq_real(delta) + pad
+    zr, zi = _rand((1000, P), 1).to(cuda), _rand((1000, P), 2).to(cuda)
+    b = _rand((1000,), 3).to(cuda)
+    for activation in ACTIVATIONS:
+        before = tile_irfft_epilogue_cuda.launches
+        y = tile_irfft_epilogue_cuda(zr, zi, b, activation=activation,
+                                     delta=delta)
+        y0 = tile_irfft_epilogue_ref(zr, zi, b, activation=activation,
+                                     delta=delta)
+        torch.cuda.synchronize()
+        assert tile_irfft_epilogue_cuda.launches == before + 1
+        assert (y - y0).abs().max().item() <= 1e-4
+
+
+def test_fft_cuda_plan_matches_cudnn(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    x, k, bias = (_rand((2, 16, 30, 30), 4).to(cuda),
+                  _rand((24, 16, 3, 3), 5).to(cuda), _rand((24,), 6).to(cuda))
+    ep = Epilogue(bias=True, activation="relu")
+    plan = plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                     epilogue=ep)
+    direct = plan_conv(x.shape, k.shape, padding=1, backend="direct",
+                       epilogue=ep)
+    launches = (cgemm_cuda.launches, tile_irfft_epilogue_cuda.launches)
+    y = plan.prepare(k)(x, bias=bias)
+    assert (cgemm_cuda.launches, tile_irfft_epilogue_cuda.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    y0 = direct(x, k, bias=bias)
+    scale = y0.abs().max().item()
+    assert (y - y0).abs().max().item() / scale <= 3e-4

@@ -1,0 +1,132 @@
+"""The port's kernel wrappers against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; those are
+held to ``cgemm_pallas`` and ``tile_irfft_epilogue_pallas`` running in
+interpret mode, on the same numpy inputs:
+
+- CGEMM: the cases of tests/test_kernels.py (ragged dims, C=3), 3M and 4M,
+  scaled atol 2e-5; bfloat16 operands at 5e-2 (the Pallas kernel adds its
+  K blocks in bf16, the port in float32: they agree within bf16 rounding).
+- fused compact inverse + epilogue: every activation, delta in {8, 15,
+  16}, with the spectrum padded past P_real, 1e-4.
+
+tests/test_torch_cuda.py holds the CUDA kernels themselves to these plain
+versions on the card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+
+import jax.numpy as jnp
+
+from repro.core.dft import num_freq_real
+from repro.kernels.cgemm import cgemm_pallas, cgemm_ref as j_cgemm_ref
+from repro.kernels.dft_tile import tile_irfft_epilogue_pallas
+from repro_torch.kernels.cgemm import cgemm_cuda
+from repro_torch.kernels.dft_tile import tile_irfft_epilogue_cuda
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _operands(P, M, C, N, seed=1):
+    return [_rand((P, M, C), seed), _rand((P, M, C), seed + 1),
+            _rand((P, C, N), seed + 2), _rand((P, C, N), seed + 3)]
+
+
+
+# --------------------------------------------------------------------------
+# kernel 1: batched complex GEMM
+# --------------------------------------------------------------------------
+
+CGEMM_CASES = [(4, 128, 128, 128), (3, 200, 67, 130), (2, 16, 3, 5),
+               (1, 256, 64, 256), (9, 32, 512, 64)]
+
+
+@pytest.mark.parametrize("P,M,C,N", CGEMM_CASES)
+@pytest.mark.parametrize("three_m", [True, False])
+def test_cgemm_plain_matches_pallas(P, M, C, N, three_m):
+    ops = _operands(P, M, C, N)
+    Zr, Zi = cgemm_cuda(*map(torch.from_numpy, ops), three_m=three_m)
+    Jr, Ji = cgemm_pallas(*map(jnp.asarray, ops), three_m=three_m)
+    scale = float(np.abs(np.asarray(Jr)).max()) + 1e-9
+    np.testing.assert_allclose(Zr.numpy() / scale, np.asarray(Jr) / scale,
+                               atol=2e-5)
+    np.testing.assert_allclose(Zi.numpy() / scale, np.asarray(Ji) / scale,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("three_m", [True, False])
+def test_cgemm_plain_bf16_matches_pallas(three_m):
+    ops = _operands(2, 64, 32, 48, seed=5)
+    Zr, Zi = cgemm_cuda(*(torch.from_numpy(a).bfloat16() for a in ops),
+                        three_m=three_m)
+    assert Zr.dtype == torch.bfloat16
+    Jr, Ji = cgemm_pallas(*(jnp.asarray(a).astype(jnp.bfloat16)
+                            for a in ops), three_m=three_m)
+    R, _ = j_cgemm_ref(*map(jnp.asarray, ops))
+    scale = float(np.abs(np.asarray(R)).max()) + 1e-9
+    for ours, theirs in ((Zr, Jr), (Zi, Ji)):
+        np.testing.assert_allclose(ours.float().numpy() / scale,
+                                   np.asarray(theirs, np.float32) / scale,
+                                   atol=5e-2)
+
+
+def test_cgemm_wrapper_refuses_what_the_kernel_does_not_take():
+    ops = [torch.from_numpy(a) for a in _operands(2, 8, 4, 6)]
+    with pytest.raises(ValueError, match="contiguous"):
+        cgemm_cuda(ops[0].transpose(1, 2).contiguous().transpose(1, 2),
+                   *ops[1:])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cgemm_cuda(*(t.double() for t in ops))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        cgemm_cuda(ops[0], ops[1], ops[2][:, :3], ops[3][:, :3])
+    before = cgemm_cuda.launches
+    cgemm_cuda(*ops)                    # CPU: the plain version, no launch
+    assert cgemm_cuda.launches == before
+
+
+# --------------------------------------------------------------------------
+# kernel 2: fused compact-spectrum inverse + bias + activation
+# --------------------------------------------------------------------------
+
+ACTIVATIONS = ["none", "relu", "gelu", "silu"]
+INVERSE_CASES = [(d, act, pad) for d in (8, 15, 16) for act in ACTIVATIONS
+                 for pad in (0, 6) if pad == 0 or d == 16]
+
+
+def _inverse_inputs(n, delta, pad, seed):
+    P = num_freq_real(delta) + pad
+    return _rand((n, P), seed), _rand((n, P), seed + 1), _rand((n,), seed + 2)
+
+
+@pytest.mark.parametrize("delta,activation,pad", INVERSE_CASES)
+def test_irfft_epilogue_plain_matches_pallas(delta, activation, pad):
+    zr, zi, b = _inverse_inputs(7, delta, pad, seed=delta)
+    y = tile_irfft_epilogue_cuda(*map(torch.from_numpy, (zr, zi, b)),
+                                 activation=activation, delta=delta)
+    yj = tile_irfft_epilogue_pallas(*map(jnp.asarray, (zr, zi, b)),
+                                    activation=activation, delta=delta)
+    assert tuple(y.shape) == (7, delta, delta)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_irfft_epilogue_wrapper_refuses_what_the_kernel_does_not_take():
+    zr, zi, b = map(torch.from_numpy, _inverse_inputs(3, 16, 0, seed=9))
+    with pytest.raises(ValueError, match="delta <= 32"):
+        tile_irfft_epilogue_cuda(zr, zi, b, delta=33)
+    with pytest.raises(ValueError, match="activation"):
+        tile_irfft_epilogue_cuda(zr, zi, b, activation="tanh")
+    with pytest.raises(ValueError, match="below the 130 points"):
+        tile_irfft_epilogue_cuda(zr[:, :129], zi[:, :129], b)
+    with pytest.raises(ValueError, match="one value per tile"):
+        tile_irfft_epilogue_cuda(zr, zi, b[:2])
+    with pytest.raises(TypeError, match="float32"):
+        tile_irfft_epilogue_cuda(zr.double(), zi.double(), b.double())
+    before = tile_irfft_epilogue_cuda.launches
+    tile_irfft_epilogue_cuda(zr, zi, b)
+    assert tile_irfft_epilogue_cuda.launches == before

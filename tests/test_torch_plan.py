@@ -1,0 +1,242 @@
+"""repro_torch.conv's planner against repro.conv's: one-shot and prepared
+execution of ``fft-torch`` / ``fft-cuda`` (kernels' plain versions on the
+CPU) against ``fft-xla`` / ``fft-pallas`` and the direct oracle, the
+auto backend pick, the plan and prepared caches after the same call
+sequence, the stage-op counts, the knobs that are not ported yet, and the
+conversion of parameters and prepared slabs.  Outputs are held to 1e-4
+against JAX (same algorithm, float32) and 3e-4 against the oracle (as the
+JAX package's own plan tests)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+
+import jax.numpy as jnp
+
+import repro.conv as jconv
+import repro_torch.conv as tconv
+from repro_torch import convert
+from repro_torch.core.fftconv import conv2d_direct
+
+TWINS = [("fft-torch", "fft-xla"), ("fft-cuda", "fft-pallas")]
+
+
+def _rand(shape, seed, scale=1.0):
+    return (scale * np.random.default_rng(seed).standard_normal(shape)
+            ).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("backend,jax_backend", TWINS)
+@pytest.mark.parametrize("prepared", [False, True])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_plan_matches_jax_and_oracle(backend, jax_backend, prepared,
+                                     epilogue):
+    x, k, b = _rand((2, 3, 18, 18), 1), _rand((4, 3, 3, 3), 2), \
+        _rand((4,), 3)
+    ep_kw = dict(bias=True, activation="relu") if epilogue else {}
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend=backend,
+                           epilogue=tconv.Epilogue(**ep_kw))
+    jplan = jconv.plan_conv(x.shape, k.shape, padding=1,
+                            backend=jax_backend,
+                            epilogue=jconv.Epilogue(**ep_kw))
+    bias = {"bias": _t(b)} if epilogue else {}
+    jbias = {"bias": jnp.asarray(b)} if epilogue else {}
+    if prepared:
+        y = plan.prepare(_t(k))(_t(x), **bias)
+        yj = jplan.prepare(jnp.asarray(k))(jnp.asarray(x), **jbias)
+    else:
+        y = plan(_t(x), _t(k), **bias)
+        yj = jplan(jnp.asarray(x), jnp.asarray(k), **jbias)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=1e-4,
+                               atol=1e-4)
+    y0 = conv2d_direct(_t(x), _t(k), padding=1)
+    if epilogue:
+        y0 = torch.relu(y0 + _t(b)[None, :, None, None])
+    np.testing.assert_allclose(y.numpy(), y0.numpy(), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("backend,jax_backend,tol", [
+    ("fft-torch", "fft-xla", 1e-4),
+    # the kernels round Z to bf16, and Pallas forms the 3M sums Dr+Di,
+    # Gr+Gi in bf16 where the CUDA kernel keeps them in float32
+    ("fft-cuda", "fft-pallas", 5e-2)])
+@pytest.mark.parametrize("three_m", [True, False])
+def test_bf16_compute_dtype_matches_jax(backend, jax_backend, tol, three_m):
+    """compute_dtype=bf16 reaches the hot stage (the cgemm_dtype fact) and
+    agrees with the JAX twin's bf16 plan, relative to the output's
+    scale."""
+    x, k = _rand((1, 4, 16, 16), 4), _rand((6, 4, 3, 3), 5)
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend=backend,
+                           three_m=three_m, compute_dtype=torch.bfloat16)
+    jplan = jconv.plan_conv(x.shape, k.shape, padding=1,
+                            backend=jax_backend, three_m=three_m,
+                            compute_dtype=jnp.bfloat16)
+    with tconv.stage_trace() as counts:
+        y = plan(_t(x), _t(k))
+    assert counts[("cgemm_dtype", "bfloat16")] == 1
+    yj = np.asarray(jplan(jnp.asarray(x), jnp.asarray(k)))
+    scale = np.abs(yj).max()
+    np.testing.assert_allclose(y.numpy() / scale, yj / scale, atol=tol)
+
+
+def test_complex_spectrum_and_residual_epilogue():
+    """The full-spectrum twin and a residual epilogue (composed stage-4
+    path, not the fused kernel) on fft-cuda match fft-pallas."""
+    x, k = _rand((2, 3, 12, 12), 6), _rand((5, 3, 3, 3), 7)
+    b, r = _rand((5,), 8), _rand((2, 5, 12, 12), 9)
+    ep = dict(bias=True, activation="gelu", residual=True)
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                           spectrum="complex",
+                           epilogue=tconv.Epilogue(**ep))
+    jplan = jconv.plan_conv(x.shape, k.shape, padding=1,
+                            backend="fft-pallas", spectrum="complex",
+                            epilogue=jconv.Epilogue(**ep))
+    y = plan(_t(x), _t(k), bias=_t(b), residual=_t(r))
+    yj = jplan(*map(jnp.asarray, (x, k)), bias=jnp.asarray(b),
+               residual=jnp.asarray(r))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_auto_backend_picks_like_jax():
+    """1x1 layers go direct; a wide 3x3 layer goes to the FFT (fft-torch
+    here where JAX says fft-xla)."""
+    small = ((1, 8, 16, 16), (8, 8, 1, 1))
+    wide = ((4, 256, 56, 56), (256, 256, 3, 3))
+    assert tconv.plan_conv(*small).backend == "direct"
+    assert jconv.plan_conv(*small).backend == "direct"
+    assert tconv.plan_conv(*wide, padding=1).backend == "fft-torch"
+    assert jconv.plan_conv(*wide, padding=1).backend == "fft-xla"
+    x, k = _rand(small[0], 10), _rand(small[1], 11)
+    np.testing.assert_allclose(
+        tconv.plan_conv(*small)(_t(x), _t(k)).numpy(),
+        np.asarray(jconv.plan_conv(*small)(jnp.asarray(x), jnp.asarray(k))),
+        rtol=1e-5, atol=1e-5)
+
+
+def _cache_sequence(conv, asarray, k1, k2):
+    conv.clear_plan_cache()
+    conv.clear_prepared_cache()
+    shapes = ((2, 3, 16, 16), (4, 3, 3, 3))
+    plan = conv.plan_conv(*shapes, padding=1, backend="fft-xla"
+                          if conv is jconv else "fft-torch")
+    again = conv.plan_conv(*shapes, padding=1, backend=plan.backend)
+    assert again is plan
+    conv.plan_conv((2, 3, 17, 16), (4, 3, 3, 3), padding=1,
+                   backend=plan.backend)
+    k1, k2 = asarray(k1), asarray(k2)
+    p1 = plan.prepare(k1, weights_version=1)
+    assert plan.prepare(k1, weights_version=1) is p1        # hit
+    plan.prepare(k2, weights_version=2)                     # miss
+    assert plan.prepare(k1, weights_version=2) is not p1    # invalidation
+    plan.prepare(k1)                                        # never cached
+    out = (tuple(conv.plan_cache_info()), tuple(conv.prepared_cache_info()))
+    conv.clear_plan_cache()
+    conv.clear_prepared_cache()
+    return out
+
+
+def test_cache_counts_follow_jax():
+    k1, k2 = _rand((4, 3, 3, 3), 12), _rand((4, 3, 3, 3), 13)
+    ours = _cache_sequence(tconv, _t, k1, k2)
+    theirs = _cache_sequence(jconv, jnp.asarray, k1, k2)
+    assert ours == theirs == ((1, 2, 2), (1, 3, 1, 2))
+
+
+def test_stage_counts_one_shot_and_prepared():
+    x, k = _rand((1, 2, 12, 12), 14), _rand((3, 2, 3, 3), 15)
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                           epilogue=tconv.Epilogue(bias=True,
+                                                   activation="relu"))
+    b = _t(_rand((3,), 16))
+    with tconv.stage_trace() as full:
+        plan(_t(x), _t(k), bias=b)
+    for op in ("input_transform", "kernel_transform", "cgemm",
+               "output_inverse"):
+        assert full[op] == 1
+    assert full[("cgemm_dtype", "float32")] == 1
+    assert full[("cgemm_shape", (plan.spec.M, 3, 2))] == 1
+    with tconv.stage_trace() as prep:
+        prepared = plan.prepare(_t(k))
+    with tconv.stage_trace() as exe:
+        prepared(_t(x), bias=b)
+        prepared(_t(x), bias=b)
+    assert prep["kernel_transform"] == 1 and "cgemm" not in prep
+    assert exe.get("kernel_transform", 0) == 0 and exe["cgemm"] == 2
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(mesh=object()), dict(schedule="nfft"), dict(overlap="slab:2"),
+    dict(backend="tuned"), dict(backend="fft-cuda", bm=64),
+    dict(backend="fft-cuda", dft_bt=128),
+])
+def test_not_ported_knobs_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tconv.plan_conv((1, 3, 16, 16), (4, 3, 3, 3), padding=1, **kwargs)
+
+
+def test_fft_plans_are_forward_only():
+    x, k = _rand((1, 2, 10, 10), 17), _rand((3, 2, 3, 3), 18)
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda")
+    xg = _t(x).requires_grad_()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        plan(xg, _t(k))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        plan.prepare(_t(k))(xg)
+    with torch.no_grad():
+        plan(xg, _t(k))                # no graph asked for: fine
+    assert not plan.differentiable
+    direct = tconv.plan_conv(x.shape, k.shape, padding=1, backend="direct")
+    assert direct.differentiable
+    direct(xg, _t(k)).sum().backward()
+    assert xg.grad is not None
+
+
+def test_netplan_prepares_once_per_version():
+    layers = [tconv.NetworkConv("a", (1, 3, 12, 12), (4, 3, 3, 3), 1),
+              tconv.NetworkConv("b", (1, 4, 12, 12), (4, 4, 3, 3), 1)]
+    net = tconv.plan_network(layers, backend="fft-cuda")
+    params = {"a": _t(_rand((4, 3, 3, 3), 19)),
+              "b": _t(_rand((4, 4, 3, 3), 20))}
+    with tconv.stage_trace() as counts:
+        p0 = net.prepare(params, weights_version=0)
+        p0b = net.prepare(params, weights_version=0)
+    assert counts["kernel_transform"] == 2
+    assert all(p0[n] is p0b[n] for n in net)
+    assert "2 layers" in net.describe()
+    with pytest.raises(ValueError, match="missing kernels"):
+        net.prepare({"a": params["a"]})
+    tconv.clear_prepared_cache()
+
+
+def test_convert_carries_params_and_prepared_slab():
+    """params_from_jax keeps values exactly; prepared_from_jax turns the
+    JAX prepared state into the slab the port's stage 2 produces (1e-5),
+    and executing against it gives the port's output."""
+    k, b, x = _rand((4, 3, 3, 3), 21), _rand((4,), 22), _rand((1, 3, 14, 14),
+                                                               23)
+    ks, bs = convert.params_from_jax({"c": k}, {"c": b}, device="cpu")
+    assert np.array_equal(ks["c"].numpy(), k)
+    assert np.array_equal(bs["c"].numpy(), b)
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda")
+    jplan = jconv.plan_conv(x.shape, k.shape, padding=1,
+                            backend="fft-pallas")
+    jstate = [np.asarray(g) for g in jplan.prepare(jnp.asarray(k)).state]
+    slab = convert.prepared_from_jax(jstate, plan, device="cpu")
+    ours = plan.prepare(ks["c"])
+    for a, c in zip(slab, ours.state):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    y = tconv.PreparedConv(plan=plan, state=slab)(_t(x))
+    np.testing.assert_allclose(y.numpy(), ours(_t(x)).numpy(), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(TypeError, match="float32"):
+        convert.params_from_jax({"c": k.astype(np.float64)}, {"c": b},
+                                device="cpu")
+    with pytest.raises(ValueError, match="expected"):
+        convert.prepared_from_jax([g[:-1] for g in jstate], plan,
+                                  device="cpu")
