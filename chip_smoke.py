@@ -3,24 +3,40 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and exits non-zero:
+Phases, each printing JSON lines; any failure raises and exits non-zero:
 
   1. device   a CUDA card must be present; its name and power limit
   2. build    ``nvcc`` builds every kernel from this checkout's sources, one
               compiler per source, all started together
   3. kernels  each hand-written kernel against its plain PyTorch version on
-              the card, at the shapes the VGG trunk gives it at 224x224,
-              batch 4, with its time, the plain version's, the library
-              call's and the least time the card could take (``bound_ms``)
+              the card, at the shapes the main paths give it (the VGG trunk
+              at 224x224, batch 4: its served forward, its prepare and its
+              training step), with its time, the plain version's, the
+              library call's and the least time the card could take
+              (``bound_ms``); and the training step's dk (cuDNN) in both
+              formulations
   4. slice    ``repro_torch.launch.serve`` serves the VGG trunk on backend
               ``fft-cuda`` (plan_network -> prepare -> request batches ->
               weight-update sweep); launch counters show every forward ran
-              both kernels once per layer; the output is held against the
-              same trunk on backend ``direct`` (cuDNN, TF32 off)
+              the forward tile DFT, the CGEMM and the fused inverse once per
+              layer, and every prepare the forward tile DFT once per layer;
+              the output is held against the same trunk on backend
+              ``direct`` (cuDNN, TF32 off)
   5. profile  kernel time by name for one served forward (torch.profiler)
+  6. train    training steps (forward + backward) of the same trunk built
+              from ``models.layers.conv_block`` on ``fft-cuda``: exact
+              launches of every kernel per step, every layer's dk and
+              d_bias against the same step on ``direct`` in float64
+              (cuDNN), the step times beside ``direct`` in float32, and
+              device time by kernel over one step of each
+  7. trainer  ``repro_torch.examples.train_cnn_fftconv`` at its defaults on
+              ``fft-cuda`` (its own asserts), its exact launches, and its
+              first losses against the same run on ``direct``
 
 and then the ``kernels`` summary line, the card's name and power limit as
-``nvidia-smi`` gives them, and the final ``{"ok": true, ...}`` line.
+``nvidia-smi`` gives them, and the final ``{"ok": true, ...}`` line.  The
+launch counters are set to 0 right before each main path (4, 6, 7) and
+read right after it.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
@@ -31,21 +47,41 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs.paper_convs import network_convs  # noqa: E402
-from repro_torch.conv import plan_network  # noqa: E402
+import torch.nn.functional as TF  # noqa: E402
+
+from repro_torch.conv import autodiff, plan_conv, plan_network  # noqa: E402
+from repro_torch.core.dft import compact_layout  # noqa: E402
 from repro_torch.core.fftconv import freq_count  # noqa: E402
+from repro_torch.examples import train_cnn_fftconv  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cgemm import cgemm_cuda, cgemm_ref  # noqa: E402
 from repro_torch.kernels.dft_tile import (  # noqa: E402
-    tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref)
+    tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref,
+    tile_irfft_ref, tile_rfft_cuda, tile_rfft_ref)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.layers import conv_block, maxpool2x2  # noqa: E402
 
 IMAGE, BATCH, GEN, SEED = 224, 4, 10, 0
+TRAIN_STEPS = 5                         # timed training steps per backend
+DFT_SRC = "src/repro_torch/kernels/dft_tile/csrc/dft_tile.cu"
+# name -> (wrapper whose .launches counts its kernel, source, TPU kernel)
+KERNELS = {
+    "cgemm": (cgemm_cuda, "src/repro_torch/kernels/cgemm/csrc/cgemm.cu",
+              "src/repro/kernels/cgemm/kernel.py:25"),
+    "tile_irfft_epilogue": (tile_irfft_epilogue_cuda, DFT_SRC,
+                            "src/repro/kernels/dft_tile/kernel.py:88"),
+    "tile_rfft": (tile_rfft_cuda, DFT_SRC,
+                  "src/repro/kernels/dft_tile/kernel.py:40"),
+    "tile_irfft": (tile_irfft_cuda, DFT_SRC,
+                   "src/repro/kernels/dft_tile/kernel.py:79"),
+}
 
 # NVIDIA H100 SXM data sheet, dense rates
 HBM_BYTES_S = 3.35e12
@@ -53,7 +89,25 @@ PEAK_FLOPS = {torch.float32: 67e12,     # float32 outside the tensor cores
               torch.bfloat16: 989e12}   # bf16 tensor cores
 CGEMM_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}  # scaled atol
 INVERSE_TOL = 1e-4                                        # scaled atol
+FORWARD_TOL = 2e-5                      # scaled atol, forward tile DFT
 SLICE_TOL = 1e-3                        # max|y - y_direct| / max|y_direct|
+GRAD_TOL = 1e-3                         # max|g - g_f64| / max|g_f64|
+LOSS_TOL = 1e-3                         # |l - l_direct| / |l_direct|
+
+
+def zero_counts():
+    for wrapper, _, _ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: wrapper.launches
+            for name, (wrapper, _, _) in KERNELS.items()}
+
+
+def expect_counts(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
 def emit(phase, **fields):
@@ -103,6 +157,15 @@ def main_path_layers():
     layers = network_convs(serve._vgg_scale(IMAGE), BATCH)
     net = plan_network(layers, backend="fft-cuda")
     return [(name, plan.spec) for name, plan in net.items()]
+
+
+def dx_plan_layers():
+    """(name, ConvSpec) of the dx plan of every layer but the first (whose
+    input, the image, needs no grad) in a training step of the trunk."""
+    layers = network_convs(serve._vgg_scale(IMAGE), BATCH)
+    net = plan_network(layers, backend="fft-cuda")
+    return [(name, autodiff._transposed_plan(plan).spec)
+            for name, plan in list(net.items())[1:]]
 
 
 def check_cgemm(layers, gen):
@@ -188,8 +251,121 @@ def check_inverse(layers, gen):
     return rows
 
 
-def summarize(name, rows, source, replaces, launches, has_library):
-    """One forward's worth: the nine main-path calls summed."""
+def check_forward(layers, gen):
+    """The forward tile DFT at every stage-1 tile count of the served trunk
+    and at the stage-2 counts of Vconv1.2 and Vconv4.2.  The library call
+    is two: ``torch.fft.rfft2`` of the tiles and the ``store`` gather."""
+    rows = []
+    d = 16
+    P = freq_count(layers[0][1], "real")
+    store = compact_layout(d, "cuda")[0].long()
+    cases = [(name, "stage1", spec.B * spec.C * spec.X * spec.D)
+             for name, spec in layers]
+    cases += [(name, "stage2", spec.Cout * spec.C) for name, spec in layers
+              if name in ("Vconv1.2", "Vconv4.2")]
+    for name, stage, n in cases:
+        x = torch.randn((n, d, d), generator=gen, device="cuda")
+        Tr, Ti = tile_rfft_cuda(x, delta=d)
+        Rr, Ri = tile_rfft_ref(x, d)
+        torch.cuda.synchronize()
+        err = max((Tr - Rr).abs().max().item(), (Ti - Ri).abs().max().item())
+        scale = max(Rr.abs().max().item(), Ri.abs().max().item()) + 1e-9
+        if not err / scale <= FORWARD_TOL:
+            raise AssertionError(
+                f"tile_rfft {name} {stage}: scaled error {err / scale:.3e}"
+                f" > {FORWARD_TOL}")
+        ms = time_ms(lambda: tile_rfft_cuda(x, delta=d))
+        plain_ms = time_ms(lambda: tile_rfft_ref(x, d))
+        library_ms = time_ms(lambda: torch.fft.rfft2(x).reshape(
+            n, -1).index_select(1, store))
+        dh = d // 2 + 1
+        nbytes = 4 * (n * d * d + 2 * n * P)
+        flops = n * (4 * d * d * dh + 8 * d * P)
+        row = dict(kernel="tile_rfft", layer=name, stage=stage,
+                   shape=[n, d, P], max_abs_err=err, scaled_err=err / scale,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library="torch.fft.rfft2 + index_select (two calls)",
+                   **bound(nbytes, flops, torch.float32))
+        emit("kernel", **row)
+        rows.append(row)
+    return rows
+
+
+def check_plain_inverse(dx_layers, gen):
+    """The plain compact inverse at the tile count of every dx plan of a
+    training step.  The library call is two: the ``src``/``sgn`` scatter
+    (a gather, a sign product, a complex pack) and ``torch.fft.irfft2``."""
+    rows = []
+    d = 16
+    dh = d // 2 + 1
+    _, src, sgn = compact_layout(d, "cuda")
+    src = src.long()
+    for name, spec in dx_layers:
+        P = freq_count(spec, "real")
+        n = spec.B * spec.Cout * spec.X * spec.D
+        Zr, Zi = (torch.randn((n, P), generator=gen, device="cuda")
+                  for _ in range(2))
+        y = tile_irfft_cuda(Zr, Zi, delta=d)
+        y0 = tile_irfft_ref(Zr, Zi, d)
+        torch.cuda.synchronize()
+        err = (y - y0).abs().max().item()
+        scale = y0.abs().max().item() + 1e-9
+        if not err / scale <= INVERSE_TOL:
+            raise AssertionError(
+                f"tile_irfft {name} dx plan: scaled error {err / scale:.3e}"
+                f" > {INVERSE_TOL}")
+        ms = time_ms(lambda: tile_irfft_cuda(Zr, Zi, delta=d))
+        plain_ms = time_ms(lambda: tile_irfft_ref(Zr, Zi, d))
+        library_ms = time_ms(lambda: torch.fft.irfft2(torch.complex(
+            Zr.index_select(1, src), Zi.index_select(1, src) * sgn)
+            .view(n, d, dh), s=(d, d)))
+        nbytes = 4 * (2 * n * P + n * d * d)
+        flops = n * (8 * d * dh * d + 4 * d * d * dh)
+        row = dict(kernel="tile_irfft", layer=name, stage="dx plan",
+                   shape=[n, P, d], max_abs_err=err, scaled_err=err / scale,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library="scatter + torch.fft.irfft2 (two steps)",
+                   **bound(nbytes, flops, torch.float32))
+        emit("kernel", **row)
+        rows.append(row)
+    return rows
+
+
+def check_dk(gen):
+    """dk of every layer of the trunk's training step as the plan-level VJP
+    computes it (cuDNN's weight-gradient routine), against the JAX
+    package's formulation of the same correlation: a forward convolution
+    with batch as the contraction axis, whose kernel spans the image."""
+    rows = []
+    for l in network_convs(serve._vgg_scale(IMAGE), BATCH):
+        plan = plan_conv(l.x_shape, l.k_shape, padding=l.padding,
+                         backend="fft-cuda")
+        x = torch.randn(l.x_shape, generator=gen, device="cuda")
+        dz = torch.randn(plan.out_shape, generator=gen, device="cuda")
+        ph, pw = plan.padding
+
+        def conv_form():
+            xp = TF.pad(x, (pw, pw, ph, ph))
+            return TF.conv2d(xp.transpose(0, 1),
+                             dz.transpose(0, 1)).transpose(0, 1)
+        dk = autodiff._dk_direct(plan, x, dz, torch.float32)
+        dk0 = conv_form()
+        torch.cuda.synchronize()
+        err = ((dk - dk0).abs().max() / dk0.abs().max()).item()
+        if not err <= GRAD_TOL:
+            raise AssertionError(f"dk {l.name}: the two forms differ by "
+                                 f"{err:.3e}")
+        rows.append(dict(layer=l.name, rel_diff=err, ms=time_ms(
+            lambda: autodiff._dk_direct(plan, x, dz, torch.float32)),
+            conv2d_form_ms=time_ms(conv_form, reps=3, groups=3)))
+    emit("dk", rows=rows, ms=sum(r["ms"] for r in rows),
+         conv2d_form_ms=sum(r["conv2d_form_ms"] for r in rows))
+
+
+def summarize(name, rows, launches, has_library):
+    """One pass's worth (a served forward, or a training step's dx plans):
+    the main-path calls summed."""
+    _, source, replaces = KERNELS[name]
     by_kind = {"bytes": 0.0, "operations": 0.0}
     for r in rows:
         by_kind[r["bound_by"]] += r["bound_ms"]
@@ -206,21 +382,16 @@ def summarize(name, rows, source, replaces, launches, has_library):
     }
 
 
-def profile_forward(res):
-    """Device time by kernel name over one served forward, and the share
-    of the forward's wall time the device spends idle."""
+def device_profile(fn):
+    """Run ``fn`` once more under torch.profiler: (kernel rows sorted by
+    device time as (us, name, calls), device busy us, wall us)."""
     from torch.profiler import ProfilerActivity, profile
-    prepared = res.net.prepare(res.kernels, weights_version=0)  # cache hit
-    forward = serve._vgg_forward(res.biases)
-    with torch.inference_mode():
-        forward(prepared, res.x)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            forward(prepared, res.x)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for ev in prof.key_averages():
         if "CUDA" not in str(getattr(ev, "device_type", "")):
@@ -230,7 +401,19 @@ def profile_forward(res):
         if t > 0:
             rows.append((t, ev.key, ev.count))
     rows.sort(reverse=True)
-    busy = sum(t for t, _, _ in rows)
+    return rows, sum(t for t, _, _ in rows), wall_us
+
+
+def profile_forward(res):
+    """Device time by kernel name over one served forward, and the share
+    of the forward's wall time the device spends idle."""
+    prepared = res.net.prepare(res.kernels, weights_version=0)  # cache hit
+    forward = serve._vgg_forward(res.biases)
+    with torch.inference_mode():
+        forward(prepared, res.x)
+        torch.cuda.synchronize()
+        rows, busy, wall_us = device_profile(
+            lambda: forward(prepared, res.x))
     p50_us = serve._percentile(res.latencies_s, 50) * 1e6
     emit("profile", device_busy_us=busy,
          kernel_launches=sum(c for _, _, c in rows),
@@ -239,6 +422,138 @@ def profile_forward(res):
          idle_share_vs_p50=1 - busy / p50_us,
          kernels=[{"name": k[:90], "device_us": t, "calls": c}
                   for t, k, c in rows[:16]])
+
+
+def vgg_train_loss(layers, backend, kernels, biases, x, r):
+    """The VGG trunk of ``serve --convnet vgg`` as a model would train it:
+    ``conv_block`` (bias + ReLU fused) and ``maxpool2x2``; loss sum(y*r)."""
+    h = x
+    for l in layers:
+        h = conv_block(h, kernels[l.name], biases[l.name],
+                       activation="relu", padding=l.padding,
+                       backend=backend)
+        if l.name in serve._VGG_POOL_AFTER:
+            h = maxpool2x2(h)
+    return (h * r).sum()
+
+
+def train_phase():
+    """Training steps of the full-width trunk on fft-cuda and on direct
+    (float32, timed), and one on direct in float64: exact launches per
+    step, every layer's grads against the float64 step, median step
+    times.  cuDNN in float32 is no reference for the grads: its own step
+    sits further from float64 than the tolerance (PERF.md), so it is
+    reported beside fft-cuda's, not held to it."""
+    layers = network_convs(serve._vgg_scale(IMAGE), BATCH)
+    rng = np.random.default_rng(SEED)
+
+    def init(shape, s=0.05):
+        return torch.as_tensor(s * rng.standard_normal(shape),
+                               dtype=torch.float32).cuda()
+    kernels = {l.name: init(l.k_shape) for l in layers}
+    biases = {l.name: init((l.k_shape[0],)) for l in layers}
+    x = init(layers[0].x_shape, 1.0)
+    r = init((BATCH, 512, IMAGE // 32, IMAGE // 32), 1.0)
+
+    def make_step(backend, dtype):
+        ks = {n: k.to(dtype).requires_grad_() for n, k in kernels.items()}
+        bs = {n: b.to(dtype).requires_grad_() for n, b in biases.items()}
+        params = [ks[l.name] for l in layers] + [bs[l.name] for l in layers]
+        xd, rd = x.to(dtype), r.to(dtype)
+
+        def step():
+            loss = vgg_train_loss(layers, backend, ks, bs, xd, rd)
+            return loss, torch.autograd.grad(loss, params)
+        return step
+
+    out = {}
+    for backend in ("fft-cuda", "direct"):
+        step = make_step(backend, torch.float32)
+        step()                                          # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, grads = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[backend] = (loss, grads, times, read_counts())
+        rows, busy, wall_us = device_profile(step)
+        emit("train_profile", backend=backend, device_busy_us=busy,
+             kernel_launches=sum(c for _, _, c in rows),
+             profiled_wall_us=wall_us,
+             idle_share_vs_median_step=1 - busy / (
+                 statistics.median(times) * 1e6),
+             kernels=[{"name": k[:90], "device_us": t, "calls": c}
+                      for t, k, c in rows[:24]])
+    _, grads64 = make_step("direct", torch.float64)()
+    n = len(layers)
+    # per step: forward x and k tiles of every layer, the dx plans' dz and
+    # k tiles of layers 2-9; one CGEMM per plan; the forward's bias-only
+    # pre-activation plans fuse the bias into the inverse, the dx plans
+    # run the plain inverse
+    per_step = {"tile_rfft": 2 * n + 2 * (n - 1), "cgemm": 2 * n - 1,
+                "tile_irfft_epilogue": n, "tile_irfft": n - 1}
+    counts = out["fft-cuda"][3]
+    expect_counts("train step", counts,
+                  {k: TRAIN_STEPS * v for k, v in per_step.items()})
+    expect_counts("train step on direct", out["direct"][3],
+                  {k: 0 for k in per_step})
+
+    def rel(g, g64):
+        return ((g.double() - g64).abs().max() / g64.abs().max()).item()
+    errs, errs_direct = {}, {}
+    for i, l in enumerate(layers):
+        for kind, j in (("dk", i), ("dbias", n + i)):
+            key = f"{l.name}/{kind}"
+            errs[key] = rel(out["fft-cuda"][1][j], grads64[j])
+            errs_direct[key] = rel(out["direct"][1][j], grads64[j])
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= GRAD_TOL:
+        raise AssertionError(f"train {worst} on fft-cuda vs cuDNN float64: "
+                             f"{errs[worst]:.3e} > {GRAD_TOL}")
+    emit("train", backend="fft-cuda", image=IMAGE, batch=BATCH,
+         steps=TRAIN_STEPS, launches_per_step=per_step,
+         loss=out["fft-cuda"][0].item(), loss_direct=out["direct"][0].item(),
+         rel_err_vs_cudnn_f64=errs, tol=GRAD_TOL,
+         max_rel_err_vs_cudnn_f64=errs[worst],
+         direct_f32_rel_err_vs_cudnn_f64=errs_direct,
+         max_direct_f32_rel_err=max(errs_direct.values()),
+         step_ms=statistics.median(out["fft-cuda"][2]) * 1e3,
+         step_ms_direct=statistics.median(out["direct"][2]) * 1e3,
+         step_ms_all=[t * 1e3 for t in out["fft-cuda"][2]],
+         step_ms_direct_all=[t * 1e3 for t in out["direct"][2]])
+    return counts
+
+
+def trainer_phase():
+    """The trainer twin at its defaults (60 steps, batch 32) on fft-cuda,
+    its launches, and its first losses against the same run on direct."""
+    zero_counts()
+    res = train_cnn_fftconv.main(["--conv-backend", "fft-cuda",
+                                  "--seed", str(SEED)])
+    counts = read_counts()
+    steps = len(res.losses)
+    # per step: 2 layers' x and k tiles, layer 2's dx plan (dz and k
+    # tiles); the eval prepares 2 kernels once and runs 2 prepared layers
+    expect_counts("trainer", counts, {
+        "tile_rfft": 6 * steps + 2 + 2, "cgemm": 3 * steps + 2,
+        "tile_irfft_epilogue": 2 * steps + 2, "tile_irfft": steps})
+    ref = train_cnn_fftconv.main(["--conv-backend", "direct",
+                                  "--seed", str(SEED)])
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(res.losses[:10], ref.losses[:10]))
+    if not rel <= LOSS_TOL:
+        raise AssertionError(f"trainer first 10 losses vs direct: {rel:.3e}"
+                             f" > {LOSS_TOL}")
+    emit("trainer", backend="fft-cuda", steps=steps, batch=32,
+         final_loss=res.losses[-1], accuracy=res.accuracy,
+         prepared_cache_hits=res.prepared_cache.hits,
+         loss_rel_err_vs_direct=rel, tol=LOSS_TOL, seconds=res.seconds,
+         seconds_direct=ref.seconds, launches=counts,
+         losses=res.losses[:10], losses_direct=ref.losses[:10])
+    return counts
 
 
 def main():
@@ -260,25 +575,29 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     layers = main_path_layers()
+    dx_layers = dx_plan_layers()
     cg_rows = check_cgemm(layers, gen)
     inv_rows = check_inverse(layers, gen)
+    fwd_rows = check_forward(layers, gen)
+    binv_rows = check_plain_inverse(dx_layers, gen)
+    check_dk(gen)
 
     # the slice: counters at 0 right before the served run, read right after
-    cgemm_cuda.launches = 0
-    tile_irfft_epilogue_cuda.launches = 0
+    zero_counts()
     res = serve.main(["--convnet", "vgg", "--conv-backend", "fft-cuda",
                       "--image", str(IMAGE), "--batch", str(BATCH),
                       "--gen", str(GEN), "--timing", "per-request",
                       "--seed", str(SEED)])
-    n_cgemm = cgemm_cuda.launches
-    n_inverse = tile_irfft_epilogue_cuda.launches
+    slice_counts = read_counts()
     n_forward = GEN + 1                # request loop + post-update forward
+    n_prepare = 2                      # weights versions 0 and 1
     n_layers = len(layers)
-    if n_cgemm != n_layers * n_forward or n_inverse != n_layers * n_forward:
-        raise AssertionError(
-            f"expected {n_layers} launches of each kernel per forward over "
-            f"{n_forward} forwards, got cgemm={n_cgemm} "
-            f"inverse={n_inverse}")
+    # per forward one forward tile DFT, CGEMM and fused inverse a layer;
+    # per prepare one forward tile DFT a layer
+    expect_counts("served slice", slice_counts, {
+        "cgemm": n_layers * n_forward,
+        "tile_irfft_epilogue": n_layers * n_forward,
+        "tile_rfft": n_layers * (n_forward + n_prepare), "tile_irfft": 0})
     y = res.y
     want = (BATCH, 512, IMAGE // 32, IMAGE // 32)
     if tuple(y.shape) != want or not bool(torch.isfinite(y).all()):
@@ -295,28 +614,32 @@ def main():
         raise AssertionError(f"fft-cuda trunk vs cuDNN: {rel:.3e} > "
                              f"{SLICE_TOL}")
     emit("slice", backend="fft-cuda", image=IMAGE, batch=BATCH,
-         forwards=n_forward, cgemm_launches=n_cgemm,
-         inverse_launches=n_inverse,
-         launches_per_forward=[n_cgemm // n_forward,
-                               n_inverse // n_forward],
+         forwards=n_forward, prepares=n_prepare, launches=slice_counts,
+         launches_per_forward={"tile_rfft": n_layers, "cgemm": n_layers,
+                               "tile_irfft_epilogue": n_layers},
+         launches_per_prepare={"tile_rfft": n_layers},
          rel_err_vs_cudnn=rel, tol=SLICE_TOL, prepare_ms=res.prepare_s * 1e3,
          p50_ms=serve._percentile(res.latencies_s, 50) * 1e3,
          p99_ms=serve._percentile(res.latencies_s, 99) * 1e3,
          latencies_ms=[t * 1e3 for t in res.latencies_s])
 
     profile_forward(res)
+    train_counts = train_phase()
+    trainer_counts = trainer_phase()
 
+    # launches: the three main paths together (slice, train, trainer)
+    launches = {k: slice_counts[k] + train_counts[k] + trainer_counts[k]
+                for k in KERNELS}
     main_cg = [r for r in cg_rows
                if r["dtype"] == "float32" and r["three_m"]]
     main_inv = inv_rows[:n_layers]
+    main_fwd = [r for r in fwd_rows if r["stage"] == "stage1"]
     print(json.dumps({"kernels": [
-        summarize("cgemm", main_cg,
-                  "src/repro_torch/kernels/cgemm/csrc/cgemm.cu",
-                  "src/repro/kernels/cgemm/kernel.py:25", n_cgemm, True),
+        summarize("cgemm", main_cg, launches["cgemm"], True),
         summarize("tile_irfft_epilogue", main_inv,
-                  "src/repro_torch/kernels/dft_tile/csrc/dft_tile.cu",
-                  "src/repro/kernels/dft_tile/kernel.py:88", n_inverse,
-                  False),
+                  launches["tile_irfft_epilogue"], False),
+        summarize("tile_rfft", main_fwd, launches["tile_rfft"], True),
+        summarize("tile_irfft", binv_rows, launches["tile_irfft"], True),
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

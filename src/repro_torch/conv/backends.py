@@ -10,13 +10,16 @@ Backends:
              is applied right after the conv.
   fft-torch  the paper's 4-stage pipeline composed from
              ``repro_torch.conv.stages`` with the PyTorch matmul CGEMM.
-  fft-cuda   the same stage graph with the hot CGEMM swapped for the
-             hand-written CUDA kernel (``kernels/cgemm``).  On the
-             ``local`` schedule with the ``real`` spectrum a bias/activation
-             epilogue is fused into the CUDA ``dft_tile`` output-inverse
-             kernel (the inverse never round-trips to device memory before
-             the elementwise pass).  On CPU tensors both kernels run their
-             plain PyTorch versions.
+  fft-cuda   the same stage graph on the hand-written CUDA kernels: the
+             hot CGEMM (``kernels/cgemm``) on every spectrum, and on the
+             ``local`` schedule with the ``real`` spectrum the ``dft_tile``
+             kernels for the tile transforms — stages 1 and 2 through the
+             forward tile DFT, stage 4 through the inverse with a
+             bias/activation epilogue fused into its tail (the inverse never
+             round-trips to device memory before the elementwise pass), or
+             through the plain inverse followed by the epilogue when there
+             is no bias or activation to fuse or a residual.  On CPU
+             tensors every kernel runs its plain PyTorch version.
 
 The two FFT backends differ *only* in the stage ops they inject into the
 pipeline; transforms and prepare/execute are shared composition.
@@ -51,9 +54,7 @@ def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias):
     from repro_torch.kernels.dft_tile import tile_irfft_epilogue_cuda
     from repro_torch.core.dft import num_freq_real
     P = num_freq_real(spec.delta)
-    Zrt = F.z_to_flat_tiles(Zr, spec, P)    # (B, C', X, Dl, P) view
-    Zit = F.z_to_flat_tiles(Zi, spec, P)
-    B, Co, X, Dl = Zrt.shape[:4]
+    B, Co, X, Dl = spec.B, spec.Cout, spec.X, spec.D
     n = B * Co * X * Dl
     d = spec.delta
     b = bias if bias is not None else torch.zeros(
@@ -61,8 +62,8 @@ def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias):
     # one bias scalar per tile: broadcast over (B, ., X, Dl) tile indices
     b_tile = b.to(Zr.dtype)[None, :, None, None].expand(
         B, Co, X, Dl).reshape(n).contiguous()
-    y = tile_irfft_epilogue_cuda(Zrt.reshape(n, P).contiguous(),
-                                 Zit.reshape(n, P).contiguous(), b_tile,
+    y = tile_irfft_epilogue_cuda(F.z_to_tile_planes(Zr, spec, P),
+                                 F.z_to_tile_planes(Zi, spec, P), b_tile,
                                  activation=epilogue.activation, delta=d)
     return F.assemble_output_tiles(y.reshape(B, Co, X, Dl, d, d), spec)
 
@@ -80,14 +81,16 @@ def _fft_torch_pipeline(plan):
 
 
 def _fft_cuda_pipeline(plan):
-    inverse_fn = None
+    tiles = {}
     if plan.schedule == "local" and plan.spectrum == "real":
-        # fused dft_tile tail for the compact layout; the full-spectrum
-        # twin takes the composed stage-4 path
-        inverse_fn = _cuda_fused_inverse_real
+        # the dft_tile kernels read and write the compact layout; the
+        # full-spectrum twin takes the composed stage ops
+        from repro_torch.kernels.dft_tile import (
+            tile_irfft_cuda, tile_rfft_cuda)
+        tiles = dict(inverse_fn=_cuda_fused_inverse_real,
+                     tile_rfft=tile_rfft_cuda, tile_irfft=tile_irfft_cuda)
     return stages.pipeline_for(plan.schedule,
-                               cgemm_fn=_cuda_cgemm_fn(plan),
-                               inverse_fn=inverse_fn)
+                               cgemm_fn=_cuda_cgemm_fn(plan), **tiles)
 
 
 def register_builtin() -> None:
@@ -103,5 +106,5 @@ def register_builtin() -> None:
                                  "CGEMM")
     register_backend("fft-cuda", pipeline_factory=_fft_cuda_pipeline,
                      schedules=("local",),
-                     description="FFT conv stage graph, CUDA CGEMM kernel"
-                                 " (+ fused epilogue inverse kernel)")
+                     description="FFT conv stage graph, CUDA CGEMM and "
+                                 "tile DFT kernels")

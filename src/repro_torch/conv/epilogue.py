@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import torch
 import torch.nn.functional as TF
 
 
@@ -81,3 +82,30 @@ def apply_epilogue(y, epilogue: Epilogue | None, *, bias=None, residual=None):
     if epilogue.residual:
         y = y + residual.to(y.dtype)
     return ACTIVATIONS[epilogue.activation](y)
+
+
+def activation_vjp(epilogue: Epilogue, z, dy):
+    """Cotangent of the activation at pre-activation value ``z``.
+
+    Used by the plan-level VJP: the activation gradient is applied to the
+    incoming cotangent *before* it enters the transposed plan / the bias
+    reduction.  The derivative is autograd's of ``ACTIVATIONS`` itself
+    (relu' is 0 at 0, as ``jax.nn.relu`` has it; gelu is the tanh form).
+    Under grad mode (a double backward) the result stays differentiable in
+    ``dy`` and, where ``z`` carries a graph, in ``z``.
+    """
+    if epilogue.activation == "none":
+        return dy
+    create_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        zz = z if create_graph and z.requires_grad \
+            else z.detach().requires_grad_()
+        y = ACTIVATIONS[epilogue.activation](zz)
+        (dz,) = torch.autograd.grad(y, zz, dy.to(z.dtype),
+                                    create_graph=create_graph)
+    return dz
+
+
+def bias_grad(dz):
+    """d_bias: reduce the conv-output cotangent over batch and space."""
+    return dz.sum(dim=(0, 2, 3))

@@ -26,11 +26,13 @@ with the same version returns the cached ``PreparedConv``.
 ``backend="auto"`` picks direct vs FFT from the ``ConvSpec`` cost model;
 ``schedule="auto"`` is ``local``.
 
-This slice serves: the FFT backends run forward only, under
-``torch.inference_mode()``.  Not ported yet (they raise): meshes and the
-sharded schedules, ``overlap``, ``backend="tuned"``, the TPU block sizes
-``bm``/``bn``/``bk``/``dft_bt`` (the CUDA kernels' tiles are fixed), and
-training through an FFT plan (the plan-level VJP).
+Every stage-pipeline backend trains: when grad mode is on and an operand
+requires grad, ``plan(x, k, ...)`` and ``prepared(x, ...)`` run through the
+plan-level VJP (``repro_torch.conv.autodiff``); otherwise they run the
+pipeline straight, and record nothing for autograd.  Not ported yet (they
+raise): meshes and the sharded schedules, ``overlap``, ``backend="tuned"``
+and the TPU block sizes ``bm``/``bn``/``bk``/``dft_bt`` (the CUDA kernels'
+tiles are fixed).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.conv_spec import ConvSpec
-from repro_torch.conv import registry
+from repro_torch.conv import autodiff, registry
 from repro_torch.conv.epilogue import Epilogue
 from repro_torch.core.fftconv import SPECTRA
 
@@ -52,16 +54,11 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
 
-def _check_no_grad(plan, *tensors):
-    """FFT plans are forward-only until the plan-level VJP is ported."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"backend {plan.backend!r} is forward-only in repro_torch: "
-            "training through an FFT plan needs the plan-level VJP "
-            "(repro's conv/autodiff.py), which comes with the training "
-            "slice; run under torch.no_grad()/torch.inference_mode() or "
-            "use backend='direct'")
+def _wants_grad(*tensors) -> bool:
+    """Whether autograd must see this call: grad mode is on and an operand
+    requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +90,10 @@ class ConvPlan:
         self._check_epilogue_operands(bias, residual)
         be = registry.get_backend(self.backend)
         if be.pipeline_factory is not None:
-            _check_no_grad(self, x, k, bias, residual)
-            with torch.inference_mode():
-                return be.make_pipeline(self).full(
-                    self, x, k, bias=bias, residual=residual)
+            if _wants_grad(x, k, bias, residual):
+                return autodiff.pipeline_conv(self, x, k, bias, residual)
+            return be.make_pipeline(self).full(self, x, k, bias=bias,
+                                               residual=residual)
         if not self.epilogue.is_noop:
             return be.execute(self, x, k, bias=bias, residual=residual)
         return be.execute(self, x, k)
@@ -229,7 +226,9 @@ class PreparedConv:
     """A plan bound to a prepared (already-transformed) kernel.
 
     ``prepared(x)`` runs stages 1/3/4; stage 2 was paid once in
-    ``plan.prepare``.
+    ``plan.prepare``.  It is differentiable in ``x`` and the epilogue
+    operands (dx comes from the transposed plan on ``kernel``); the
+    prepared kernel itself is frozen.
     """
     plan: ConvPlan
     state: Any                          # pipeline G pair, or raw k (opaque)
@@ -241,10 +240,10 @@ class PreparedConv:
         self.plan._check_epilogue_operands(bias, residual)
         be = registry.get_backend(self.plan.backend)
         if be.pipeline_factory is not None:
-            _check_no_grad(self.plan, x, bias, residual)
-            with torch.inference_mode():
-                return be.make_pipeline(self.plan).execute(
-                    self.plan, x, self.state, bias=bias, residual=residual)
+            if _wants_grad(x, bias, residual):
+                return autodiff.prepared_conv(self, x, bias, residual)
+            return be.make_pipeline(self.plan).execute(
+                self.plan, x, self.state, bias=bias, residual=residual)
         if not self.plan.epilogue.is_noop:
             return be.execute(self.plan, x, self.state, bias=bias,
                               residual=residual)

@@ -11,9 +11,10 @@ A backend is registered in one of two forms:
 
   * **stage-pipeline** — ``pipeline_factory(plan) -> StagePipeline`` (see
     ``repro_torch.conv.stages``).  Execution composes the stage graph and
-    the plan gets ``prepare``/execute for free.  These backends are
-    forward-only until the plan-level VJP is ported: their
-    ``differentiable`` set is empty.
+    the plan gets ``prepare``/execute for free, and the backend is
+    differentiable on every schedule it supports through the plan-level
+    VJP (``repro_torch.conv.autodiff``) — its ``differentiable`` set is
+    derived, not declared.
   * **opaque execute** — ``execute(plan, x, k) -> y``.  Third-party
     backends register this way:
 
@@ -48,11 +49,11 @@ class BackendInfo:
 
     @property
     def differentiable(self) -> tuple:
-        """Schedules with working reverse-mode grads: native-autodiff
-        backends differentiate everywhere they execute, stage pipelines
-        nowhere yet (the plan-level VJP is not ported), and opaque
-        backends fall back to their declaration."""
-        if self.native_autodiff:
+        """Schedules with working reverse-mode grads: stage pipelines get
+        the plan-level VJP and native-autodiff backends differentiate
+        everywhere they execute; opaque backends fall back to their
+        declaration."""
+        if self.pipeline_factory is not None or self.native_autodiff:
             return self.schedules
         return self.declared_differentiable
 

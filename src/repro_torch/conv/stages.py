@@ -15,9 +15,11 @@ are not ported yet.
 
 The pipeline accepts a plan-frozen ``Epilogue`` (bias add, activation,
 residual add — see ``repro_torch.conv.epilogue``) executed *inside* stage 4,
-in float32, before the cast to the output dtype.  Backends may hand stage 4
-a fused ``inverse_fn`` (the CUDA ``dft_tile`` kernel) that runs the bias and
-activation inside the inverse transform.
+in float32, before the cast to the output dtype.  Backends may hand the
+pipeline tile kernels for the compact ``real`` layout (the CUDA
+``dft_tile`` kernels): ``tile_rfft`` for the tile transforms of stages 1
+and 2, ``tile_irfft`` for an unfused stage 4, and a fused ``inverse_fn``
+that runs the bias and activation inside the inverse transform.
 
 Every pipeline exposes the prepare/execute split:
 
@@ -95,14 +97,17 @@ def _dtype_name(dtype: torch.dtype) -> str:
 # Stage ops (counted)
 # --------------------------------------------------------------------------
 
-def stage_input_transform(x, spec: ConvSpec, spectrum: str = "rect"):
+def stage_input_transform(x, spec: ConvSpec, spectrum: str = "rect",
+                          tile_rfft=None):
     _count("input_transform")
-    return F.input_transform(x, spec, spectrum=spectrum)
+    return F.input_transform(x, spec, spectrum=spectrum, tile_rfft=tile_rfft)
 
 
-def stage_kernel_transform(k, spec: ConvSpec, spectrum: str = "rect"):
+def stage_kernel_transform(k, spec: ConvSpec, spectrum: str = "rect",
+                           tile_rfft=None):
     _count("kernel_transform")
-    return F.kernel_transform(k, spec, spectrum=spectrum)
+    return F.kernel_transform(k, spec, spectrum=spectrum,
+                              tile_rfft=tile_rfft)
 
 
 def stage_cgemm(Dr, Di, Gr, Gi, *, three_m: bool, cgemm_fn=None):
@@ -120,21 +125,23 @@ def stage_cgemm(Dr, Di, Gr, Gi, *, three_m: bool, cgemm_fn=None):
 
 def stage_output_inverse(Zr, Zi, spec: ConvSpec, *, epilogue: Epilogue = None,
                          bias=None, residual=None, inverse_fn=None,
-                         spectrum: str = "rect"):
+                         tile_irfft=None, spectrum: str = "rect"):
     """Stage 4 with the fused elementwise epilogue.
 
     The epilogue rides inside this single stage op (the counter increments
     once, fused or not).  ``inverse_fn`` is a backend-supplied fused
     inverse+epilogue kernel ``(Zr, Zi, spec, epilogue, bias) -> y`` matched
     to the plan's spectrum layout; it cannot fold a residual — the residual
-    lives in output layout, not tile layout — so residual epilogues take
-    the composed path.
+    lives in output layout, not tile layout — so residual and no-op
+    epilogues take the composed path: the inverse (through the
+    ``tile_irfft`` kernel when the backend gives one), then the epilogue.
     """
     _count("output_inverse")
     if (inverse_fn is not None and epilogue is not None
             and not epilogue.is_noop and not epilogue.residual):
         return inverse_fn(Zr, Zi, spec, epilogue, bias)
-    y = F.output_inverse(Zr, Zi, spec, spectrum=spectrum)
+    y = F.output_inverse(Zr, Zi, spec, spectrum=spectrum,
+                         tile_irfft=tile_irfft)
     return apply_epilogue(y, epilogue, bias=bias, residual=residual)
 
 
@@ -151,18 +158,25 @@ def _maybe_cast(pair, dtype):
 class LocalPipeline:
     """Single device: stages back-to-back, no collectives.  The epilogue is
     fused into stage 4; ``inverse_fn`` (CUDA backend) fuses it into the
-    tile-inverse kernel tail itself."""
+    tile-inverse kernel tail itself.  ``tile_rfft`` / ``tile_irfft``
+    (CUDA backend) run the tile transforms of stages 1, 2 and the unfused
+    stage 4."""
 
-    def __init__(self, cgemm_fn=None, inverse_fn=None):
+    def __init__(self, cgemm_fn=None, inverse_fn=None, tile_rfft=None,
+                 tile_irfft=None):
         self.cgemm_fn = cgemm_fn
         self.inverse_fn = inverse_fn
+        self.tile_rfft = tile_rfft
+        self.tile_irfft = tile_irfft
 
     def prepare(self, plan, k):
-        return stage_kernel_transform(k, plan.spec, plan.spectrum)
+        return stage_kernel_transform(k, plan.spec, plan.spectrum,
+                                      self.tile_rfft)
 
     def execute(self, plan, x, G, bias=None, residual=None):
         spec = plan.spec
-        Dr, Di = stage_input_transform(x, spec, plan.spectrum)
+        Dr, Di = stage_input_transform(x, spec, plan.spectrum,
+                                       self.tile_rfft)
         Gr, Gi = G
         Dr, Di = _maybe_cast((Dr, Di), plan.compute_dtype)
         Gr, Gi = _maybe_cast((Gr, Gi), plan.compute_dtype)
@@ -172,6 +186,7 @@ class LocalPipeline:
         y = stage_output_inverse(Zr, Zi, spec, epilogue=plan.epilogue,
                                  bias=bias, residual=residual,
                                  inverse_fn=self.inverse_fn,
+                                 tile_irfft=self.tile_irfft,
                                  spectrum=plan.spectrum)
         return y.to(x.dtype)
 
@@ -183,5 +198,6 @@ class LocalPipeline:
 PIPELINES = {"local": LocalPipeline}
 
 
-def pipeline_for(schedule: str, cgemm_fn=None, inverse_fn=None):
-    return PIPELINES[schedule](cgemm_fn, inverse_fn)
+def pipeline_for(schedule: str, cgemm_fn=None, inverse_fn=None,
+                 tile_rfft=None, tile_irfft=None):
+    return PIPELINES[schedule](cgemm_fn, inverse_fn, tile_rfft, tile_irfft)

@@ -1,13 +1,15 @@
 """Carry parameters and prepared kernels over from the JAX package.
 
-Both take plain arrays (numpy, or anything ``numpy.asarray`` reads), so
+All take plain arrays (numpy, or anything ``numpy.asarray`` reads), so
 this module needs neither ``jax`` nor ``repro``:
 
     kernels, biases = params_from_jax(jax_kernels, jax_biases)
     Gr, Gi = prepared_from_jax(jax_prepared.state, plan)
+    params = tree_from_jax(jax_params, like=ours)
 
-The layouts are the same on both sides: OIHW kernels, (C',) biases and
-(P, C, C') spectrum slabs as separate real/imag float32 planes.
+The layouts are the same on both sides: OIHW kernels, (C',) biases, (in,
+out) dense weights and (P, C, C') spectrum slabs as separate real/imag
+float32 planes.
 """
 from __future__ import annotations
 
@@ -69,3 +71,26 @@ def prepared_from_jax(state, plan, *, device=None):
                              f"{g.shape}")
         out.append(torch.tensor(g, device=device))       # copies
     return tuple(out)
+
+
+def tree_from_jax(params: Mapping, *, like: Mapping = None, device=None):
+    """A flat JAX parameter dict (conv kernels, biases, dense ``w``/``b``:
+    name -> float32 array) -> the same dict of tensors on ``device``
+    (default: the GPU).  Every leaf must be float32 of rank 1 (bias), 2
+    (dense weight) or 4 (OIHW kernel); with ``like`` (the port's own
+    parameter dict) the names and shapes must match it too."""
+    device = resolve_device(device)
+    if like is not None and set(params) != set(like):
+        raise ValueError(f"parameter names differ: "
+                         f"{sorted(set(params) ^ set(like))}")
+    out = {}
+    for name in params:
+        a = _float32(repr(name), params[name])
+        if a.ndim not in (1, 2, 4):
+            raise ValueError(f"{name!r}: expected a bias, dense weight or "
+                             f"OIHW kernel, got shape {a.shape}")
+        if like is not None and a.shape != tuple(like[name].shape):
+            raise ValueError(f"{name!r}: expected {tuple(like[name].shape)},"
+                             f" got {a.shape}")
+        out[name] = torch.tensor(a, device=device)       # copies
+    return out

@@ -97,14 +97,27 @@ def extract_tiles(x, spec: ConvSpec):
     return x.unfold(2, d, spec.t_h).unfold(3, d, spec.t_w)
 
 
-def _tiles_to_spectrum(tiles, spec: ConvSpec, spectrum: str):
-    """Real tile batch (..., delta, delta) -> flat spectrum planes (..., P)."""
+def _tiles_to_spectrum(tiles, spec: ConvSpec, spectrum: str,
+                       tile_rfft=None):
+    """Real tile batch (..., delta, delta) -> flat spectrum planes (..., P).
+
+    ``tile_rfft`` (the ``spectrum="real"`` layout only) is a kernel
+    ``(tiles (n, delta, delta), delta=) -> two (n, P_real) planes`` run on
+    the tiles made contiguous, in place of the DFT matmuls and the gather.
+    """
+    if tile_rfft is not None and spectrum != "real":
+        raise ValueError(f"a tile_rfft kernel computes the compact 'real' "
+                         f"layout, not {spectrum!r}")
     if spectrum == "complex":
         Tr, Ti = fft2_full_tiles(tiles, spec.delta)
         P = spec.delta * spec.delta
         return Tr.reshape(*Tr.shape[:-2], P), Ti.reshape(*Ti.shape[:-2], P)
     if spectrum not in ("real", "rect"):
         raise ValueError(f"unknown spectrum {spectrum!r}")
+    if tile_rfft is not None:
+        d, lead = spec.delta, tiles.shape[:-2]
+        Tr, Ti = tile_rfft(tiles.reshape(-1, d, d).contiguous(), delta=d)
+        return Tr.reshape(*lead, -1), Ti.reshape(*lead, -1)
     Tr, Ti = rfft2_tiles(tiles, spec.delta)
     if spectrum == "real":
         return pack_half_spectrum(Tr, Ti, spec.delta)
@@ -113,10 +126,10 @@ def _tiles_to_spectrum(tiles, spec: ConvSpec, spectrum: str):
 
 
 def input_transform(x, spec: ConvSpec, *, dtype=torch.float32,
-                    spectrum: str = "rect"):
+                    spectrum: str = "rect", tile_rfft=None):
     """Stage 1: I -> D (P, M, C) as (real, imag)."""
     patches = extract_tiles(x.to(dtype), spec)         # (B, C, X, Dl, d, d)
-    Tr, Ti = _tiles_to_spectrum(patches, spec, spectrum)
+    Tr, Ti = _tiles_to_spectrum(patches, spec, spectrum, tile_rfft)
     P = Tr.shape[-1]                                   # == freq_count(...)
 
     def to_pmc(T):                                     # (B, C, X, Dl, P)
@@ -130,11 +143,11 @@ def input_transform(x, spec: ConvSpec, *, dtype=torch.float32,
 # --------------------------------------------------------------------------
 
 def kernel_transform(k, spec: ConvSpec, *, dtype=torch.float32,
-                     spectrum: str = "rect"):
+                     spectrum: str = "rect", tile_rfft=None):
     """Stage 2: K -> G (P, C, C') as (real, imag); imag is conjugated."""
     d = spec.delta
     kp = TF.pad(k.to(dtype), (0, d - spec.kw, 0, d - spec.kh))
-    Tr, Ti = _tiles_to_spectrum(kp, spec, spectrum)    # (C', C, P)
+    Tr, Ti = _tiles_to_spectrum(kp, spec, spectrum, tile_rfft)  # (C', C, P)
     P = Tr.shape[-1]                                   # == freq_count(...)
 
     def to_pcc(T):                                     # the kernels' layout
@@ -163,6 +176,13 @@ def z_to_flat_tiles(Z, spec: ConvSpec, P: int):
     return Z.permute(1, 4, 2, 3, 0)                    # (B, C', X, Dl, P)
 
 
+def z_to_tile_planes(Z, spec: ConvSpec, P: int):
+    """(P', M, C') flat frequency layout -> contiguous (n, P) planes, one
+    row per output tile in (B, C', X, Dl) order: what the ``dft_tile``
+    inverse kernels read."""
+    return z_to_flat_tiles(Z, spec, P).reshape(-1, P).contiguous()
+
+
 def assemble_output_tiles(y, spec: ConvSpec):
     """Inverse-transformed tiles (B, C', X, Dl, d, d) -> O (B, C', Ho, Wo)
     (overlap-save crop + spatial reassembly)."""
@@ -172,14 +192,25 @@ def assemble_output_tiles(y, spec: ConvSpec):
     return y[:, :, :spec.Ho, :spec.Wo]
 
 
-def output_inverse(Zr, Zi, spec: ConvSpec, *, spectrum: str = "rect"):
+def output_inverse(Zr, Zi, spec: ConvSpec, *, spectrum: str = "rect",
+                   tile_irfft=None):
     """Stage 4: Z (P, M, C') -> O (B, C', Ho, Wo).
 
     The P axis may carry trailing padding past the layout's point count;
-    it is sliced off here.
+    it is sliced off here.  ``tile_irfft`` (the ``spectrum="real"`` layout
+    only) is a kernel ``(Zr, Zi (n, P), delta=) -> (n, delta, delta)`` run
+    on the tile planes in place of the scatter and the DFT matmuls.
     """
     d = spec.delta
-    if spectrum == "rect":
+    if tile_irfft is not None and spectrum != "real":
+        raise ValueError(f"a tile_irfft kernel reads the compact 'real' "
+                         f"layout, not {spectrum!r}")
+    if tile_irfft is not None:
+        P = dft.num_freq_real(d)
+        y = tile_irfft(z_to_tile_planes(Zr, spec, P),
+                       z_to_tile_planes(Zi, spec, P), delta=d)
+        y = y.reshape(spec.B, spec.Cout, spec.X, spec.D, d, d)
+    elif spectrum == "rect":
         y = irfft2_tiles(z_to_tiles(Zr[:spec.P], spec),
                          z_to_tiles(Zi[:spec.P], spec), d)
     elif spectrum == "real":

@@ -1,4 +1,9 @@
-from repro_torch.kernels.dft_tile.ops import tile_irfft_epilogue_cuda
-from repro_torch.kernels.dft_tile.ref import tile_irfft_epilogue_ref
+from repro_torch.kernels.dft_tile.ops import (
+    tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_rfft_cuda,
+)
+from repro_torch.kernels.dft_tile.ref import (
+    tile_irfft_epilogue_ref, tile_irfft_ref, tile_rfft_ref,
+)
 
-__all__ = ["tile_irfft_epilogue_cuda", "tile_irfft_epilogue_ref"]
+__all__ = ["tile_rfft_cuda", "tile_irfft_cuda", "tile_irfft_epilogue_cuda",
+           "tile_rfft_ref", "tile_irfft_ref", "tile_irfft_epilogue_ref"]

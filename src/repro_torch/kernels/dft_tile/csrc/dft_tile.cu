@@ -1,33 +1,66 @@
-// Fused compact-spectrum inverse tile DFT + conv epilogue for Hopper
-// (sm_90a): stage 4 of the fft-cuda backend on the spectrum="real" layout.
+// Compact-spectrum tile DFTs for Hopper (sm_90a): stages 1, 2 and 4 of the
+// fft-cuda backend on the spectrum="real" layout.  Three entry points:
 //
-// For every tile t of n, with delta <= 32 and dh = delta/2 + 1:
+//   tile_rfft_f32            forward tile DFT + compact gather (stages 1, 2)
+//   tile_irfft_f32           compact scatter + inverse tile DFT (stage 4)
+//   tile_irfft_epilogue_f32  the same inverse with bias + activation fused
+//
+// delta <= 32 (odd delta included), dh = delta/2 + 1, float32 throughout.
+//
+// ---- forward: tile_rfft_f32 ---------------------------------------------
+// For every tile x[t] (delta x delta, contiguous):
+//   1. B = x @ F_half^T                 (delta x delta times delta x dh),
+//   2. T = F @ B                        (delta x delta times delta x dh),
+//      only at the P_real stored points r = store[p] = u*dh + v,
+// written as two flat planes tr[t][p], ti[t][p] (n x P_real).  F @ x @
+// F_half^T is the rfft2 of the tile; taking the w-axis product first costs
+// delta*delta*dh real-by-complex products instead of delta^3.
+//
+// Replaces: src/repro/kernels/dft_tile/kernel.py:_rfwd_kernel (Pallas, TPU),
+// wrapped there by dft_tile/ops.py:tile_rfft_pallas.
+//
+// Bound on an H100.  Per 16x16 tile the kernel reads 1,024 B and writes
+// 2 x 130 floats (1,040 B).  The Pallas kernel's order (F @ x, then the
+// rect product) costs about 35 kFLOP a tile, 17 FLOP per byte; this one's
+// (the w axis first, then only the stored points) about 26 kFLOP, 12.5 per
+// byte.  Both are under the card's float32 ridge of 20 (67 TFLOP/s /
+// 3.35 TB/s), so the kernel is bound by bytes: stage 1 of a served VGG
+// forward at 224x224, batch 4 (156,672 tiles, 323 MB) is bounded by
+// 0.10 ms.
+//
+// ---- inverse: tile_irfft_f32 / tile_irfft_epilogue_f32 -------------------
+// For every tile t of n:
 //   1. conj-mirror scatter of the compact Hermitian list into the rect
 //      rfft2 grid:  Z[u][v] = (Zr[t][src[r]], sgn[r] * Zi[t][src[r]]),
 //      r = u*dh + v (Zr/Zi rows have ld >= P_real points; trailing points
 //      past P_real are never read),
 //   2. Y = Finv @ Z                     (delta x delta times delta x dh),
 //   3. y = Re(Y @ W^T)                  (delta x dh times dh x delta),
-//   4. y = act(y + bias[t]), act in {none, relu, tanh-gelu, silu},
+//   4. epilogue entry only: y = act(y + bias[t]), act in {none, relu,
+//      tanh-gelu, silu},
 // written as y[t] (delta x delta, float32).
 //
-// Replaces: src/repro/kernels/dft_tile/kernel.py:_rinv_epilogue_kernel
-// (Pallas, TPU).
+// Replaces: src/repro/kernels/dft_tile/kernel.py:_rinv_kernel (the plain
+// inverse, wrapped by tile_irfft_pallas) and :_rinv_epilogue_kernel (the
+// fused tail, wrapped by tile_irfft_epilogue_pallas); one template, the
+// tail compiled in or out.
 //
-// Bound on an H100.  Per 16x16 tile the kernel reads 2 x 130 floats plus a
-// bias and writes 256 floats (2.1 kB) for about 28 kFLOP of small complex
-// products: 13 FLOP per byte against the card's 20 (67 TFLOP/s float32 /
-// 3.35 TB/s), so it sits near the ridge and is bound by memory traffic
-// (65,536 tiles = 135 MB at Vconv1.2, batch 4: 40 us).
+// Bound on an H100.  Per 16x16 tile the kernel reads 2 x 130 floats (plus a
+// bias with the tail) and writes 256 floats (2.1 kB) for about 28 kFLOP of
+// small complex products: 13 FLOP per byte against the card's 20, so it is
+// bound by memory traffic (65,536 tiles = 135 MB at Vconv1.2, batch 4:
+// 40 us).
 //
-// Design.  The Pallas kernel's gain is that the rect spectrum and the Y
-// intermediate never reach device memory; the same holds here.  A block
-// loads the DFT matrices and the src/sgn tables into shared memory once,
-// then each of its warps walks over tiles (grid-stride): the warp gathers
-// its tile's compact row through src/sgn straight from device memory into
-// a per-warp shared buffer, forms Y there, and writes y once, coalesced,
-// with the bias and activation applied in registers.  Warps of a block
-// never wait on one another after the tables are loaded.
+// Design, all three.  The Pallas kernels' gain is that the rect spectrum and
+// the intermediate product never reach device memory; the same holds here.
+// A block loads the DFT matrices and the layout table into shared memory
+// once, then each of its warps walks over tiles (grid-stride): the warp
+// reads its tile (or gathers its compact row through src/sgn) straight from
+// device memory into a per-warp shared buffer, forms the intermediate
+// there, and writes the result once, coalesced.  Warps of a block never
+// wait on one another after the tables are loaded.  The forward kernel
+// pads its matrix rows in shared memory so that a warp's column reads hit
+// distinct banks.
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -54,17 +87,97 @@ __device__ __forceinline__ float activate(float y, int act) {
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
-    rinv_epilogue_kernel(const float* __restrict__ zr,
-                         const float* __restrict__ zi,
-                         const float* __restrict__ bias,
-                         float* __restrict__ y,
-                         const float* __restrict__ fvr_g,
-                         const float* __restrict__ fvi_g,
-                         const float* __restrict__ wr_g,
-                         const float* __restrict__ wi_g,
-                         const int* __restrict__ src_g,
-                         const float* __restrict__ sgn_g, long long n, int ld,
-                         int d, int act) {
+    rfwd_kernel(const float* __restrict__ x, float* __restrict__ tr,
+                float* __restrict__ ti, const float* __restrict__ fr_g,
+                const float* __restrict__ fi_g,
+                const float* __restrict__ fhr_g,
+                const float* __restrict__ fhi_g,
+                const int* __restrict__ store_g, long long n, int P, int d) {
+  extern __shared__ float smem[];
+  const int dh = d / 2 + 1;
+  const int R = d * dh;   // rect spectrum points
+  const int DD = d * d;   // tile points
+  // Rows of F, F_half and the tile are stored with a stride of d + 1: the
+  // lanes of a warp read one column of several rows at once, and with a
+  // stride of d (16) rows 0, 2, 4, ... would fall on one bank.
+  const int ds = d + 1;
+  float* fr = smem;       // F (d x d)
+  float* fi = fr + d * ds;
+  float* fhr = fi + d * ds;   // F_half (dh x d)
+  float* fhi = fhr + dh * ds;
+  int* store = reinterpret_cast<int*>(fhi + dh * ds);
+  float* scratch = reinterpret_cast<float*>(store + P);
+
+  for (int e = threadIdx.x; e < DD; e += blockDim.x) {
+    const int row = e / d;
+    fr[e + row] = fr_g[e];  // e + row == row * ds + col
+    fi[e + row] = fi_g[e];
+  }
+  for (int e = threadIdx.x; e < R; e += blockDim.x) {
+    const int row = e / d;
+    fhr[e + row] = fhr_g[e];
+    fhi[e + row] = fhi_g[e];
+  }
+  for (int e = threadIdx.x; e < P; e += blockDim.x) store[e] = store_g[e];
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* xs = scratch + warp * (d * ds + 2 * R);  // the tile
+  float* br = xs + d * ds;                        // B = x @ F_half^T
+  float* bi = br + R;
+
+  for (long long t = (long long)blockIdx.x * kWarps + warp; t < n;
+       t += (long long)gridDim.x * kWarps) {
+    const float* x_t = x + t * DD;
+    for (int e = lane; e < DD; e += 32) xs[e + e / d] = x_t[e];
+    __syncwarp();
+    for (int e = lane; e < R; e += 32) {
+      const int h = e / dh;
+      const int v = e - h * dh;
+      float sr = 0.f, si = 0.f;
+      for (int w = 0; w < d; ++w) {
+        const float xv = xs[h * ds + w];
+        sr = fmaf(xv, fhr[v * ds + w], sr);
+        si = fmaf(xv, fhi[v * ds + w], si);
+      }
+      br[e] = sr;
+      bi[e] = si;
+    }
+    __syncwarp();
+    float* tr_t = tr + t * P;
+    float* ti_t = ti + t * P;
+    for (int p = lane; p < P; p += 32) {
+      const int r = store[p];
+      const int u = r / dh;
+      const int v = r - u * dh;
+      float sr = 0.f, si = 0.f;
+      for (int h = 0; h < d; ++h) {
+        const float fre = fr[u * ds + h], fim = fi[u * ds + h];
+        const float bre = br[h * dh + v], bim = bi[h * dh + v];
+        sr = fmaf(fre, bre, sr);
+        sr = fmaf(-fim, bim, sr);
+        si = fmaf(fre, bim, si);
+        si = fmaf(fim, bre, si);
+      }
+      tr_t[p] = sr;
+      ti_t[p] = si;
+    }
+    __syncwarp();  // the next tile overwrites this warp's buffers
+  }
+}
+
+template <bool kTail>
+__global__ void __launch_bounds__(kWarps * 32)
+    rinv_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
+                const float* __restrict__ bias, float* __restrict__ y,
+                const float* __restrict__ fvr_g,
+                const float* __restrict__ fvi_g,
+                const float* __restrict__ wr_g,
+                const float* __restrict__ wi_g,
+                const int* __restrict__ src_g,
+                const float* __restrict__ sgn_g, long long n, int ld, int d,
+                int act) {
   extern __shared__ float smem[];
   const int dh = d / 2 + 1;
   const int R = d * dh;   // rect spectrum points
@@ -122,7 +235,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       yi[e] = si;
     }
     __syncwarp();
-    const float b = bias[t];
+    float b = 0.f;
+    if (kTail) b = bias[t];
     float* y_t = y + t * DD;
     for (int e = lane; e < DD; e += 32) {
       const int h = e / d;
@@ -132,7 +246,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         s = fmaf(yr[h * dh + v], wr[w * dh + v], s);
         s = fmaf(-yi[h * dh + v], wi[w * dh + v], s);
       }
-      y_t[e] = activate(s + b, act);
+      y_t[e] = kTail ? activate(s + b, act) : s;
     }
     __syncwarp();  // the next tile overwrites this warp's buffers
   }
@@ -148,15 +262,21 @@ int multiprocessors() {
   return cache[dev];
 }
 
-}  // namespace
+// Blocks for n tiles: one warp per tile up to the resident limit (8 blocks
+// of 256 threads fill an SM's 2,048 threads); past it the warps loop.
+long long grid_for(long long n) {
+  const int sms = multiprocessors();
+  if (sms <= 0) return 0;
+  long long blocks = (n + kWarps - 1) / kWarps;
+  const long long cap = (long long)sms * 8;
+  return blocks > cap ? cap : blocks;
+}
 
-extern "C" int tile_irfft_epilogue_f32(const void* zr, const void* zi,
-                                       const void* bias, void* y,
-                                       const void* fvr, const void* fvi,
-                                       const void* wr, const void* wi,
-                                       const void* src, const void* sgn,
-                                       long long n, int ld, int delta,
-                                       int act, void* stream) {
+template <bool kTail>
+int launch_rinv(const void* zr, const void* zi, const void* bias, void* y,
+                const void* fvr, const void* fvi, const void* wr,
+                const void* wi, const void* src, const void* sgn, long long n,
+                int ld, int delta, int act, void* stream) {
   const int dh = delta / 2 + 1;
   if (delta < 1 || delta > kMaxDelta || n <= 0 || ld <= 0 || act < 0 ||
       act > 3)
@@ -167,16 +287,13 @@ extern "C" int tile_irfft_epilogue_f32(const void* zr, const void* zi,
       sizeof(float) * (2 * delta * delta + 3 * R + kWarps * 4 * R) +
       sizeof(int) * R;
   cudaError_t err = cudaFuncSetAttribute(
-      rinv_epilogue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rinv_kernel<kTail>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int sms = multiprocessors();
-  if (sms <= 0) return (int)cudaGetLastError();
-  long long blocks = (n + kWarps - 1) / kWarps;
-  const long long cap = (long long)sms * 8;  // resident blocks at delta=16
-  if (blocks > cap) blocks = cap;
-  rinv_epilogue_kernel<<<(unsigned)blocks, kWarps * 32, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = grid_for(n);
+  if (blocks <= 0) return (int)cudaGetLastError();
+  rinv_kernel<kTail><<<(unsigned)blocks, kWarps * 32, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(zr), static_cast<const float*>(zi),
       static_cast<const float*>(bias), static_cast<float*>(y),
       static_cast<const float*>(fvr), static_cast<const float*>(fvi),
@@ -184,6 +301,56 @@ extern "C" int tile_irfft_epilogue_f32(const void* zr, const void* zi,
       static_cast<const int*>(src), static_cast<const float*>(sgn), n, ld,
       delta, act);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tile_rfft_f32(const void* x, void* tr, void* ti,
+                             const void* fr, const void* fi, const void* fhr,
+                             const void* fhi, const void* store, long long n,
+                             int P, int delta, void* stream) {
+  const int dh = delta / 2 + 1;
+  if (delta < 1 || delta > kMaxDelta || n <= 0 || P <= 0 || P > delta * dh)
+    return (int)cudaErrorInvalidValue;
+  cudaGetLastError();  // start from a clean error state
+  const int R = delta * dh;
+  const int DS = delta * (delta + 1);  // a padded d x d matrix
+  const size_t smem = sizeof(float) * (2 * DS + 2 * dh * (delta + 1) +
+                                       kWarps * (DS + 2 * R)) +
+                      sizeof(int) * P;
+  cudaError_t err = cudaFuncSetAttribute(
+      rfwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = grid_for(n);
+  if (blocks <= 0) return (int)cudaGetLastError();
+  rfwd_kernel<<<(unsigned)blocks, kWarps * 32, smem,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(tr),
+      static_cast<float*>(ti), static_cast<const float*>(fr),
+      static_cast<const float*>(fi), static_cast<const float*>(fhr),
+      static_cast<const float*>(fhi), static_cast<const int*>(store), n, P,
+      delta);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tile_irfft_f32(const void* zr, const void* zi, void* y,
+                              const void* fvr, const void* fvi,
+                              const void* wr, const void* wi, const void* src,
+                              const void* sgn, long long n, int ld, int delta,
+                              void* stream) {
+  return launch_rinv<false>(zr, zi, nullptr, y, fvr, fvi, wr, wi, src, sgn,
+                            n, ld, delta, 0, stream);
+}
+
+extern "C" int tile_irfft_epilogue_f32(const void* zr, const void* zi,
+                                       const void* bias, void* y,
+                                       const void* fvr, const void* fvi,
+                                       const void* wr, const void* wi,
+                                       const void* src, const void* sgn,
+                                       long long n, int ld, int delta,
+                                       int act, void* stream) {
+  return launch_rinv<true>(zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n,
+                           ld, delta, act, stream);
 }
 
 extern "C" const char* dft_tile_error_string(int code) {

@@ -1,10 +1,16 @@
-"""Wrapper of the CUDA fused compact-spectrum inverse + epilogue kernel
-(stage 4 of ``fft-cuda`` on the ``spectrum="real"`` layout).
+"""Wrappers of the CUDA compact-spectrum tile DFT kernels (stages 1, 2 and 4
+of ``fft-cuda`` on the ``spectrum="real"`` layout).
 
-``tile_irfft_epilogue_cuda`` dispatches on the operands' device: a CPU
-tensor runs the plain PyTorch version (``ref.tile_irfft_epilogue_ref``); a
-CUDA tensor launches the ``csrc/dft_tile.cu`` kernel on the current stream,
-or raises.  ``tile_irfft_epilogue_cuda.launches`` counts the launches.
+- ``tile_rfft_cuda``: forward tile DFT + compact gather (stages 1 and 2).
+- ``tile_irfft_cuda``: compact scatter + inverse tile DFT (stage 4 with no
+  fusable epilogue: the dx plans of training, residual epilogues).
+- ``tile_irfft_epilogue_cuda``: the same inverse with bias + activation
+  fused into the tail (the served stage 4).
+
+Each dispatches on the operands' device: a CPU tensor runs the plain
+PyTorch version (``ref.py``); a CUDA tensor launches the
+``csrc/dft_tile.cu`` kernel on the current stream, or raises.  Each counts
+its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -15,49 +21,138 @@ import torch
 
 from repro_torch.core.dft import compact_layout, dft_mats, num_freq_real
 from repro_torch.kernels import _build
-from repro_torch.kernels.dft_tile.ref import tile_irfft_epilogue_ref
+from repro_torch.kernels.dft_tile.ref import (
+    tile_irfft_epilogue_ref, tile_irfft_ref, tile_rfft_ref,
+)
 
 MAX_DELTA = 32                          # per-warp buffers in shared memory
 ACTIVATION_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
+
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    # x, tr, ti, fr, fi, fhr, fhi, store, n, P, delta, stream
+    "tile_rfft_f32": [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+    + [_P],
+    # zr, zi, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, stream
+    "tile_irfft_f32": [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+    + [_P],
+    # zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act, stream
+    "tile_irfft_epilogue_f32": [_P] * 10 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 3 + [_P],
+}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("dft_tile")
-    fn = lib.tile_irfft_epilogue_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.dft_tile_error_string.argtypes = [ctypes.c_int]
     lib.dft_tile_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(Zr, Zi, bias, activation, delta):
-    if activation not in ACTIVATION_CODES:
-        raise ValueError(f"unsupported kernel-tail activation "
-                         f"{activation!r}: {tuple(ACTIVATION_CODES)}")
+def _check_delta(name, delta):
     if not 1 <= delta <= MAX_DELTA:
-        raise ValueError(f"tile_irfft_epilogue supports delta <= "
-                         f"{MAX_DELTA}, got {delta}")
+        raise ValueError(f"{name} supports delta <= {MAX_DELTA}, got "
+                         f"{delta}")
+
+
+def _check_layout(name, tensors):
+    """The kernels' contract, held on the CPU too so that host runs catch
+    what the card would refuse."""
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: operands lie on different devices")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} takes float32 operands")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous operands")
+
+
+def _check_planes(name, Zr, Zi, delta):
     if Zr.dim() != 2 or Zi.shape != Zr.shape:
-        raise ValueError(f"want two (n, P) planes, got {tuple(Zr.shape)} "
-                         f"and {tuple(Zi.shape)}")
+        raise ValueError(f"{name} wants two (n, P) planes, got "
+                         f"{tuple(Zr.shape)} and {tuple(Zi.shape)}")
+    if Zr.shape[1] < num_freq_real(delta):
+        raise ValueError(f"P={Zr.shape[1]} is below the "
+                         f"{num_freq_real(delta)} points of the compact "
+                         f"layout at delta={delta}")
+
+
+def _cuda_device(name, device):
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+
+
+def _raise_on(rc):
+    if rc != 0:
+        raise RuntimeError(f"dft_tile kernel launch failed: "
+                           f"{_lib().dft_tile_error_string(rc).decode()} "
+                           f"({rc})")
+
+
+def tile_rfft_cuda(x, *, delta: int = 16):
+    """Forward tile DFT + compact-Hermitian gather: tiles (n, delta, delta)
+    -> two (n, P_real) planes, ``P_real = num_freq_real(delta)``.  Tiles
+    are read contiguous and the planes written contiguous (the Pallas
+    contract); any ``delta <= 32``, odd included."""
+    name = "tile_rfft"
+    _check_delta(name, delta)
+    if x.dim() != 3 or tuple(x.shape[1:]) != (delta, delta):
+        raise ValueError(f"{name} wants tiles (n, {delta}, {delta}), got "
+                         f"{tuple(x.shape)}")
+    _check_layout(name, (x,))
+    if x.device.type == "cpu":
+        return tile_rfft_ref(x, delta)
+    _cuda_device(name, x.device)
+    n = x.shape[0]
+    P = num_freq_real(delta)
+    Tr = torch.empty((n, P), dtype=torch.float32, device=x.device)
+    Ti = torch.empty_like(Tr)
+    if n == 0:
+        return Tr, Ti
+    Fr, Fi, Fhr, Fhi, *_ = dft_mats(delta, x.device, torch.float32)
+    store, _, _ = compact_layout(delta, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().tile_rfft_f32(
+            x.data_ptr(), Tr.data_ptr(), Ti.data_ptr(), Fr.data_ptr(),
+            Fi.data_ptr(), Fhr.data_ptr(), Fhi.data_ptr(), store.data_ptr(),
+            n, P, delta, stream)
+    _raise_on(rc)
+    tile_rfft_cuda.launches += 1
+    return Tr, Ti
+
+
+def tile_irfft_cuda(Zr, Zi, *, delta: int = 16):
+    """Compact-layout inverse tile DFT with no tail: two (n, P) planes ->
+    (n, delta, delta) float32.  Accepts ``P >= num_freq_real(delta)``
+    (trailing points are never read) and any ``delta <= 32``.  The planes
+    are read row by row, so they must be contiguous (n, P)."""
+    name = "tile_irfft"
+    _check_delta(name, delta)
+    _check_planes(name, Zr, Zi, delta)
+    _check_layout(name, (Zr, Zi))
+    if Zr.device.type == "cpu":
+        return tile_irfft_ref(Zr, Zi, delta)
+    _cuda_device(name, Zr.device)
     n, P = Zr.shape
-    if P < num_freq_real(delta):
-        raise ValueError(f"P={P} is below the {num_freq_real(delta)} "
-                         f"points of the compact layout at delta={delta}")
-    if tuple(bias.shape) != (n,):
-        raise ValueError(f"bias must hold one value per tile ({n},), got "
-                         f"{tuple(bias.shape)}")
-    if len({t.device for t in (Zr, Zi, bias)}) != 1:
-        raise ValueError("operands lie on different devices")
-    # the kernel's contract, held on the CPU too so that host runs catch
-    # what the card would refuse
-    if any(t.dtype != torch.float32 for t in (Zr, Zi, bias)):
-        raise TypeError("tile_irfft_epilogue takes float32 operands")
-    if not all(t.is_contiguous() for t in (Zr, Zi, bias)):
-        raise ValueError("tile_irfft_epilogue needs contiguous operands")
+    y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
+    if n == 0:
+        return y
+    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
+    _, src, sgn = compact_layout(delta, Zr.device)
+    with torch.cuda.device(Zr.device):
+        stream = torch.cuda.current_stream(Zr.device).cuda_stream
+        rc = _lib().tile_irfft_f32(
+            Zr.data_ptr(), Zi.data_ptr(), y.data_ptr(), Fvr.data_ptr(),
+            Fvi.data_ptr(), Wr.data_ptr(), Wi.data_ptr(), src.data_ptr(),
+            sgn.data_ptr(), n, P, delta, stream)
+    _raise_on(rc)
+    tile_irfft_cuda.launches += 1
+    return y
 
 
 def tile_irfft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
@@ -68,34 +163,38 @@ def tile_irfft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
     are never read) and any ``delta <= 32``.  The planes are read row by
     row, so they must be contiguous (n, P): callers holding the CGEMM's
     (P, M, C') layout transpose it first."""
-    _check(Zr, Zi, bias, activation, delta)
-    device = Zr.device
-    if device.type == "cpu":
+    name = "tile_irfft_epilogue"
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(f"unsupported kernel-tail activation "
+                         f"{activation!r}: {tuple(ACTIVATION_CODES)}")
+    _check_delta(name, delta)
+    _check_planes(name, Zr, Zi, delta)
+    n, P = Zr.shape
+    if tuple(bias.shape) != (n,):
+        raise ValueError(f"bias must hold one value per tile ({n},), got "
+                         f"{tuple(bias.shape)}")
+    _check_layout(name, (Zr, Zi, bias))
+    if Zr.device.type == "cpu":
         return tile_irfft_epilogue_ref(Zr, Zi, bias, activation=activation,
                                        delta=delta)
-    if device.type != "cuda":
-        raise ValueError(f"tile_irfft_epilogue_cuda: unsupported device "
-                         f"{device}")
-    n, P = Zr.shape
-    y = torch.empty((n, delta, delta), dtype=torch.float32, device=device)
+    _cuda_device(name, Zr.device)
+    y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
     if n == 0:
         return y
-    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, device, torch.float32)
-    _, src, sgn = compact_layout(delta, device)
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.tile_irfft_epilogue_f32(
+    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
+    _, src, sgn = compact_layout(delta, Zr.device)
+    with torch.cuda.device(Zr.device):
+        stream = torch.cuda.current_stream(Zr.device).cuda_stream
+        rc = _lib().tile_irfft_epilogue_f32(
             Zr.data_ptr(), Zi.data_ptr(), bias.data_ptr(), y.data_ptr(),
             Fvr.data_ptr(), Fvi.data_ptr(), Wr.data_ptr(), Wi.data_ptr(),
             src.data_ptr(), sgn.data_ptr(), n, P, delta,
             ACTIVATION_CODES[activation], stream)
-    if rc != 0:
-        raise RuntimeError(f"dft_tile kernel launch failed: "
-                           f"{lib.dft_tile_error_string(rc).decode()} "
-                           f"({rc})")
+    _raise_on(rc)
     tile_irfft_epilogue_cuda.launches += 1
     return y
 
 
+tile_rfft_cuda.launches = 0
+tile_irfft_cuda.launches = 0
 tile_irfft_epilogue_cuda.launches = 0

@@ -1,0 +1,6 @@
+from repro_torch.optim.adamw import (
+    AdamWConfig, adamw_init, adamw_update, cosine_lr, global_norm,
+)
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
+           "global_norm"]

@@ -8,8 +8,9 @@ a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: CGEMM scaled atol 2e-5 in float32 and 5e-2 with bf16
-operands (as tests/test_kernels.py); fused inverse 1e-4 absolute on
-unit-scale spectra; a whole conv 3e-4 against cuDNN with TF32 off.
+operands (as tests/test_kernels.py); the forward tile DFT scaled atol
+2e-5; the inverse and fused inverse 1e-4 absolute on unit-scale spectra;
+a whole conv, and its grads, 3e-4 against cuDNN with TF32 off.
 """
 import numpy as np
 import pytest
@@ -20,7 +21,8 @@ from repro_torch.conv import Epilogue, plan_conv  # noqa: E402
 from repro_torch.core.dft import num_freq_real  # noqa: E402
 from repro_torch.kernels.cgemm import cgemm_cuda, cgemm_ref  # noqa: E402
 from repro_torch.kernels.dft_tile import (  # noqa: E402
-    tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref)
+    tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref,
+    tile_irfft_ref, tile_rfft_cuda, tile_rfft_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -78,6 +80,60 @@ def test_irfft_epilogue_kernel_matches_plain(cuda, delta, pad):
         assert (y - y0).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])
+def test_rfft_kernel_matches_plain(cuda, delta):
+    for n in (1, 7, 3000):
+        x = _rand((n, delta, delta), delta).to(cuda)
+        before = tile_rfft_cuda.launches
+        Tr, Ti = tile_rfft_cuda(x, delta=delta)
+        Rr, Ri = tile_rfft_ref(x, delta)
+        torch.cuda.synchronize()
+        assert tile_rfft_cuda.launches == before + 1
+        assert Tr.shape == (n, num_freq_real(delta))
+        scale = max(Rr.abs().max().item(), Ri.abs().max().item())
+        for ours, ref in ((Tr, Rr), (Ti, Ri)):
+            assert (ours - ref).abs().max().item() / scale <= 2e-5
+
+
+@pytest.mark.parametrize("delta,pad", [(5, 0), (8, 0), (15, 0), (16, 0),
+                                       (16, 6), (32, 0)])
+def test_irfft_kernel_matches_plain(cuda, delta, pad):
+    P = num_freq_real(delta) + pad
+    zr, zi = _rand((1000, P), 7).to(cuda), _rand((1000, P), 8).to(cuda)
+    before = tile_irfft_cuda.launches
+    y = tile_irfft_cuda(zr, zi, delta=delta)
+    y0 = tile_irfft_ref(zr, zi, delta)
+    torch.cuda.synchronize()
+    assert tile_irfft_cuda.launches == before + 1
+    assert (y - y0).abs().max().item() <= 1e-4
+
+
+def test_fft_cuda_grads_match_cudnn(cuda):
+    """dx, dk and d_bias of a fused bias+ReLU fft-cuda plan against the
+    same loss on direct (cuDNN, TF32 off); the forward and the dx plan run
+    through the tile DFT kernels."""
+    torch.backends.cudnn.allow_tf32 = False
+    ep = Epilogue(bias=True, activation="relu")
+    x, k, bias = (_rand((2, 16, 30, 30), 9).to(cuda),
+                  _rand((24, 16, 3, 3), 10).to(cuda),
+                  _rand((24,), 11).to(cuda))
+    r = _rand((2, 24, 30, 30), 12).to(cuda)
+    grads = {}
+    for backend in ("fft-cuda", "direct"):
+        plan = plan_conv(x.shape, k.shape, padding=1, backend=backend,
+                         epilogue=ep)
+        ops = [t.clone().requires_grad_() for t in (x, k, bias)]
+        launches = (tile_rfft_cuda.launches, tile_irfft_cuda.launches)
+        (plan(ops[0], ops[1], bias=ops[2]) * r).sum().backward()
+        if backend == "fft-cuda":        # forward x + k, dx plan dz + k
+            assert (tile_rfft_cuda.launches - launches[0],
+                    tile_irfft_cuda.launches - launches[1]) == (4, 1)
+        grads[backend] = [t.grad for t in ops]
+    for ours, ref in zip(grads["fft-cuda"], grads["direct"]):
+        scale = ref.abs().max().item()
+        assert (ours - ref).abs().max().item() / scale <= 3e-4
+
+
 def test_fft_cuda_plan_matches_cudnn(cuda):
     torch.backends.cudnn.allow_tf32 = False
     x, k, bias = (_rand((2, 16, 30, 30), 4).to(cuda),
@@ -87,10 +143,12 @@ def test_fft_cuda_plan_matches_cudnn(cuda):
                      epilogue=ep)
     direct = plan_conv(x.shape, k.shape, padding=1, backend="direct",
                        epilogue=ep)
-    launches = (cgemm_cuda.launches, tile_irfft_epilogue_cuda.launches)
+    launches = (cgemm_cuda.launches, tile_irfft_epilogue_cuda.launches,
+                tile_rfft_cuda.launches)
     y = plan.prepare(k)(x, bias=bias)
-    assert (cgemm_cuda.launches, tile_irfft_epilogue_cuda.launches) == (
-        launches[0] + 1, launches[1] + 1)
+    assert (cgemm_cuda.launches, tile_irfft_epilogue_cuda.launches,
+            tile_rfft_cuda.launches) == (
+        launches[0] + 1, launches[1] + 1, launches[2] + 2)
     y0 = direct(x, k, bias=bias)
     scale = y0.abs().max().item()
     assert (y - y0).abs().max().item() / scale <= 3e-4

@@ -1,14 +1,19 @@
 """The port's kernel wrappers against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; those are
-held to ``cgemm_pallas`` and ``tile_irfft_epilogue_pallas`` running in
-interpret mode, on the same numpy inputs:
+held to ``cgemm_pallas``, ``tile_rfft_pallas``, ``tile_irfft_pallas`` and
+``tile_irfft_epilogue_pallas`` running in interpret mode, on the same
+numpy inputs:
 
 - CGEMM: the cases of tests/test_kernels.py (ragged dims, C=3), 3M and 4M,
   scaled atol 2e-5; bfloat16 operands at 5e-2 (the Pallas kernel adds its
   K blocks in bf16, the port in float32: they agree within bf16 rounding).
 - fused compact inverse + epilogue: every activation, delta in {8, 15,
   16}, with the spectrum padded past P_real, 1e-4.
+- forward tile DFT + compact gather and the plain compact inverse: delta
+  in {5, 8, 15, 16}, n in {1, 7, 300}, the inverse also with the spectrum
+  padded past P_real, 1e-4 (the forward relative to max|T|, whose entries
+  grow with delta).
 
 tests/test_torch_cuda.py holds the CUDA kernels themselves to these plain
 versions on the card.
@@ -22,9 +27,11 @@ import jax.numpy as jnp
 
 from repro.core.dft import num_freq_real
 from repro.kernels.cgemm import cgemm_pallas, cgemm_ref as j_cgemm_ref
-from repro.kernels.dft_tile import tile_irfft_epilogue_pallas
+from repro.kernels.dft_tile import (
+    tile_irfft_epilogue_pallas, tile_irfft_pallas, tile_rfft_pallas)
 from repro_torch.kernels.cgemm import cgemm_cuda
-from repro_torch.kernels.dft_tile import tile_irfft_epilogue_cuda
+from repro_torch.kernels.dft_tile import (
+    tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_rfft_cuda)
 
 
 def _rand(shape, seed):
@@ -130,3 +137,59 @@ def test_irfft_epilogue_wrapper_refuses_what_the_kernel_does_not_take():
     before = tile_irfft_epilogue_cuda.launches
     tile_irfft_epilogue_cuda(zr, zi, b)
     assert tile_irfft_epilogue_cuda.launches == before
+
+
+# --------------------------------------------------------------------------
+# kernels 3 and 4: forward tile DFT + compact gather, plain compact inverse
+# --------------------------------------------------------------------------
+
+TILE_CASES = [(d, n) for d in (5, 8, 15, 16) for n in (1, 7, 300)]
+
+
+@pytest.mark.parametrize("delta,n", TILE_CASES)
+def test_rfft_plain_matches_pallas(delta, n):
+    x = _rand((n, delta, delta), 100 + delta + n)
+    Tr, Ti = tile_rfft_cuda(torch.from_numpy(x), delta=delta)
+    Jr, Ji = tile_rfft_pallas(jnp.asarray(x), delta=delta)
+    assert tuple(Tr.shape) == (n, num_freq_real(delta))
+    scale = max(np.abs(np.asarray(Jr)).max(), np.abs(np.asarray(Ji)).max())
+    for ours, theirs in ((Tr, Jr), (Ti, Ji)):
+        np.testing.assert_allclose(ours.numpy() / scale,
+                                   np.asarray(theirs) / scale, atol=1e-4)
+
+
+@pytest.mark.parametrize("delta,n", TILE_CASES)
+@pytest.mark.parametrize("pad", [0, 6])
+def test_irfft_plain_matches_pallas(delta, n, pad):
+    zr, zi, _ = _inverse_inputs(n, delta, pad, seed=200 + delta + n)
+    y = tile_irfft_cuda(*map(torch.from_numpy, (zr, zi)), delta=delta)
+    yj = tile_irfft_pallas(*map(jnp.asarray, (zr, zi)), delta=delta)
+    assert tuple(y.shape) == (n, delta, delta)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_tile_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.from_numpy(_rand((4, 16, 16), 11))
+    zr, zi, _ = map(torch.from_numpy, _inverse_inputs(3, 16, 0, seed=12))
+    with pytest.raises(TypeError, match="float32"):
+        tile_rfft_cuda(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_rfft_cuda(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="delta <= 32"):
+        tile_rfft_cuda(torch.zeros((2, 33, 33)), delta=33)
+    with pytest.raises(ValueError, match="tiles"):
+        tile_rfft_cuda(x, delta=8)
+    with pytest.raises(TypeError, match="float32"):
+        tile_irfft_cuda(zr.double(), zi.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_irfft_cuda(zr.t().contiguous().t(), zi.t().contiguous().t())
+    with pytest.raises(ValueError, match="delta <= 32"):
+        tile_irfft_cuda(torch.zeros((2, 600)), torch.zeros((2, 600)),
+                        delta=33)
+    with pytest.raises(ValueError, match="below the 130 points"):
+        tile_irfft_cuda(zr[:, :129].contiguous(), zi[:, :129].contiguous())
+    before = (tile_rfft_cuda.launches, tile_irfft_cuda.launches)
+    tile_rfft_cuda(x)                   # CPU: the plain versions, no launch
+    tile_irfft_cuda(zr, zi)
+    assert (tile_rfft_cuda.launches, tile_irfft_cuda.launches) == before

@@ -180,18 +180,25 @@ def test_not_ported_knobs_raise(kwargs):
 
 
 def test_fft_plans_are_forward_only():
+    """Forward only where no grad is asked for: under torch.no_grad(), or
+    with no operand requiring grad, an FFT plan records nothing for
+    autograd.  With grad mode on and an operand requiring grad it trains
+    through the plan-level VJP (tests/test_torch_grad.py holds the grads
+    against JAX), like direct through native autograd."""
     x, k = _rand((1, 2, 10, 10), 17), _rand((3, 2, 3, 3), 18)
     plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda")
     xg = _t(x).requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        plan(xg, _t(k))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        plan.prepare(_t(k))(xg)
     with torch.no_grad():
-        plan(xg, _t(k))                # no graph asked for: fine
-    assert not plan.differentiable
+        assert plan(xg, _t(k)).grad_fn is None
+        assert plan.prepare(_t(k))(xg).grad_fn is None
+    assert plan(_t(x), _t(k)).grad_fn is None
+    assert plan.differentiable
+    plan(xg, _t(k)).sum().backward()
+    plan.prepare(_t(k))(xg).sum().backward()
+    assert xg.grad is not None
     direct = tconv.plan_conv(x.shape, k.shape, padding=1, backend="direct")
     assert direct.differentiable
+    xg.grad = None
     direct(xg, _t(k)).sum().backward()
     assert xg.grad is not None
 
