@@ -23,20 +23,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               the output is held against the same trunk on backend
               ``direct`` (cuDNN, TF32 off)
   5. profile  kernel time by name for one served forward (torch.profiler)
-  6. train    training steps (forward + backward) of the same trunk built
+  6. rect     the same trunk, weights and batch through the raw stage ops
+              on the rect layout (the (16, 9) rfft2 grid, P = 144, which no
+              plan uses): the rect forward tile DFT for stages 1 and 2, the
+              CGEMM, and the rect inverse with bias + ReLU fused (a second
+              pass: the plain rect inverse, then the epilogue); exact
+              launches per forward and per transform sweep, both outputs
+              against cuDNN, the p50 beside the slice's
+  7. train    training steps (forward + backward) of the same trunk built
               from ``models.layers.conv_block`` on ``fft-cuda``: exact
               launches of every kernel per step, every layer's dk and
               d_bias against the same step on ``direct`` in float64
               (cuDNN), the step times beside ``direct`` in float32, and
               device time by kernel over one step of each
-  7. trainer  ``repro_torch.examples.train_cnn_fftconv`` at its defaults on
+  8. trainer  ``repro_torch.examples.train_cnn_fftconv`` at its defaults on
               ``fft-cuda`` (its own asserts), its exact launches, and its
               first losses against the same run on ``direct``
 
-and then the ``kernels`` summary line, the card's name and power limit as
-``nvidia-smi`` gives them, and the final ``{"ok": true, ...}`` line.  The
-launch counters are set to 0 right before each main path (4, 6, 7) and
-read right after it.
+and then the ``kernels`` summary line (all seven kernels), the card's name
+and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
+...}`` line.  The launch counters are set to 0 right before each main path
+(4, 6, 7, 8) and read right after it; each path must launch its own
+kernels and none of the others.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
@@ -56,15 +64,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs.paper_convs import network_convs  # noqa: E402
 import torch.nn.functional as TF  # noqa: E402
 
-from repro_torch.conv import autodiff, plan_conv, plan_network  # noqa: E402
+from repro_torch.conv import (  # noqa: E402
+    Epilogue, autodiff, plan_conv, plan_network, stages)
+from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core.dft import compact_layout  # noqa: E402
 from repro_torch.core.fftconv import freq_count  # noqa: E402
 from repro_torch.examples import train_cnn_fftconv  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cgemm import cgemm_cuda, cgemm_ref  # noqa: E402
 from repro_torch.kernels.dft_tile import (  # noqa: E402
-    tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref,
-    tile_irfft_ref, tile_rfft_cuda, tile_rfft_ref)
+    tile_fft_cuda, tile_fft_ref, tile_ifft_cuda, tile_ifft_epilogue_cuda,
+    tile_ifft_epilogue_ref, tile_ifft_ref, tile_irfft_cuda,
+    tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, tile_irfft_ref,
+    tile_rfft_cuda, tile_rfft_ref)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.layers import conv_block, maxpool2x2  # noqa: E402
 
@@ -81,6 +93,12 @@ KERNELS = {
                   "src/repro/kernels/dft_tile/kernel.py:40"),
     "tile_irfft": (tile_irfft_cuda, DFT_SRC,
                    "src/repro/kernels/dft_tile/kernel.py:79"),
+    "tile_fft": (tile_fft_cuda, DFT_SRC,
+                 "src/repro/kernels/dft_tile/kernel.py:20"),
+    "tile_ifft": (tile_ifft_cuda, DFT_SRC,
+                  "src/repro/kernels/dft_tile/kernel.py:121"),
+    "tile_ifft_epilogue": (tile_ifft_epilogue_cuda, DFT_SRC,
+                           "src/repro/kernels/dft_tile/kernel.py:137"),
 }
 
 # NVIDIA H100 SXM data sheet, dense rates
@@ -106,6 +124,9 @@ def read_counts():
 
 
 def expect_counts(what, got, want):
+    """``want`` names the kernels the path launches; every other kernel
+    must not have been launched."""
+    want = {**{k: 0 for k in KERNELS}, **want}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
@@ -169,11 +190,15 @@ def dx_plan_layers():
 
 
 def check_cgemm(layers, gen):
+    """At the served forward's shapes (P = 130) in float32 3M and 4M and
+    with bf16 operands, and at the rect path's (P = 144) in float32 3M."""
     rows = []
-    for dtype, three_m in ((torch.float32, True), (torch.float32, False),
-                           (torch.bfloat16, True)):
+    for dtype, three_m, spectrum in (
+            (torch.float32, True, "real"), (torch.float32, False, "real"),
+            (torch.bfloat16, True, "real"), (torch.float32, True, "rect")):
         for name, spec in layers:
-            P, M, C, N = freq_count(spec, "real"), spec.M, spec.C, spec.Cout
+            P, M, C, N = (freq_count(spec, spectrum), spec.M, spec.C,
+                          spec.Cout)
             Dr, Di = (torch.randn((P, M, C), generator=gen, device="cuda")
                       .to(dtype) for _ in range(2))
             Gr, Gi = (torch.randn((P, C, N), generator=gen, device="cuda")
@@ -186,8 +211,8 @@ def check_cgemm(layers, gen):
             scale = Rr.float().abs().max().item() + 1e-9
             if not err / scale <= CGEMM_TOL[dtype]:
                 raise AssertionError(
-                    f"cgemm {name} {dtype} three_m={three_m}: scaled error "
-                    f"{err / scale:.3e} > {CGEMM_TOL[dtype]}")
+                    f"cgemm {name} {dtype} three_m={three_m} P={P}: scaled "
+                    f"error {err / scale:.3e} > {CGEMM_TOL[dtype]}")
             ms = time_ms(lambda: cgemm_cuda(Dr, Di, Gr, Gi,
                                             three_m=three_m))
             plain_ms = time_ms(lambda: cgemm_ref(Dr, Di, Gr, Gi,
@@ -200,6 +225,7 @@ def check_cgemm(layers, gen):
             nbytes = 2 * size * (P * M * C + P * C * N + P * M * N)
             flops = (6 if three_m else 8) * P * M * C * N
             row = dict(kernel="cgemm", layer=name, shape=[P, M, C, N],
+                       spectrum=spectrum,
                        dtype=str(dtype).removeprefix("torch."),
                        three_m=three_m, max_abs_err=err,
                        scaled_err=err / scale, ms=ms, plain_ms=plain_ms,
@@ -331,6 +357,118 @@ def check_plain_inverse(dx_layers, gen):
     return rows
 
 
+def rect_bytes_flops(n, d, tail=False):
+    """One rect tile DFT over n tiles, either way: each tile's d*d floats
+    and its two R-point planes (and a bias with the tail) moved once; the
+    two products 12*d*R operations a tile (w axis then u axis forward,
+    the reverse inverse)."""
+    R = d * (d // 2 + 1)
+    return 4 * (n * d * d + 2 * n * R + (n if tail else 0)), 12 * d * R * n
+
+
+def check_rect_forward(layers, gen):
+    """Kernel 5 at every stage-1 tile count and every stage-2 count of the
+    served trunk.  The library call is one: ``torch.fft.rfft2``."""
+    rows = []
+    d = 16
+    cases = [(name, "stage1", spec.B * spec.C * spec.X * spec.D)
+             for name, spec in layers]
+    cases += [(name, "stage2", spec.Cout * spec.C) for name, spec in layers]
+    for name, stage, n in cases:
+        x = torch.randn((n, d, d), generator=gen, device="cuda")
+        Tr, Ti = tile_fft_cuda(x, delta=d)
+        Rr, Ri = tile_fft_ref(x, d)
+        X = torch.fft.rfft2(x)
+        torch.cuda.synchronize()
+        err = max((Tr - Rr).abs().max().item(), (Ti - Ri).abs().max().item())
+        scale = max(Rr.abs().max().item(), Ri.abs().max().item()) + 1e-9
+        if not err / scale <= FORWARD_TOL:
+            raise AssertionError(
+                f"tile_fft {name} {stage}: scaled error {err / scale:.3e} >"
+                f" {FORWARD_TOL}")
+        library_err = max((Tr - X.real).abs().max().item(),
+                          (Ti - X.imag).abs().max().item())
+        ms = time_ms(lambda: tile_fft_cuda(x, delta=d))
+        plain_ms = time_ms(lambda: tile_fft_ref(x, d))
+        library_ms = time_ms(lambda: torch.fft.rfft2(x))
+        row = dict(kernel="tile_fft", layer=name, stage=stage,
+                   shape=[n, d, d // 2 + 1], max_abs_err=err,
+                   scaled_err=err / scale, library_abs_diff=library_err,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library="torch.fft.rfft2",
+                   **bound(*rect_bytes_flops(n, d), torch.float32))
+        emit("kernel", **row)
+        rows.append(row)
+    return rows
+
+
+def check_rect_inverse(layers, gen):
+    """Kernels 6 and 7 at every output tile count of the served trunk,
+    kernel 7 with ReLU there and under the other activations at Vconv1.2.
+    Kernel 6 reads spectra made by an rfft2 of real tiles, so that its
+    library call, ``torch.fft.irfft2``, is defined on them (cuFFT's C2R
+    is unspecified on a non-Hermitian grid); kernel 7 reads random planes
+    and has no single library call."""
+    rows6, rows7 = [], []
+    d = 16
+    dh = d // 2 + 1
+    cases = [(name, spec, "relu") for name, spec in layers]
+    cases += [(layers[1][0], layers[1][1], act)
+              for act in ("none", "gelu", "silu")]
+    for name, spec, act in cases:
+        n = spec.B * spec.Cout * spec.X * spec.D
+        if act == "relu":
+            Z = torch.fft.rfft2(torch.randn((n, d, d), generator=gen,
+                                            device="cuda"))
+            Zr, Zi = Z.real.contiguous(), Z.imag.contiguous()
+            y = tile_ifft_cuda(Zr, Zi, delta=d)
+            y0 = tile_ifft_ref(Zr, Zi, d)
+            y_lib = torch.fft.irfft2(Z, s=(d, d))
+            torch.cuda.synchronize()
+            err = (y - y0).abs().max().item()
+            scale = y0.abs().max().item() + 1e-9
+            if not err / scale <= INVERSE_TOL:
+                raise AssertionError(
+                    f"tile_ifft {name}: scaled error {err / scale:.3e} > "
+                    f"{INVERSE_TOL}")
+            row = dict(kernel="tile_ifft", layer=name, shape=[n, d, dh],
+                       max_abs_err=err, scaled_err=err / scale,
+                       library_abs_diff=(y - y_lib).abs().max().item(),
+                       ms=time_ms(lambda: tile_ifft_cuda(Zr, Zi, delta=d)),
+                       plain_ms=time_ms(lambda: tile_ifft_ref(Zr, Zi, d)),
+                       library_ms=time_ms(
+                           lambda: torch.fft.irfft2(Z, s=(d, d))),
+                       library="torch.fft.irfft2",
+                       **bound(*rect_bytes_flops(n, d), torch.float32))
+            emit("kernel", **row)
+            rows6.append(row)
+            del Z, Zr, Zi, y, y0, y_lib
+        Zr, Zi = (torch.randn((n, d, dh), generator=gen, device="cuda")
+                  for _ in range(2))
+        b = torch.randn((n,), generator=gen, device="cuda")
+        y = tile_ifft_epilogue_cuda(Zr, Zi, b, activation=act, delta=d)
+        y0 = tile_ifft_epilogue_ref(Zr, Zi, b, activation=act, delta=d)
+        torch.cuda.synchronize()
+        err = (y - y0).abs().max().item()
+        scale = y0.abs().max().item() + 1e-9
+        if not err / scale <= INVERSE_TOL:
+            raise AssertionError(
+                f"tile_ifft_epilogue {name} {act}: scaled error "
+                f"{err / scale:.3e} > {INVERSE_TOL}")
+        row = dict(kernel="tile_ifft_epilogue", layer=name, shape=[n, d, dh],
+                   activation=act, max_abs_err=err, scaled_err=err / scale,
+                   ms=time_ms(lambda: tile_ifft_epilogue_cuda(
+                       Zr, Zi, b, activation=act, delta=d)),
+                   plain_ms=time_ms(lambda: tile_ifft_epilogue_ref(
+                       Zr, Zi, b, activation=act, delta=d)),
+                   library_ms=None,
+                   **bound(*rect_bytes_flops(n, d, tail=True),
+                           torch.float32))
+        emit("kernel", **row)
+        rows7.append(row)
+    return rows6, rows7
+
+
 def check_dk(gen):
     """dk of every layer of the trunk's training step as the plan-level VJP
     computes it (cuDNN's weight-gradient routine), against the JAX
@@ -363,8 +501,8 @@ def check_dk(gen):
 
 
 def summarize(name, rows, launches, has_library):
-    """One pass's worth (a served forward, or a training step's dx plans):
-    the main-path calls summed."""
+    """One pass's worth (a served forward, on the compact or the rect
+    path, or a training step's dx plans): the main-path calls summed."""
     _, source, replaces = KERNELS[name]
     by_kind = {"bytes": 0.0, "operations": 0.0}
     for r in rows:
@@ -422,6 +560,87 @@ def profile_forward(res):
          idle_share_vs_p50=1 - busy / p50_us,
          kernels=[{"name": k[:90], "device_us": t, "calls": c}
                   for t, k, c in rows[:16]])
+
+
+def rect_forward(layers, G, biases, x, fused):
+    """The served trunk through the raw stage ops on the rect layout: per
+    layer the rect forward tile DFT (stage 1), the CGEMM at P = 144, and
+    the rect inverse with bias + ReLU fused into its tail (``fused``) or
+    the plain rect inverse and then the epilogue; the trunk's pools."""
+    ep = Epilogue(bias=True, activation="relu")
+    route = (dict(inverse_fn=_cuda_fused_inverse) if fused
+             else dict(tile_ifft=tile_ifft_cuda))
+    h = x
+    for name, spec in layers:
+        Dr, Di = stages.stage_input_transform(h, spec, "rect",
+                                              tile_fft=tile_fft_cuda)
+        Zr, Zi = stages.stage_cgemm(Dr, Di, *G[name], three_m=True,
+                                    cgemm_fn=cgemm_cuda)
+        h = stages.stage_output_inverse(Zr, Zi, spec, epilogue=ep,
+                                        bias=biases[name], spectrum="rect",
+                                        **route)
+        if name in serve._VGG_POOL_AFTER:
+            h = maxpool2x2(h)
+    return h
+
+
+def rect_phase(res, layers, y_ref, slice_p50_ms):
+    """The served trunk's weights, biases and request batch through the
+    rect path: one transform sweep (stage 2 of every layer), then GEN
+    synchronized forwards fused and GEN unfused, each held to cuDNN."""
+    n_layers = len(layers)
+    counts = {}
+    with torch.inference_mode():
+        zero_counts()
+        t0 = time.perf_counter()
+        G = {name: stages.stage_kernel_transform(
+            res.kernels[name], spec, "rect", tile_fft=tile_fft_cuda)
+            for name, spec in layers}
+        torch.cuda.synchronize()
+        sweep_ms = (time.perf_counter() - t0) * 1e3
+        counts["sweep"] = read_counts()
+        expect_counts("rect transform sweep", counts["sweep"],
+                      {"tile_fft": n_layers})
+        out = {}
+        for fused in (True, False):
+            route = "fused" if fused else "unfused"
+            rect_forward(layers, G, res.biases, res.x, fused)   # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            lats = []
+            for _ in range(GEN):
+                t0 = time.perf_counter()
+                y = rect_forward(layers, G, res.biases, res.x, fused)
+                torch.cuda.synchronize()
+                lats.append(time.perf_counter() - t0)
+            counts[route] = read_counts()
+            inverse = "tile_ifft_epilogue" if fused else "tile_ifft"
+            expect_counts(f"rect forward, {route}", counts[route], {
+                "tile_fft": GEN * n_layers, "cgemm": GEN * n_layers,
+                inverse: GEN * n_layers})
+            rel = ((y - y_ref).abs().max() / y_ref.abs().max()).item()
+            if tuple(y.shape) != tuple(y_ref.shape) or not rel <= SLICE_TOL:
+                raise AssertionError(f"rect trunk, {route}, vs cuDNN: shape "
+                                     f"{tuple(y.shape)}, {rel:.3e} > "
+                                     f"{SLICE_TOL}")
+            out[route] = dict(rel_err_vs_cudnn=rel,
+                              p50_ms=serve._percentile(lats, 50) * 1e3,
+                              max_ms=max(lats) * 1e3,
+                              latencies_ms=[t * 1e3 for t in lats])
+        rows, busy, wall_us = device_profile(
+            lambda: rect_forward(layers, G, res.biases, res.x, True))
+    emit("rect", image=IMAGE, batch=BATCH, forwards_per_route=GEN,
+         launches_per_forward={"tile_fft": n_layers, "cgemm": n_layers,
+                               "tile_ifft_epilogue or tile_ifft": n_layers},
+         launches_per_sweep={"tile_fft": n_layers}, sweep_ms=sweep_ms,
+         tol=SLICE_TOL, slice_p50_ms=slice_p50_ms, **out,
+         launches=counts, profile=dict(
+             device_busy_us=busy, profiled_wall_us=wall_us,
+             kernel_launches=sum(c for _, _, c in rows),
+             idle_share_vs_p50=1 - busy / (out["fused"]["p50_ms"] * 1e3),
+             kernels=[{"name": k[:90], "device_us": t, "calls": c}
+                      for t, k, c in rows[:16]]))
+    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
 
 def vgg_train_loss(layers, backend, kernels, biases, x, r):
@@ -580,6 +799,8 @@ def main():
     inv_rows = check_inverse(layers, gen)
     fwd_rows = check_forward(layers, gen)
     binv_rows = check_plain_inverse(dx_layers, gen)
+    rfwd_rows = check_rect_forward(layers, gen)
+    rinv_rows, rinv_ep_rows = check_rect_inverse(layers, gen)
     check_dk(gen)
 
     # the slice: counters at 0 right before the served run, read right after
@@ -613,33 +834,41 @@ def main():
     if not rel <= SLICE_TOL:
         raise AssertionError(f"fft-cuda trunk vs cuDNN: {rel:.3e} > "
                              f"{SLICE_TOL}")
+    slice_p50_ms = serve._percentile(res.latencies_s, 50) * 1e3
     emit("slice", backend="fft-cuda", image=IMAGE, batch=BATCH,
          forwards=n_forward, prepares=n_prepare, launches=slice_counts,
          launches_per_forward={"tile_rfft": n_layers, "cgemm": n_layers,
                                "tile_irfft_epilogue": n_layers},
          launches_per_prepare={"tile_rfft": n_layers},
          rel_err_vs_cudnn=rel, tol=SLICE_TOL, prepare_ms=res.prepare_s * 1e3,
-         p50_ms=serve._percentile(res.latencies_s, 50) * 1e3,
+         p50_ms=slice_p50_ms,
          p99_ms=serve._percentile(res.latencies_s, 99) * 1e3,
          latencies_ms=[t * 1e3 for t in res.latencies_s])
 
     profile_forward(res)
+    rect_counts = rect_phase(res, layers, y_ref, slice_p50_ms)
     train_counts = train_phase()
     trainer_counts = trainer_phase()
 
-    # launches: the three main paths together (slice, train, trainer)
-    launches = {k: slice_counts[k] + train_counts[k] + trainer_counts[k]
-                for k in KERNELS}
-    main_cg = [r for r in cg_rows
-               if r["dtype"] == "float32" and r["three_m"]]
+    # launches: the four main paths together (slice, rect, train, trainer)
+    launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
+                + trainer_counts[k] for k in KERNELS}
+    main_cg = [r for r in cg_rows if r["dtype"] == "float32"
+               and r["three_m"] and r["spectrum"] == "real"]
     main_inv = inv_rows[:n_layers]
     main_fwd = [r for r in fwd_rows if r["stage"] == "stage1"]
+    rect_fwd = [r for r in rfwd_rows if r["stage"] == "stage1"]
+    rect_ep = [r for r in rinv_ep_rows if r["activation"] == "relu"]
     print(json.dumps({"kernels": [
         summarize("cgemm", main_cg, launches["cgemm"], True),
         summarize("tile_irfft_epilogue", main_inv,
                   launches["tile_irfft_epilogue"], False),
         summarize("tile_rfft", main_fwd, launches["tile_rfft"], True),
         summarize("tile_irfft", binv_rows, launches["tile_irfft"], True),
+        summarize("tile_fft", rect_fwd, launches["tile_fft"], True),
+        summarize("tile_ifft", rinv_rows, launches["tile_ifft"], True),
+        summarize("tile_ifft_epilogue", rect_ep,
+                  launches["tile_ifft_epilogue"], False),
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

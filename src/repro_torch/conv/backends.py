@@ -21,6 +21,11 @@ Backends:
              is no bias or activation to fuse or a residual.  On CPU
              tensors every kernel runs its plain PyTorch version.
 
+``_cuda_fused_inverse`` is the fused stage-4 tail of the ``rect`` layout,
+which no plan uses: direct callers of the raw stage ops pass it to
+``stages.stage_output_inverse`` as ``inverse_fn``, as the JAX package's
+``_pallas_fused_inverse`` is passed.
+
 The two FFT backends differ *only* in the stage ops they inject into the
 pipeline; transforms and prepare/execute are shared composition.
 """
@@ -41,6 +46,31 @@ def _cuda_cgemm_fn(plan):
     return functools.partial(cgemm_cuda, three_m=plan.three_m)
 
 
+def _tile_bias(bias, spec, like):
+    """One bias scalar per output tile, in (B, C', X, Dl) order: the
+    channel's bias broadcast over the tile indices (zeros without one)."""
+    B, Co, X, Dl = spec.B, spec.Cout, spec.X, spec.D
+    b = bias if bias is not None else torch.zeros(
+        (Co,), dtype=like.dtype, device=like.device)
+    return b.to(like.dtype)[None, :, None, None].expand(
+        B, Co, X, Dl).reshape(-1).contiguous()
+
+
+def _cuda_fused_inverse(Zr, Zi, spec, epilogue, bias):
+    """The ``spectrum="rect"`` fused stage-4 tail: inverse DFT + bias +
+    activation in one ``dft_tile`` kernel pass (the twin of the JAX
+    package's ``_pallas_fused_inverse``), on the CGEMM's (P, M, C')
+    output made contiguous (n, delta, dh) planes."""
+    from repro_torch.kernels.dft_tile import tile_ifft_epilogue_cuda
+    d = spec.delta
+    y = tile_ifft_epilogue_cuda(F.z_to_rect_planes(Zr, spec),
+                                F.z_to_rect_planes(Zi, spec),
+                                _tile_bias(bias, spec, Zr),
+                                activation=epilogue.activation, delta=d)
+    return F.assemble_output_tiles(
+        y.reshape(spec.B, spec.Cout, spec.X, spec.D, d, d), spec)
+
+
 def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias):
     """The ``spectrum="real"`` fused stage-4 tail: compact-layout scatter +
     inverse DFT + bias + activation in one ``dft_tile`` kernel pass.
@@ -54,18 +84,13 @@ def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias):
     from repro_torch.kernels.dft_tile import tile_irfft_epilogue_cuda
     from repro_torch.core.dft import num_freq_real
     P = num_freq_real(spec.delta)
-    B, Co, X, Dl = spec.B, spec.Cout, spec.X, spec.D
-    n = B * Co * X * Dl
     d = spec.delta
-    b = bias if bias is not None else torch.zeros(
-        (Co,), dtype=Zr.dtype, device=Zr.device)
-    # one bias scalar per tile: broadcast over (B, ., X, Dl) tile indices
-    b_tile = b.to(Zr.dtype)[None, :, None, None].expand(
-        B, Co, X, Dl).reshape(n).contiguous()
     y = tile_irfft_epilogue_cuda(F.z_to_tile_planes(Zr, spec, P),
-                                 F.z_to_tile_planes(Zi, spec, P), b_tile,
+                                 F.z_to_tile_planes(Zi, spec, P),
+                                 _tile_bias(bias, spec, Zr),
                                  activation=epilogue.activation, delta=d)
-    return F.assemble_output_tiles(y.reshape(B, Co, X, Dl, d, d), spec)
+    return F.assemble_output_tiles(
+        y.reshape(spec.B, spec.Cout, spec.X, spec.D, d, d), spec)
 
 
 def _exec_direct(plan, x, k, bias=None, residual=None):

@@ -19,7 +19,9 @@ in float32, before the cast to the output dtype.  Backends may hand the
 pipeline tile kernels for the compact ``real`` layout (the CUDA
 ``dft_tile`` kernels): ``tile_rfft`` for the tile transforms of stages 1
 and 2, ``tile_irfft`` for an unfused stage 4, and a fused ``inverse_fn``
-that runs the bias and activation inside the inverse transform.
+that runs the bias and activation inside the inverse transform.  The stage
+ops also take the ``rect`` layout's kernels, ``tile_fft`` and
+``tile_ifft``, for direct callers of that layout (no plan uses it).
 
 Every pipeline exposes the prepare/execute split:
 
@@ -98,16 +100,17 @@ def _dtype_name(dtype: torch.dtype) -> str:
 # --------------------------------------------------------------------------
 
 def stage_input_transform(x, spec: ConvSpec, spectrum: str = "rect",
-                          tile_rfft=None):
+                          tile_rfft=None, tile_fft=None):
     _count("input_transform")
-    return F.input_transform(x, spec, spectrum=spectrum, tile_rfft=tile_rfft)
+    return F.input_transform(x, spec, spectrum=spectrum, tile_rfft=tile_rfft,
+                             tile_fft=tile_fft)
 
 
 def stage_kernel_transform(k, spec: ConvSpec, spectrum: str = "rect",
-                           tile_rfft=None):
+                           tile_rfft=None, tile_fft=None):
     _count("kernel_transform")
     return F.kernel_transform(k, spec, spectrum=spectrum,
-                              tile_rfft=tile_rfft)
+                              tile_rfft=tile_rfft, tile_fft=tile_fft)
 
 
 def stage_cgemm(Dr, Di, Gr, Gi, *, three_m: bool, cgemm_fn=None):
@@ -125,7 +128,8 @@ def stage_cgemm(Dr, Di, Gr, Gi, *, three_m: bool, cgemm_fn=None):
 
 def stage_output_inverse(Zr, Zi, spec: ConvSpec, *, epilogue: Epilogue = None,
                          bias=None, residual=None, inverse_fn=None,
-                         tile_irfft=None, spectrum: str = "rect"):
+                         tile_irfft=None, tile_ifft=None,
+                         spectrum: str = "rect"):
     """Stage 4 with the fused elementwise epilogue.
 
     The epilogue rides inside this single stage op (the counter increments
@@ -134,14 +138,15 @@ def stage_output_inverse(Zr, Zi, spec: ConvSpec, *, epilogue: Epilogue = None,
     to the plan's spectrum layout; it cannot fold a residual — the residual
     lives in output layout, not tile layout — so residual and no-op
     epilogues take the composed path: the inverse (through the
-    ``tile_irfft`` kernel when the backend gives one), then the epilogue.
+    ``tile_irfft`` or ``tile_ifft`` kernel when the caller gives one), then
+    the epilogue.
     """
     _count("output_inverse")
     if (inverse_fn is not None and epilogue is not None
             and not epilogue.is_noop and not epilogue.residual):
         return inverse_fn(Zr, Zi, spec, epilogue, bias)
     y = F.output_inverse(Zr, Zi, spec, spectrum=spectrum,
-                         tile_irfft=tile_irfft)
+                         tile_irfft=tile_irfft, tile_ifft=tile_ifft)
     return apply_epilogue(y, epilogue, bias=bias, residual=residual)
 
 

@@ -98,25 +98,31 @@ def extract_tiles(x, spec: ConvSpec):
 
 
 def _tiles_to_spectrum(tiles, spec: ConvSpec, spectrum: str,
-                       tile_rfft=None):
+                       tile_rfft=None, tile_fft=None):
     """Real tile batch (..., delta, delta) -> flat spectrum planes (..., P).
 
-    ``tile_rfft`` (the ``spectrum="real"`` layout only) is a kernel
-    ``(tiles (n, delta, delta), delta=) -> two (n, P_real) planes`` run on
-    the tiles made contiguous, in place of the DFT matmuls and the gather.
+    A tile kernel runs on the tiles made contiguous, in place of the DFT
+    matmuls (and the gather): ``tile_rfft`` (the ``spectrum="real"``
+    layout only) ``(tiles (n, delta, delta), delta=) -> two (n, P_real)
+    planes``; ``tile_fft`` (``spectrum="rect"`` only) ``(tiles, delta=) ->
+    two (n, delta, delta//2 + 1) planes``.
     """
     if tile_rfft is not None and spectrum != "real":
         raise ValueError(f"a tile_rfft kernel computes the compact 'real' "
                          f"layout, not {spectrum!r}")
+    if tile_fft is not None and spectrum != "rect":
+        raise ValueError(f"a tile_fft kernel computes the 'rect' layout, "
+                         f"not {spectrum!r}")
     if spectrum == "complex":
         Tr, Ti = fft2_full_tiles(tiles, spec.delta)
         P = spec.delta * spec.delta
         return Tr.reshape(*Tr.shape[:-2], P), Ti.reshape(*Ti.shape[:-2], P)
     if spectrum not in ("real", "rect"):
         raise ValueError(f"unknown spectrum {spectrum!r}")
-    if tile_rfft is not None:
+    kernel = tile_rfft or tile_fft
+    if kernel is not None:
         d, lead = spec.delta, tiles.shape[:-2]
-        Tr, Ti = tile_rfft(tiles.reshape(-1, d, d).contiguous(), delta=d)
+        Tr, Ti = kernel(tiles.reshape(-1, d, d).contiguous(), delta=d)
         return Tr.reshape(*lead, -1), Ti.reshape(*lead, -1)
     Tr, Ti = rfft2_tiles(tiles, spec.delta)
     if spectrum == "real":
@@ -126,10 +132,11 @@ def _tiles_to_spectrum(tiles, spec: ConvSpec, spectrum: str,
 
 
 def input_transform(x, spec: ConvSpec, *, dtype=torch.float32,
-                    spectrum: str = "rect", tile_rfft=None):
+                    spectrum: str = "rect", tile_rfft=None, tile_fft=None):
     """Stage 1: I -> D (P, M, C) as (real, imag)."""
     patches = extract_tiles(x.to(dtype), spec)         # (B, C, X, Dl, d, d)
-    Tr, Ti = _tiles_to_spectrum(patches, spec, spectrum, tile_rfft)
+    Tr, Ti = _tiles_to_spectrum(patches, spec, spectrum, tile_rfft,
+                                tile_fft)
     P = Tr.shape[-1]                                   # == freq_count(...)
 
     def to_pmc(T):                                     # (B, C, X, Dl, P)
@@ -143,11 +150,12 @@ def input_transform(x, spec: ConvSpec, *, dtype=torch.float32,
 # --------------------------------------------------------------------------
 
 def kernel_transform(k, spec: ConvSpec, *, dtype=torch.float32,
-                     spectrum: str = "rect", tile_rfft=None):
+                     spectrum: str = "rect", tile_rfft=None, tile_fft=None):
     """Stage 2: K -> G (P, C, C') as (real, imag); imag is conjugated."""
     d = spec.delta
     kp = TF.pad(k.to(dtype), (0, d - spec.kw, 0, d - spec.kh))
-    Tr, Ti = _tiles_to_spectrum(kp, spec, spectrum, tile_rfft)  # (C', C, P)
+    Tr, Ti = _tiles_to_spectrum(kp, spec, spectrum, tile_rfft,
+                                tile_fft)              # (C', C, P)
     P = Tr.shape[-1]                                   # == freq_count(...)
 
     def to_pcc(T):                                     # the kernels' layout
@@ -164,6 +172,14 @@ def z_to_tiles(Z, spec: ConvSpec):
     d, dh = spec.delta, spec.delta_h
     Z = Z.reshape(d, dh, spec.B, spec.X, spec.D, spec.Cout)
     return Z.permute(2, 5, 3, 4, 0, 1)                 # (B, C', X, Dl, d, dh)
+
+
+def z_to_rect_planes(Z, spec: ConvSpec):
+    """(P', M, C') rect layout -> contiguous (n, d, dh) planes, one per
+    output tile in (B, C', X, Dl) order: what the rect ``dft_tile`` inverse
+    kernels read.  Rows past ``spec.P`` (padding) are dropped."""
+    d, dh = spec.delta, spec.delta_h
+    return z_to_tiles(Z[:spec.P], spec).reshape(-1, d, dh).contiguous()
 
 
 def z_to_flat_tiles(Z, spec: ConvSpec, P: int):
@@ -193,22 +209,31 @@ def assemble_output_tiles(y, spec: ConvSpec):
 
 
 def output_inverse(Zr, Zi, spec: ConvSpec, *, spectrum: str = "rect",
-                   tile_irfft=None):
+                   tile_irfft=None, tile_ifft=None):
     """Stage 4: Z (P, M, C') -> O (B, C', Ho, Wo).
 
     The P axis may carry trailing padding past the layout's point count;
-    it is sliced off here.  ``tile_irfft`` (the ``spectrum="real"`` layout
-    only) is a kernel ``(Zr, Zi (n, P), delta=) -> (n, delta, delta)`` run
-    on the tile planes in place of the scatter and the DFT matmuls.
+    it is sliced off here.  A tile kernel runs on the tile planes in place
+    of the (scatter and the) DFT matmuls: ``tile_irfft`` (the
+    ``spectrum="real"`` layout only) ``(Zr, Zi (n, P), delta=) -> (n,
+    delta, delta)``; ``tile_ifft`` (``spectrum="rect"`` only) ``(Zr, Zi
+    (n, delta, delta//2 + 1), delta=) -> (n, delta, delta)``.
     """
     d = spec.delta
     if tile_irfft is not None and spectrum != "real":
         raise ValueError(f"a tile_irfft kernel reads the compact 'real' "
                          f"layout, not {spectrum!r}")
+    if tile_ifft is not None and spectrum != "rect":
+        raise ValueError(f"a tile_ifft kernel reads the 'rect' layout, not "
+                         f"{spectrum!r}")
     if tile_irfft is not None:
         P = dft.num_freq_real(d)
         y = tile_irfft(z_to_tile_planes(Zr, spec, P),
                        z_to_tile_planes(Zi, spec, P), delta=d)
+        y = y.reshape(spec.B, spec.Cout, spec.X, spec.D, d, d)
+    elif tile_ifft is not None:
+        y = tile_ifft(z_to_rect_planes(Zr, spec), z_to_rect_planes(Zi, spec),
+                      delta=d)
         y = y.reshape(spec.B, spec.Cout, spec.X, spec.D, d, d)
     elif spectrum == "rect":
         y = irfft2_tiles(z_to_tiles(Zr[:spec.P], spec),

@@ -1,11 +1,21 @@
-"""Wrappers of the CUDA compact-spectrum tile DFT kernels (stages 1, 2 and 4
-of ``fft-cuda`` on the ``spectrum="real"`` layout).
+"""Wrappers of the CUDA tile DFT kernels (stages 1, 2 and 4 of FFT
+convolution).
+
+On the compact ``spectrum="real"`` layout, the one ``fft-cuda`` plans run:
 
 - ``tile_rfft_cuda``: forward tile DFT + compact gather (stages 1 and 2).
 - ``tile_irfft_cuda``: compact scatter + inverse tile DFT (stage 4 with no
   fusable epilogue: the dx plans of training, residual epilogues).
 - ``tile_irfft_epilogue_cuda``: the same inverse with bias + activation
   fused into the tail (the served stage 4).
+
+On the rect rfft2 grid, ``(n, delta, delta//2 + 1)`` planes, reached through
+the raw stage primitives' ``spectrum="rect"`` hooks (no plan uses it):
+
+- ``tile_fft_cuda``: forward tile DFT (stages 1 and 2).
+- ``tile_ifft_cuda``: inverse tile DFT (an unfused stage 4).
+- ``tile_ifft_epilogue_cuda``: the same inverse with bias + activation
+  fused into the tail (``conv.backends._cuda_fused_inverse``).
 
 Each dispatches on the operands' device: a CPU tensor runs the plain
 PyTorch version (``ref.py``); a CUDA tensor launches the
@@ -22,6 +32,7 @@ import torch
 from repro_torch.core.dft import compact_layout, dft_mats, num_freq_real
 from repro_torch.kernels import _build
 from repro_torch.kernels.dft_tile.ref import (
+    tile_fft_ref, tile_ifft_epilogue_ref, tile_ifft_ref,
     tile_irfft_epilogue_ref, tile_irfft_ref, tile_rfft_ref,
 )
 
@@ -39,6 +50,13 @@ _ARGTYPES = {
     # zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act, stream
     "tile_irfft_epilogue_f32": [_P] * 10 + [ctypes.c_longlong]
     + [ctypes.c_int] * 3 + [_P],
+    # x, tr, ti, fr, fi, fhr, fhi, n, delta, stream
+    "tile_fft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # zr, zi, y, fvr, fvi, wr, wi, n, delta, stream
+    "tile_ifft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # zr, zi, bias, y, fvr, fvi, wr, wi, n, delta, act, stream
+    "tile_ifft_epilogue_f32": [_P] * 8 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 2 + [_P],
 }
 
 
@@ -81,12 +99,45 @@ def _check_planes(name, Zr, Zi, delta):
                          f"layout at delta={delta}")
 
 
+def _check_rect_planes(name, Zr, Zi, delta):
+    dh = delta // 2 + 1
+    if Zr.dim() != 3 or tuple(Zr.shape[1:]) != (delta, dh) \
+            or Zi.shape != Zr.shape:
+        raise ValueError(f"{name} wants two (n, {delta}, {dh}) planes, got "
+                         f"{tuple(Zr.shape)} and {tuple(Zi.shape)}")
+
+
+def _check_tiles(name, x, delta):
+    if x.dim() != 3 or tuple(x.shape[1:]) != (delta, delta):
+        raise ValueError(f"{name} wants tiles (n, {delta}, {delta}), got "
+                         f"{tuple(x.shape)}")
+
+
+def _check_bias(Zr, bias):
+    if tuple(bias.shape) != (Zr.shape[0],):
+        raise ValueError(f"bias must hold one value per tile "
+                         f"({Zr.shape[0]},), got {tuple(bias.shape)}")
+
+
+def _check_activation(activation):
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(f"unsupported kernel-tail activation "
+                         f"{activation!r}: {tuple(ACTIVATION_CODES)}")
+
+
 def _cuda_device(name, device):
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
 
 
-def _raise_on(rc):
+def _launch(entry, device, *args):
+    """Launch the kernel entry point ``entry`` on ``device``'s current
+    stream (tensors pass as their data pointers); raise if the launch
+    failed."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(_lib(), entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"dft_tile kernel launch failed: "
                            f"{_lib().dft_tile_error_string(rc).decode()} "
@@ -100,9 +151,7 @@ def tile_rfft_cuda(x, *, delta: int = 16):
     contract); any ``delta <= 32``, odd included."""
     name = "tile_rfft"
     _check_delta(name, delta)
-    if x.dim() != 3 or tuple(x.shape[1:]) != (delta, delta):
-        raise ValueError(f"{name} wants tiles (n, {delta}, {delta}), got "
-                         f"{tuple(x.shape)}")
+    _check_tiles(name, x, delta)
     _check_layout(name, (x,))
     if x.device.type == "cpu":
         return tile_rfft_ref(x, delta)
@@ -115,13 +164,8 @@ def tile_rfft_cuda(x, *, delta: int = 16):
         return Tr, Ti
     Fr, Fi, Fhr, Fhi, *_ = dft_mats(delta, x.device, torch.float32)
     store, _, _ = compact_layout(delta, x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().tile_rfft_f32(
-            x.data_ptr(), Tr.data_ptr(), Ti.data_ptr(), Fr.data_ptr(),
-            Fi.data_ptr(), Fhr.data_ptr(), Fhi.data_ptr(), store.data_ptr(),
-            n, P, delta, stream)
-    _raise_on(rc)
+    _launch("tile_rfft_f32", x.device, x, Tr, Ti, Fr, Fi, Fhr, Fhi, store, n,
+            P, delta)
     tile_rfft_cuda.launches += 1
     return Tr, Ti
 
@@ -144,13 +188,8 @@ def tile_irfft_cuda(Zr, Zi, *, delta: int = 16):
         return y
     *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
     _, src, sgn = compact_layout(delta, Zr.device)
-    with torch.cuda.device(Zr.device):
-        stream = torch.cuda.current_stream(Zr.device).cuda_stream
-        rc = _lib().tile_irfft_f32(
-            Zr.data_ptr(), Zi.data_ptr(), y.data_ptr(), Fvr.data_ptr(),
-            Fvi.data_ptr(), Wr.data_ptr(), Wi.data_ptr(), src.data_ptr(),
-            sgn.data_ptr(), n, P, delta, stream)
-    _raise_on(rc)
+    _launch("tile_irfft_f32", Zr.device, Zr, Zi, y, Fvr, Fvi, Wr, Wi, src, sgn,
+            n, P, delta)
     tile_irfft_cuda.launches += 1
     return y
 
@@ -164,37 +203,102 @@ def tile_irfft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
     row, so they must be contiguous (n, P): callers holding the CGEMM's
     (P, M, C') layout transpose it first."""
     name = "tile_irfft_epilogue"
-    if activation not in ACTIVATION_CODES:
-        raise ValueError(f"unsupported kernel-tail activation "
-                         f"{activation!r}: {tuple(ACTIVATION_CODES)}")
+    _check_activation(activation)
     _check_delta(name, delta)
     _check_planes(name, Zr, Zi, delta)
-    n, P = Zr.shape
-    if tuple(bias.shape) != (n,):
-        raise ValueError(f"bias must hold one value per tile ({n},), got "
-                         f"{tuple(bias.shape)}")
+    _check_bias(Zr, bias)
     _check_layout(name, (Zr, Zi, bias))
     if Zr.device.type == "cpu":
         return tile_irfft_epilogue_ref(Zr, Zi, bias, activation=activation,
                                        delta=delta)
     _cuda_device(name, Zr.device)
+    n, P = Zr.shape
     y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
     if n == 0:
         return y
     *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
     _, src, sgn = compact_layout(delta, Zr.device)
-    with torch.cuda.device(Zr.device):
-        stream = torch.cuda.current_stream(Zr.device).cuda_stream
-        rc = _lib().tile_irfft_epilogue_f32(
-            Zr.data_ptr(), Zi.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            Fvr.data_ptr(), Fvi.data_ptr(), Wr.data_ptr(), Wi.data_ptr(),
-            src.data_ptr(), sgn.data_ptr(), n, P, delta,
-            ACTIVATION_CODES[activation], stream)
-    _raise_on(rc)
+    _launch("tile_irfft_epilogue_f32", Zr.device, Zr, Zi, bias, y, Fvr, Fvi,
+            Wr, Wi, src, sgn, n, P, delta, ACTIVATION_CODES[activation])
     tile_irfft_epilogue_cuda.launches += 1
+    return y
+
+
+def tile_fft_cuda(x, *, delta: int = 16):
+    """Forward tile DFT on the rect grid: tiles (n, delta, delta) -> two
+    (n, delta, delta//2 + 1) planes, the rfft2 of each tile.  Tiles are
+    read contiguous and the planes written contiguous (the Pallas
+    contract); any ``delta <= 32``, odd included."""
+    name = "tile_fft"
+    _check_delta(name, delta)
+    _check_tiles(name, x, delta)
+    _check_layout(name, (x,))
+    if x.device.type == "cpu":
+        return tile_fft_ref(x, delta)
+    _cuda_device(name, x.device)
+    n = x.shape[0]
+    Tr = torch.empty((n, delta, delta // 2 + 1), dtype=torch.float32,
+                     device=x.device)
+    Ti = torch.empty_like(Tr)
+    if n == 0:
+        return Tr, Ti
+    Fr, Fi, Fhr, Fhi, *_ = dft_mats(delta, x.device, torch.float32)
+    _launch("tile_fft_f32", x.device, x, Tr, Ti, Fr, Fi, Fhr, Fhi, n, delta)
+    tile_fft_cuda.launches += 1
+    return Tr, Ti
+
+
+def tile_ifft_cuda(Zr, Zi, *, delta: int = 16):
+    """Inverse tile DFT from the rect grid with no tail: two contiguous
+    (n, delta, delta//2 + 1) planes -> (n, delta, delta) float32, the
+    irfft2 of each tile; any ``delta <= 32``."""
+    name = "tile_ifft"
+    _check_delta(name, delta)
+    _check_rect_planes(name, Zr, Zi, delta)
+    _check_layout(name, (Zr, Zi))
+    if Zr.device.type == "cpu":
+        return tile_ifft_ref(Zr, Zi, delta)
+    _cuda_device(name, Zr.device)
+    n = Zr.shape[0]
+    y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
+    if n == 0:
+        return y
+    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
+    _launch("tile_ifft_f32", Zr.device, Zr, Zi, y, Fvr, Fvi, Wr, Wi, n, delta)
+    tile_ifft_cuda.launches += 1
+    return y
+
+
+def tile_ifft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
+                            delta: int = 16):
+    """Inverse tile DFT from the rect grid with the conv epilogue fused
+    into the tail: two contiguous (n, delta, delta//2 + 1) planes + (n,)
+    bias -> (n, delta, delta) float32, bias-shifted and activated; any
+    ``delta <= 32``."""
+    name = "tile_ifft_epilogue"
+    _check_activation(activation)
+    _check_delta(name, delta)
+    _check_rect_planes(name, Zr, Zi, delta)
+    _check_bias(Zr, bias)
+    _check_layout(name, (Zr, Zi, bias))
+    if Zr.device.type == "cpu":
+        return tile_ifft_epilogue_ref(Zr, Zi, bias, activation=activation,
+                                      delta=delta)
+    _cuda_device(name, Zr.device)
+    n = Zr.shape[0]
+    y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
+    if n == 0:
+        return y
+    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
+    _launch("tile_ifft_epilogue_f32", Zr.device, Zr, Zi, bias, y, Fvr, Fvi, Wr,
+            Wi, n, delta, ACTIVATION_CODES[activation])
+    tile_ifft_epilogue_cuda.launches += 1
     return y
 
 
 tile_rfft_cuda.launches = 0
 tile_irfft_cuda.launches = 0
 tile_irfft_epilogue_cuda.launches = 0
+tile_fft_cuda.launches = 0
+tile_ifft_cuda.launches = 0
+tile_ifft_epilogue_cuda.launches = 0

@@ -8,21 +8,27 @@ a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: CGEMM scaled atol 2e-5 in float32 and 5e-2 with bf16
-operands (as tests/test_kernels.py); the forward tile DFT scaled atol
-2e-5; the inverse and fused inverse 1e-4 absolute on unit-scale spectra;
-a whole conv, and its grads, 3e-4 against cuDNN with TF32 off.
+operands (as tests/test_kernels.py); the forward tile DFTs (compact and
+rect) scaled atol 2e-5; the inverses and fused inverses 1e-4 absolute on
+unit-scale spectra; a whole conv, and its grads, 3e-4 against cuDNN with
+TF32 off.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
-from repro_torch.conv import Epilogue, plan_conv  # noqa: E402
+from repro_torch.configs.paper_convs import TABLE1  # noqa: E402
+from repro_torch.conv import Epilogue, plan_conv, stages  # noqa: E402
+from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core.dft import num_freq_real  # noqa: E402
+from repro_torch.core.fftconv import conv2d_direct, make_spec  # noqa: E402
 from repro_torch.kernels.cgemm import cgemm_cuda, cgemm_ref  # noqa: E402
 from repro_torch.kernels.dft_tile import (  # noqa: E402
-    tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref,
-    tile_irfft_ref, tile_rfft_cuda, tile_rfft_ref)
+    tile_fft_cuda, tile_fft_ref, tile_ifft_cuda, tile_ifft_epilogue_cuda,
+    tile_ifft_epilogue_ref, tile_ifft_ref, tile_irfft_cuda,
+    tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, tile_irfft_ref,
+    tile_rfft_cuda, tile_rfft_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -106,6 +112,96 @@ def test_irfft_kernel_matches_plain(cuda, delta, pad):
     torch.cuda.synchronize()
     assert tile_irfft_cuda.launches == before + 1
     assert (y - y0).abs().max().item() <= 1e-4
+
+
+# rect kernels: n = 0 returns empty planes without a launch; 1001 is not a
+# multiple of a block's 8 warps
+RECT_TILE_COUNTS = (0, 1, 1001)
+
+
+@pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])
+def test_fft_kernel_matches_plain(cuda, delta):
+    for n in RECT_TILE_COUNTS:
+        x = _rand((n, delta, delta), 20 + delta).to(cuda)
+        before = tile_fft_cuda.launches
+        Tr, Ti = tile_fft_cuda(x, delta=delta)
+        Rr, Ri = tile_fft_ref(x, delta)
+        torch.cuda.synchronize()
+        assert tile_fft_cuda.launches == before + (n > 0)
+        assert Tr.shape == Ti.shape == (n, delta, delta // 2 + 1)
+        if n:
+            scale = max(Rr.abs().max().item(), Ri.abs().max().item())
+            for ours, ref in ((Tr, Rr), (Ti, Ri)):
+                assert (ours - ref).abs().max().item() / scale <= 2e-5
+
+
+@pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])
+def test_ifft_kernel_matches_plain(cuda, delta):
+    dh = delta // 2 + 1
+    for n in RECT_TILE_COUNTS:
+        zr = _rand((n, delta, dh), 30 + delta).to(cuda)
+        zi = _rand((n, delta, dh), 40 + delta).to(cuda)
+        before = tile_ifft_cuda.launches
+        y = tile_ifft_cuda(zr, zi, delta=delta)
+        y0 = tile_ifft_ref(zr, zi, delta)
+        torch.cuda.synchronize()
+        assert tile_ifft_cuda.launches == before + (n > 0)
+        assert y.shape == (n, delta, delta)
+        if n:
+            assert (y - y0).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])
+def test_ifft_epilogue_kernel_matches_plain(cuda, delta):
+    dh = delta // 2 + 1
+    for n in RECT_TILE_COUNTS:
+        zr = _rand((n, delta, dh), 50 + delta).to(cuda)
+        zi = _rand((n, delta, dh), 60 + delta).to(cuda)
+        b = _rand((n,), 70 + delta).to(cuda)
+        for activation in ACTIVATIONS:
+            before = tile_ifft_epilogue_cuda.launches
+            y = tile_ifft_epilogue_cuda(zr, zi, b, activation=activation,
+                                        delta=delta)
+            y0 = tile_ifft_epilogue_ref(zr, zi, b, activation=activation,
+                                        delta=delta)
+            torch.cuda.synchronize()
+            assert tile_ifft_epilogue_cuda.launches == before + (n > 0)
+            assert y.shape == (n, delta, delta)
+            if n:
+                assert (y - y0).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_rect_path_matches_cudnn(cuda, fused):
+    """Vconv3.1 of Table I at batch 2 through the rect stage ops and the
+    rect kernels (the forward tile DFT for stages 1 and 2, the CGEMM at
+    P = 144, the fused or the plain rect inverse), against cuDNN."""
+    torch.backends.cudnn.allow_tf32 = False
+    l = next(l for l in TABLE1 if l.name == "Vconv3.1")
+    spec = make_spec((2, l.C, l.H, l.W), (l.Cout, l.C, l.kh, l.kw),
+                     padding=l.pad)
+    x = _rand((2, l.C, l.H, l.W), 13).to(cuda)
+    k = (0.05 * _rand((l.Cout, l.C, l.kh, l.kw), 14)).to(cuda)
+    b = _rand((l.Cout,), 15).to(cuda)
+    ep = Epilogue(bias=True, activation="relu")
+    wrappers = (tile_fft_cuda, cgemm_cuda, tile_ifft_epilogue_cuda,
+                tile_ifft_cuda)
+    before = [w.launches for w in wrappers]
+    G = stages.stage_kernel_transform(k, spec, "rect",
+                                      tile_fft=tile_fft_cuda)
+    D = stages.stage_input_transform(x, spec, "rect", tile_fft=tile_fft_cuda)
+    Zr, Zi = stages.stage_cgemm(*D, *G, three_m=True, cgemm_fn=cgemm_cuda)
+    assert Zr.shape == (spec.P, spec.M, spec.Cout) and spec.P == 144
+    y = stages.stage_output_inverse(
+        Zr, Zi, spec, epilogue=ep, bias=b, spectrum="rect",
+        **(dict(inverse_fn=_cuda_fused_inverse) if fused
+           else dict(tile_ifft=tile_ifft_cuda)))
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [
+        2, 1, int(fused), int(not fused)]
+    y0 = torch.relu(conv2d_direct(x, k, padding=l.pad)
+                    + b[None, :, None, None])
+    scale = y0.abs().max().item()
+    assert (y - y0).abs().max().item() / scale <= 3e-4
 
 
 def test_fft_cuda_grads_match_cudnn(cuda):
