@@ -50,6 +50,7 @@ Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -71,7 +72,8 @@ from repro_torch.core.dft import compact_layout  # noqa: E402
 from repro_torch.core.fftconv import freq_count  # noqa: E402
 from repro_torch.examples import train_cnn_fftconv  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.cgemm import cgemm_cuda, cgemm_ref  # noqa: E402
+from repro_torch.kernels.cgemm import (  # noqa: E402
+    cgemm_cuda, cgemm_ref, operand_variant)
 from repro_torch.kernels.dft_tile import (  # noqa: E402
     tile_fft_cuda, tile_fft_ref, tile_ifft_cuda, tile_ifft_epilogue_cuda,
     tile_ifft_epilogue_ref, tile_ifft_ref, tile_irfft_cuda,
@@ -143,6 +145,30 @@ def nvidia_smi():
     return out.strip().splitlines()[0]
 
 
+def ptxas_report(log):
+    """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log,
+    the kernel named by its template arguments."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"([a-z_]+kernel)I(.*?)EEv", name)
+            if t:
+                args = re.sub(r"L[ib](\d+)E", r"\1,", t.group(2))
+                args = args.replace("13__nv_bfloat16", "bf16,")
+                args = re.sub(r"^f", "float,", args)
+                name = f"{t.group(1)}<{args.rstrip(',')}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, {spill} B spilled")
+            name = None
+    return rows
+
+
 def time_ms(fn, reps=10, groups=5):
     """Median over ``groups`` of the mean time of ``reps`` back-to-back
     calls, on CUDA events, after a warm-up."""
@@ -191,7 +217,10 @@ def dx_plan_layers():
 
 def check_cgemm(layers, gen):
     """At the served forward's shapes (P = 130) in float32 3M and 4M and
-    with bf16 operands, and at the rect path's (P = 144) in float32 3M."""
+    with bf16 operands, and at the rect path's (P = 144) in float32 3M.
+    Each row names the kernel variant the wrapper launched, and gives the
+    achieved rate of 3M/4M operations and of bytes and the bound's share
+    of the time."""
     rows = []
     for dtype, three_m, spectrum in (
             (torch.float32, True, "real"), (torch.float32, False, "real"),
@@ -224,12 +253,17 @@ def check_cgemm(layers, gen):
             size = torch.tensor([], dtype=dtype).element_size()
             nbytes = 2 * size * (P * M * C + P * C * N + P * M * N)
             flops = (6 if three_m else 8) * P * M * C * N
+            b = bound(nbytes, flops, dtype)
+            v = operand_variant(Dr, Di, Gr, Gi)
             row = dict(kernel="cgemm", layer=name, shape=[P, M, C, N],
                        spectrum=spectrum,
                        dtype=str(dtype).removeprefix("torch."),
-                       three_m=three_m, max_abs_err=err,
+                       three_m=three_m, variant=v.name,
+                       variant_code=v.code, max_abs_err=err,
                        scaled_err=err / scale, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, **bound(nbytes, flops, dtype))
+                       library_ms=library_ms,
+                       tflops=flops / ms / 1e9, tb_s=nbytes / ms / 1e9,
+                       bound_share=b["bound_ms"] / ms, **b)
             emit("kernel", **row)
             rows.append(row)
     return rows
@@ -788,8 +822,7 @@ def main():
     t0 = time.perf_counter()
     _build.build()
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: [l.strip() for l in _build.build_log(k).splitlines()
-                    if "registers" in l or "spill" in l]
+         ptxas={k: ptxas_report(_build.build_log(k))
                 for k in _build.KERNELS})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)

@@ -1,4 +1,6 @@
-from repro_torch.kernels.cgemm.ops import cgemm_cuda
+from repro_torch.kernels.cgemm.ops import (
+    Variant, cgemm_cuda, choose_variant, operand_variant)
 from repro_torch.kernels.cgemm.ref import cgemm_ref
 
-__all__ = ["cgemm_cuda", "cgemm_ref"]
+__all__ = ["Variant", "cgemm_cuda", "cgemm_ref", "choose_variant",
+           "operand_variant"]

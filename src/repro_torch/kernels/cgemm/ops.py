@@ -2,13 +2,33 @@
 
 ``cgemm_cuda`` dispatches on the operands' device: a CPU tensor runs the
 plain PyTorch version (``ref.cgemm_ref``); a CUDA tensor launches the
-``csrc/cgemm.cu`` kernel on the current stream, or raises.  The kernel's
-tiles are fixed and it masks ragged dims itself, so nothing is padded.
-``cgemm_cuda.launches`` counts the kernel launches.
+``csrc/cgemm.cu`` kernel on the current stream, or raises.  It masks ragged
+dims itself, so nothing is padded.  ``cgemm_cuda.launches`` counts the
+kernel launches.
+
+The kernel has two regimes on an H100, and ``choose_variant`` picks its
+form from the shapes alone:
+
+- large M (M > 32; Vconv1.x-3.x of the VGG trunk): bound by arithmetic on
+  the CUDA cores (67 TFLOP/s float32).  Form ``large``: a 64x64 block
+  tile, 128 threads, an 8x4 register micro-tile per product plane, a
+  3-slot ``cp.async`` ring; two or three blocks share an SM.
+- small M (M <= 32; Vconv4.1-5): bound by the bytes of the G slab at
+  3.35 TB/s.  Form ``small``: BM in {4, 8, 16, 32} covers all of M, so
+  each G element is read once per launch, streamed through a 3- or 4-slot
+  ring.
+
+Either form loads with 16-byte ``cp.async`` when every row of D and G is a
+multiple of 16 bytes and every operand pointer is 16-byte aligned, and
+otherwise with masked scalar loads (``Variant.scalar``; C = 3 at
+Vconv1.1).  The variant only changes the kernel: a CUDA tensor never falls
+back to the plain version.  The tiles and ring depths are the fastest of
+those ``python -m repro_torch.kernels.cgemm.sweep`` timed on the card.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -18,18 +38,100 @@ from repro_torch.kernels.cgemm.ref import cgemm_ref
 
 _ENTRY = {torch.float32: "cgemm_f32", torch.bfloat16: "cgemm_bf16"}
 
+# (bm, bn, bk, tm, tn, stages): the table of csrc/cgemm.cu:kShapes, in its
+# order (the index is the code passed to the kernel)
+SHAPES = (
+    (64, 64, 16, 8, 4, 3),
+    (4, 128, 16, 1, 4, 3),
+    (8, 128, 16, 2, 4, 4),
+    (16, 128, 16, 4, 4, 4),
+    (32, 128, 16, 8, 4, 4),
+)
+LARGE = 0
+SMALL = (1, 2, 3, 4)
+SMALL_M_MAX = 32                # the small-M form covers M <= this
+
+
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    """One launch configuration of the kernel."""
+    code: int                   # passed to the kernel: shape (+ 5 if scalar)
+    form: str                   # "large" or "small"
+    scalar: bool                # masked scalar loads instead of cp.async
+    bm: int
+    bn: int
+    bk: int
+    threads: int
+    stages: int                 # cp.async ring slots
+    smem_bytes: int             # dynamic shared memory per block
+    grid: tuple                 # (x, y, z) = (N tiles, M tiles, P)
+
+    @property
+    def name(self) -> str:
+        tile = f"{self.bm}x{self.bn}"
+        return f"{self.form}-{tile}" + ("-scalar" if self.scalar else "")
+
+
+def shape_smem_bytes(shape: int, element_size: int) -> int:
+    """Dynamic shared memory of a tile shape (csrc/cgemm.cu:Layout):
+    the ring of raw D (rows padded by 16 bytes) and G slices, D K-major
+    in float32, and bf16 G widened to float32."""
+    bm, bn, bk, _, _, stages = SHAPES[shape]
+    vec = 16 // element_size
+    stage = 2 * (bm * (bk + vec) + bk * bn) * element_size
+    widened = 0 if element_size == 4 else 2 * bk * bn
+    return stages * stage + 4 * (2 * bk * bm + widened)
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_variant(P: int, M: int, C: int, N: int, dtype,
+                   aligned: bool = True) -> Variant:
+    """The kernel form for a (P, M, C) x (P, C, N) product.  ``aligned``
+    says whether every operand's data pointer is 16-byte aligned."""
+    if dtype not in _ENTRY:
+        raise TypeError(f"cgemm takes float32 or bfloat16, got {dtype}")
+    size = dtype.itemsize
+    scalar = (not aligned or (C * size) % 16 != 0
+              or (N * size) % 16 != 0)
+    shape = (next(i for i in SMALL if SHAPES[i][0] >= M)
+             if M <= SMALL_M_MAX else LARGE)
+    bm, bn, bk, tm, tn, stages = SHAPES[shape]
+    return Variant(code=shape + len(SHAPES) * scalar,
+                   form="small" if shape in SMALL else "large",
+                   scalar=scalar, bm=bm, bn=bn, bk=bk,
+                   threads=(bm // tm) * (bn // tn), stages=stages,
+                   smem_bytes=shape_smem_bytes(shape, size),
+                   grid=(-(-N // bn), -(-M // bm), P))
+
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("cgemm")
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.cgemm_shape_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.cgemm_shape_info.restype = ctypes.c_int
+    lib.cgemm_num_shapes.restype = ctypes.c_int
     lib.cgemm_error_string.argtypes = [ctypes.c_int]
     lib.cgemm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def compiled_shapes(dtype) -> list:
+    """The kernel's own tile table, as built: one (bm, bn, bk, tm, tn,
+    threads, stages, smem bytes) per shape.  Needs the built library."""
+    lib = _lib()
+    out = (ctypes.c_int * 8)()
+    rows = []
+    for i in range(lib.cgemm_num_shapes()):
+        if lib.cgemm_shape_info(i, int(dtype == torch.bfloat16), out):
+            raise RuntimeError(f"cgemm_shape_info({i}) failed")
+        rows.append(tuple(out))
+    return rows
 
 
 def _check(Dr, Di, Gr, Gi):
@@ -55,6 +157,13 @@ def _check(Dr, Di, Gr, Gi):
         raise ValueError("cgemm needs contiguous operands")
 
 
+def operand_variant(Dr, Di, Gr, Gi) -> Variant:
+    """The variant ``cgemm_cuda`` launches for these operands."""
+    P, M, C = Dr.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (Dr, Di, Gr, Gi))
+    return choose_variant(P, M, C, Gr.shape[2], Dr.dtype, aligned)
+
+
 def cgemm_cuda(Dr, Di, Gr, Gi, *, three_m: bool = True):
     """Batched complex GEMM: (P,M,C) x (P,C,N) -> (P,M,N) (real, imag),
     3M (Karatsuba) or 4M, float32 accumulation, Z in the operand dtype."""
@@ -64,24 +173,32 @@ def cgemm_cuda(Dr, Di, Gr, Gi, *, three_m: bool = True):
         return cgemm_ref(Dr, Di, Gr, Gi, three_m=three_m)
     if device.type != "cuda":
         raise ValueError(f"cgemm_cuda: unsupported device {device}")
-    dtype = Dr.dtype
     P, M, C = Dr.shape
     N = Gr.shape[2]
-    Zr = torch.empty((P, M, N), dtype=dtype, device=device)
-    Zi = torch.empty((P, M, N), dtype=dtype, device=device)
+    Zr = torch.empty((P, M, N), dtype=Dr.dtype, device=device)
+    Zi = torch.empty((P, M, N), dtype=Dr.dtype, device=device)
     if Zr.numel() == 0:
         return Zr, Zi
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, _ENTRY[dtype])(
-            Dr.data_ptr(), Di.data_ptr(), Gr.data_ptr(), Gi.data_ptr(),
-            Zr.data_ptr(), Zi.data_ptr(), P, M, C, N, int(three_m), stream)
-    if rc != 0:
-        raise RuntimeError(f"cgemm kernel launch failed: "
-                           f"{lib.cgemm_error_string(rc).decode()} ({rc})")
+    launch(Dr, Di, Gr, Gi, Zr, Zi, three_m,
+           operand_variant(Dr, Di, Gr, Gi).code)
     cgemm_cuda.launches += 1
     return Zr, Zi
+
+
+def launch(Dr, Di, Gr, Gi, Zr, Zi, three_m: bool, code: int):
+    """Launch variant ``code`` on checked CUDA operands and outputs; the
+    kernel refuses a cp.async variant on operands it cannot take."""
+    P, M, C = Dr.shape
+    lib = _lib()
+    with torch.cuda.device(Dr.device):
+        stream = torch.cuda.current_stream(Dr.device).cuda_stream
+        rc = getattr(lib, _ENTRY[Dr.dtype])(
+            Dr.data_ptr(), Di.data_ptr(), Gr.data_ptr(), Gi.data_ptr(),
+            Zr.data_ptr(), Zi.data_ptr(), P, M, C, Gr.shape[2],
+            int(three_m), code, stream)
+    if rc != 0:
+        raise RuntimeError(f"cgemm kernel launch failed (variant {code}): "
+                           f"{lib.cgemm_error_string(rc).decode()} ({rc})")
 
 
 cgemm_cuda.launches = 0

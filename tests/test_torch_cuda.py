@@ -8,11 +8,16 @@ a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: CGEMM scaled atol 2e-5 in float32 and 5e-2 with bf16
-operands (as tests/test_kernels.py); the forward tile DFTs (compact and
+operands (as tests/test_kernels.py), at ragged M, C and N that reach every
+variant of the kernel (each tile, each small-M row tile, cp.async and
+scalar loads), on operands offset from 16 bytes, and at a prepared slab's
+shape at P = 144; the forward tile DFTs (compact and
 rect) scaled atol 2e-5; the inverses and fused inverses 1e-4 absolute on
 unit-scale spectra; a whole conv, and its grads, 3e-4 against cuDNN with
 TF32 off.
 """
+import itertools
+
 import numpy as np
 import pytest
 
@@ -23,7 +28,10 @@ from repro_torch.conv import Epilogue, plan_conv, stages  # noqa: E402
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core.dft import num_freq_real  # noqa: E402
 from repro_torch.core.fftconv import conv2d_direct, make_spec  # noqa: E402
-from repro_torch.kernels.cgemm import cgemm_cuda, cgemm_ref  # noqa: E402
+from repro_torch.kernels.cgemm import (  # noqa: E402
+    cgemm_cuda, cgemm_ref, operand_variant)
+from repro_torch.kernels.cgemm.ops import (  # noqa: E402
+    LARGE, SHAPES, SMALL, compiled_shapes, shape_smem_bytes)
 from repro_torch.kernels.dft_tile import (  # noqa: E402
     tile_fft_cuda, tile_fft_ref, tile_ifft_cuda, tile_ifft_epilogue_cuda,
     tile_ifft_epilogue_ref, tile_ifft_ref, tile_irfft_cuda,
@@ -33,8 +41,19 @@ from repro_torch.kernels.dft_tile import (  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 ACTIVATIONS = ["none", "relu", "gelu", "silu"]
-CGEMM_CASES = [(4, 128, 128, 128), (3, 200, 67, 130), (2, 16, 3, 5),
-               (1, 256, 64, 256), (9, 32, 512, 64), (130, 4, 512, 512)]
+# every M with every C and every N (the other dim cycling), so that each
+# variant is launched; then larger shapes, and a prepared slab at P = 144
+CGEMM_MS = (1, 4, 8, 15, 16, 17, 32, 33, 64, 65, 1024)
+CGEMM_CS = (1, 3, 4, 5, 17, 64, 513)
+CGEMM_NS = (1, 3, 64, 65, 512)
+CGEMM_CASES = (
+    [(2, M, C, CGEMM_NS[i % len(CGEMM_NS)])
+     for i, (M, C) in enumerate(itertools.product(CGEMM_MS, CGEMM_CS))]
+    + [(2, M, CGEMM_CS[i % len(CGEMM_CS)], N)
+       for i, (M, N) in enumerate(itertools.product(CGEMM_MS, CGEMM_NS))]
+    + [(4, 128, 128, 128), (3, 200, 67, 130), (2, 16, 3, 5),
+       (1, 256, 64, 256), (9, 32, 512, 64), (130, 4, 512, 512),
+       (144, 16, 512, 512)])
 
 
 @pytest.fixture
@@ -50,23 +69,67 @@ def _rand(shape, seed):
             np.float32))
 
 
+def _cgemm_operands(P, M, C, N, dtype, device, offset=False):
+    """The four planes, random from a seed; with ``offset`` each lies one
+    element past an allocation (a 4-byte-offset view in float32)."""
+    gen = torch.Generator(device=device).manual_seed(P + 7 * M + 31 * C + N)
+    ops = []
+    for shape in ((P, M, C), (P, M, C), (P, C, N), (P, C, N)):
+        t = torch.randn(shape, generator=gen, device=device).to(dtype)
+        if offset:
+            n = t.numel()
+            t = torch.empty(n + 1, dtype=dtype, device=device)[1:].view(
+                shape).copy_(t)
+        ops.append(t)
+    return ops
+
+
+def _check_cgemm(ops, three_m, dtype):
+    before = cgemm_cuda.launches
+    Zr, Zi = cgemm_cuda(*ops, three_m=three_m)
+    Rr, Ri = cgemm_ref(*ops, three_m=three_m)
+    torch.cuda.synchronize()
+    assert cgemm_cuda.launches == before + 1
+    assert Zr.dtype == dtype
+    scale = Rr.float().abs().max().item() + 1e-9
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    for ours, ref in ((Zr, Rr), (Zi, Ri)):
+        err = (ours.float() - ref.float()).abs().max().item() / scale
+        assert err <= tol, (tuple(ops[0].shape), ops[2].shape[2], err)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("three_m", [True, False])
 def test_cgemm_kernel_matches_plain(cuda, dtype, three_m):
+    codes = set()
     for P, M, C, N in CGEMM_CASES:
-        ops = [_rand(s, i).to(cuda, dtype) for i, s in enumerate(
-            [(P, M, C), (P, M, C), (P, C, N), (P, C, N)])]
-        before = cgemm_cuda.launches
-        Zr, Zi = cgemm_cuda(*ops, three_m=three_m)
-        Rr, Ri = cgemm_ref(*ops, three_m=three_m)
-        torch.cuda.synchronize()
-        assert cgemm_cuda.launches == before + 1
-        assert Zr.dtype == dtype
-        scale = Rr.float().abs().max().item() + 1e-9
-        tol = 2e-5 if dtype == torch.float32 else 5e-2
-        for ours, ref in ((Zr, Rr), (Zi, Ri)):
-            err = (ours.float() - ref.float()).abs().max().item() / scale
-            assert err <= tol, ((P, M, C, N), err)
+        ops = _cgemm_operands(P, M, C, N, dtype, cuda)
+        codes.add(operand_variant(*ops).code)
+        _check_cgemm(ops, three_m, dtype)
+    # every variant the chooser gives ran: each tile, cp.async and scalar
+    assert codes == {i + len(SHAPES) * scalar for i in (LARGE,) + SMALL
+                     for scalar in (0, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("three_m", [True, False])
+def test_cgemm_kernel_on_offset_views(cuda, dtype, three_m):
+    """Operands whose data pointers are off 16 bytes take the scalar-load
+    form, of the large tile and of the small ones."""
+    for P, M, C, N in ((2, 200, 64, 128), (3, 16, 512, 512), (2, 5, 17, 3)):
+        ops = _cgemm_operands(P, M, C, N, dtype, cuda, offset=True)
+        assert operand_variant(*ops).scalar
+        _check_cgemm(ops, three_m, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cgemm_compiled_tiles_match_the_chooser(cuda, dtype):
+    """ops.SHAPES and shape_smem_bytes are the kernel's own table."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert compiled_shapes(dtype) == [
+        (bm, bn, bk, tm, tn, (bm // tm) * (bn // tn), st,
+         shape_smem_bytes(i, size))
+        for i, (bm, bn, bk, tm, tn, st) in enumerate(SHAPES)]
 
 
 @pytest.mark.parametrize("delta,pad", [(8, 0), (15, 0), (16, 0), (16, 6),
