@@ -151,7 +151,9 @@ def plan_network(layers: Sequence[NetworkConv], *,
     layers.  Resolution goes through the shared ``plan_conv`` cache, so
     same-geometry layers (and repeat ``plan_network`` calls) share frozen
     ``ConvPlan`` objects.  ``mesh`` and ``overlap`` are passed through to
-    ``plan_conv``, which rejects them until they are ported.
+    ``plan_conv``, which rejects a mesh and a slab overlap until they are
+    ported (``overlap="auto"`` resolves to ``"off"``) and ``fft-cuda``
+    beyond its kernels' tile limit.
     """
     if callable(layers):
         raise TypeError(

@@ -29,10 +29,16 @@ with the same version returns the cached ``PreparedConv``.
 Every stage-pipeline backend trains: when grad mode is on and an operand
 requires grad, ``plan(x, k, ...)`` and ``prepared(x, ...)`` run through the
 plan-level VJP (``repro_torch.conv.autodiff``); otherwise they run the
-pipeline straight, and record nothing for autograd.  Not ported yet (they
-raise): meshes and the sharded schedules, ``overlap``, ``backend="tuned"``
-and the TPU block sizes ``bm``/``bn``/``bk``/``dft_bt`` (the CUDA kernels'
-tiles are fixed).
+pipeline straight, and record nothing for autograd.  ``overlap`` is
+``"off"`` on every local plan (``"auto"`` resolves to it, as in the
+reference).  Not ported yet (they raise): meshes and the sharded schedules,
+``overlap="slab:<k>"``, ``backend="tuned"`` and the plan knobs ``bm``/
+``bn``/``bk``/``dft_bt`` (the CUDA kernels choose their own tiles: the
+CGEMM from its tile table, ``kernels.cgemm.ops.choose_variant``; the tile
+DFTs from ``kernels.dft_tile.ops.choose_form``; no knob pins them yet).
+
+``backend="fft-cuda"`` runs tiles up to ``kernels.dft_tile.ops.MAX_DELTA``
+(32); a larger ``delta`` is refused when the plan is made.
 """
 from __future__ import annotations
 
@@ -347,6 +353,35 @@ def _auto_backend(spec: ConvSpec, three_m: bool) -> str:
     return "direct" if spec.direct_flops() <= fft else "fft-torch"
 
 
+def _parse_overlap(overlap) -> int:
+    """Sub-slab count encoded by a (resolved) overlap knob value:
+    ``"off"`` -> 1, ``"slab:<k>"`` -> k (k >= 2); anything else is a
+    ``ValueError``, with the reference's message."""
+    if overlap == "off":
+        return 1
+    if isinstance(overlap, str) and overlap.startswith("slab:"):
+        try:
+            k = int(overlap[len("slab:"):])
+        except ValueError:
+            k = 0
+        if k >= 2:
+            return k
+    raise ValueError(
+        f"unknown overlap {overlap!r} (choose 'off', 'slab:<k>' with "
+        "k >= 2, or 'auto')")
+
+
+def _check_cuda_delta(delta):
+    """``fft-cuda`` plans only what its tile DFT kernels run."""
+    # imported here: the kernel package imports repro_torch.conv
+    from repro_torch.kernels.dft_tile.ops import MAX_DELTA
+    if delta > MAX_DELTA:
+        raise ValueError(
+            f"backend 'fft-cuda' runs tiles of delta <= {MAX_DELTA} (the "
+            f"limit of its tile DFT kernels), got delta={delta}; use "
+            "backend 'fft-torch' or a smaller delta")
+
+
 def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
              compute_dtype, epilogue, spectrum) -> ConvPlan:
     _, _, kh, kw = k_shape
@@ -372,6 +407,8 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
     if backend == "auto":
         backend = "direct" if oversize else _auto_backend(spec, three_m)
     be = registry.get_backend(backend)
+    if backend == "fft-cuda":
+        _check_cuda_delta(delta)
     if schedule not in be.schedules:
         raise ValueError(
             f"backend {backend!r} does not support schedule {schedule!r} "
@@ -420,13 +457,20 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
       spectrum: frequency-domain layout of the FFT pipelines: ``"real"``
         (the ``"auto"`` default, the compact Hermitian half-spectrum) or
         ``"complex"`` (the full-spectrum twin).
+      overlap: ``"off"``, or ``"auto"``, which resolves to ``"off"`` on a
+        local plan (before the plan-cache key, so both share one plan).
+        A malformed value is a ``ValueError``.
       cache: memoize the plan under its argument key (bounded LRU, see
         ``plan_cache_capacity``).
 
+    ``backend="fft-cuda"`` with ``delta > 32`` is a ``ValueError``: its
+    tile DFT kernels run up to delta 32 (``fft-torch`` runs any delta).
+
     Not ported yet, and rejected with ``NotImplementedError``: ``mesh``
-    (and the ``nfft``/``wfft`` schedules), ``overlap`` other than
-    ``"off"``, ``backend="tuned"`` and the block sizes ``bm``/``bn``/
-    ``bk``/``dft_bt``.
+    (and the ``nfft``/``wfft`` schedules), ``overlap="slab:<k>"``,
+    ``backend="tuned"`` and the knobs ``bm``/``bn``/``bk``/``dft_bt``,
+    which pin kernel tiles in the reference (the CUDA kernels pick theirs
+    from their shapes, and no knob reaches that choice yet).
 
     Returns:
       A frozen ``ConvPlan``; call it as ``plan(x, k)`` or split with
@@ -435,14 +479,18 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
     global _cache_hits, _cache_misses
     if mesh is not None or schedule in ("nfft", "wfft"):
         raise _not_ported("sharded execution (mesh, nfft/wfft schedules)")
-    if overlap != "off":
-        raise _not_ported(f"overlap={overlap!r}")
+    if overlap == "auto":
+        overlap = "off"      # a local plan has no collective to overlap
+    if _parse_overlap(overlap) > 1:
+        raise _not_ported(f"overlap={overlap!r} (sub-slab overlap of the "
+                          "sharded schedules)")
     if backend == "tuned":
         raise _not_ported("backend='tuned' (the measured autotuner)")
     if any(v is not None for v in (bm, bn, bk, dft_bt)):
         raise _not_ported(
-            "bm/bn/bk/dft_bt (TPU block sizes; the CUDA kernels' tiles are "
-            "fixed)")
+            "bm/bn/bk/dft_bt (the CUDA kernels pick their tiles from the "
+            "shapes: cgemm.ops.choose_variant, dft_tile.ops.choose_form; "
+            "no plan knob pins them yet)")
     if isinstance(spec, ConvSpec):
         if k_shape is not None or padding is not None or delta is not None:
             raise TypeError(

@@ -21,12 +21,21 @@ Each dispatches on the operands' device: a CPU tensor runs the plain
 PyTorch version (``ref.py``); a CUDA tensor launches the
 ``csrc/dft_tile.cu`` kernel on the current stream, or raises.  Each counts
 its launches in ``<wrapper>.launches``.
+
+The forward kernel has two forms, and ``choose_form`` picks one from the
+tile size and the tile tensor's alignment: ``specialised`` (delta 16, the
+tile of every plan path: rows and columns in registers, the DFT table
+passed by value to the launch, 16-byte row loads) and ``generic`` (any
+delta <= 32, or tiles whose data pointer is off 16 bytes).  The form only
+changes the kernel: a CUDA tensor never falls back to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core.dft import compact_layout, dft_mats, num_freq_real
@@ -41,23 +50,57 @@ ACTIVATION_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    # x, tr, ti, fr, fi, fhr, fhi, store, n, P, delta, stream
-    "tile_rfft_f32": [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-    + [_P],
+    # x, tr, ti, fr, fi, fhr, fhi, store, n, P, delta, form, tables, stream
+    "tile_rfft_f32": [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+    + [_P, _P],
     # zr, zi, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, stream
     "tile_irfft_f32": [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 2
     + [_P],
     # zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act, stream
     "tile_irfft_epilogue_f32": [_P] * 10 + [ctypes.c_longlong]
     + [ctypes.c_int] * 3 + [_P],
-    # x, tr, ti, fr, fi, fhr, fhi, n, delta, stream
-    "tile_fft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, _P],
+    # x, tr, ti, fr, fi, fhr, fhi, n, delta, form, tables, stream
+    "tile_fft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, _P, _P],
     # zr, zi, y, fvr, fvi, wr, wi, n, delta, stream
     "tile_ifft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, _P],
     # zr, zi, bias, y, fvr, fvi, wr, wi, n, delta, act, stream
     "tile_ifft_epilogue_f32": [_P] * 8 + [ctypes.c_longlong]
     + [ctypes.c_int] * 2 + [_P],
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class Form:
+    """One form of the forward tile DFT kernel."""
+    code: int                   # passed to the kernel (csrc: kForm*)
+    name: str
+
+
+GENERIC = Form(0, "generic")
+SPECIALISED = Form(1, "specialised")
+SPECIALISED_DELTA = 16
+
+
+def choose_form(delta: int, ptr: int) -> Form:
+    """The forward kernel's form for tiles of size ``delta`` whose data
+    pointer is ``ptr``: the specialised form reads each tile row in 16-byte
+    loads, so it needs delta 16 and a 16-byte-aligned pointer."""
+    return _form(delta, ptr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _form(delta: int, aligned: bool) -> Form:
+    return SPECIALISED if delta == SPECIALISED_DELTA and aligned else GENERIC
+
+
+@functools.lru_cache(maxsize=None)
+def forward_tables(delta: int) -> np.ndarray:
+    """The host copy of the table the specialised form takes by value:
+    F_half (= rows 0..delta//2 of F), real then imaginary, (2, delta//2 +
+    1, delta) float32 -- the values of ``dft_mats``."""
+    _, _, Fhr, Fhi, *_ = dft_mats(delta)
+    return np.ascontiguousarray(np.stack([Fhr.numpy(), Fhi.numpy()]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,13 +178,32 @@ def _launch(entry, device, *args):
     stream (tensors pass as their data pointers); raise if the launch
     failed."""
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        # the common case, without a device switch: a raw stream handle
+        # costs far less host time than a Stream object (the launch path
+        # Triton uses), and small launches are bound by that time
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
         rc = getattr(_lib(), entry)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(_lib(), entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"dft_tile kernel launch failed: "
                            f"{_lib().dft_tile_error_string(rc).decode()} "
                            f"({rc})")
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_consts(delta, device):
+    """The forward launch's constant arguments, cached per device: the data
+    pointers of the generic form's tables F, F_half (the caches of
+    ``dft_mats`` and ``compact_layout`` keep them alive) and ``store``, and
+    the address of the specialised form's host table."""
+    Fr, Fi, Fhr, Fhi, *_ = dft_mats(delta, device, torch.float32)
+    store, _, _ = compact_layout(delta, device)
+    return (tuple(t.data_ptr() for t in (Fr, Fi, Fhr, Fhi)),
+            store.data_ptr(), forward_tables(delta).ctypes.data)
 
 
 def tile_rfft_cuda(x, *, delta: int = 16):
@@ -158,14 +220,14 @@ def tile_rfft_cuda(x, *, delta: int = 16):
     _cuda_device(name, x.device)
     n = x.shape[0]
     P = num_freq_real(delta)
-    Tr = torch.empty((n, P), dtype=torch.float32, device=x.device)
+    Tr = x.new_empty((n, P))        # x's float32 and device, less host time
     Ti = torch.empty_like(Tr)
     if n == 0:
         return Tr, Ti
-    Fr, Fi, Fhr, Fhi, *_ = dft_mats(delta, x.device, torch.float32)
-    store, _, _ = compact_layout(delta, x.device)
-    _launch("tile_rfft_f32", x.device, x, Tr, Ti, Fr, Fi, Fhr, Fhi, store, n,
-            P, delta)
+    mats, store, table = _forward_consts(delta, x.device)
+    form = choose_form(delta, x.data_ptr())
+    _launch("tile_rfft_f32", x.device, x, Tr, Ti, *mats, store, n, P, delta,
+            form.code, table)
     tile_rfft_cuda.launches += 1
     return Tr, Ti
 
@@ -237,13 +299,14 @@ def tile_fft_cuda(x, *, delta: int = 16):
         return tile_fft_ref(x, delta)
     _cuda_device(name, x.device)
     n = x.shape[0]
-    Tr = torch.empty((n, delta, delta // 2 + 1), dtype=torch.float32,
-                     device=x.device)
+    Tr = x.new_empty((n, delta, delta // 2 + 1))
     Ti = torch.empty_like(Tr)
     if n == 0:
         return Tr, Ti
-    Fr, Fi, Fhr, Fhi, *_ = dft_mats(delta, x.device, torch.float32)
-    _launch("tile_fft_f32", x.device, x, Tr, Ti, Fr, Fi, Fhr, Fhi, n, delta)
+    mats, _, table = _forward_consts(delta, x.device)
+    form = choose_form(delta, x.data_ptr())
+    _launch("tile_fft_f32", x.device, x, Tr, Ti, *mats, n, delta, form.code,
+            table)
     tile_fft_cuda.launches += 1
     return Tr, Ti
 

@@ -12,7 +12,8 @@ operands (as tests/test_kernels.py), at ragged M, C and N that reach every
 variant of the kernel (each tile, each small-M row tile, cp.async and
 scalar loads), on operands offset from 16 bytes, and at a prepared slab's
 shape at P = 144; the forward tile DFTs (compact and
-rect) scaled atol 2e-5; the inverses and fused inverses 1e-4 absolute on
+rect, in both kernel forms, on aligned tiles and on a 4-byte-offset view)
+scaled atol 2e-5; the inverses and fused inverses 1e-4 absolute on
 unit-scale spectra; a whole conv, and its grads, 3e-4 against cuDNN with
 TF32 off.
 """
@@ -26,7 +27,8 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 from repro_torch.configs.paper_convs import TABLE1  # noqa: E402
 from repro_torch.conv import Epilogue, plan_conv, stages  # noqa: E402
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
-from repro_torch.core.dft import num_freq_real  # noqa: E402
+from repro_torch.core.dft import (  # noqa: E402
+    compact_layout, dft_mats, num_freq_real)
 from repro_torch.core.fftconv import conv2d_direct, make_spec  # noqa: E402
 from repro_torch.kernels.cgemm import (  # noqa: E402
     cgemm_cuda, cgemm_ref, operand_variant)
@@ -37,6 +39,9 @@ from repro_torch.kernels.dft_tile import (  # noqa: E402
     tile_ifft_epilogue_ref, tile_ifft_ref, tile_irfft_cuda,
     tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, tile_irfft_ref,
     tile_rfft_cuda, tile_rfft_ref)
+from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
+from repro_torch.kernels.dft_tile.ops import (  # noqa: E402
+    GENERIC, SPECIALISED, choose_form)
 
 pytestmark = pytest.mark.cuda
 
@@ -149,19 +154,41 @@ def test_irfft_epilogue_kernel_matches_plain(cuda, delta, pad):
         assert (y - y0).abs().max().item() <= 1e-4
 
 
+# forward kernels: n = 0 returns empty planes without a launch; the other
+# counts are not all multiples of a block's tiles, and 20001 makes the
+# specialised form loop over its grid
+FORWARD_TILE_COUNTS = (0, 1, 7, 1001, 3000, 3001, 20001)
+
+
+def _check_forward(wrapper, ref, x, delta, out_shape, form=None):
+    """One launch of a forward wrapper on tiles ``x``, in the form the
+    chooser gives (``form``, when given), held to its plain version."""
+    n = x.shape[0]
+    got_form = choose_form(delta, x.data_ptr())
+    if form is not None:
+        assert got_form == form
+    before = wrapper.launches
+    Tr, Ti = wrapper(x, delta=delta)
+    Rr, Ri = ref(x, delta)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + (n > 0)
+    assert Tr.shape == Ti.shape == out_shape
+    if n:
+        scale = max(Rr.abs().max().item(), Ri.abs().max().item())
+        for ours, ref_plane in ((Tr, Rr), (Ti, Ri)):
+            err = (ours - ref_plane).abs().max().item() / scale
+            assert err <= 2e-5, (delta, n, got_form.name, err)
+    return got_form
+
+
 @pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])
 def test_rfft_kernel_matches_plain(cuda, delta):
-    for n in (1, 7, 3000):
+    """Both forms: the specialised one at delta 16, the generic elsewhere."""
+    want = SPECIALISED if delta == 16 else GENERIC
+    for n in FORWARD_TILE_COUNTS:
         x = _rand((n, delta, delta), delta).to(cuda)
-        before = tile_rfft_cuda.launches
-        Tr, Ti = tile_rfft_cuda(x, delta=delta)
-        Rr, Ri = tile_rfft_ref(x, delta)
-        torch.cuda.synchronize()
-        assert tile_rfft_cuda.launches == before + 1
-        assert Tr.shape == (n, num_freq_real(delta))
-        scale = max(Rr.abs().max().item(), Ri.abs().max().item())
-        for ours, ref in ((Tr, Rr), (Ti, Ri)):
-            assert (ours - ref).abs().max().item() / scale <= 2e-5
+        _check_forward(tile_rfft_cuda, tile_rfft_ref, x, delta,
+                       (n, num_freq_real(delta)), want)
 
 
 @pytest.mark.parametrize("delta,pad", [(5, 0), (8, 0), (15, 0), (16, 0),
@@ -177,25 +204,50 @@ def test_irfft_kernel_matches_plain(cuda, delta, pad):
     assert (y - y0).abs().max().item() <= 1e-4
 
 
-# rect kernels: n = 0 returns empty planes without a launch; 1001 is not a
-# multiple of a block's 8 warps
+# rect inverse kernels: n = 0 returns empty planes without a launch; 1001
+# is not a multiple of a block's 8 warps
 RECT_TILE_COUNTS = (0, 1, 1001)
 
 
 @pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])
 def test_fft_kernel_matches_plain(cuda, delta):
-    for n in RECT_TILE_COUNTS:
+    """Both forms: the specialised one at delta 16, the generic elsewhere."""
+    want = SPECIALISED if delta == 16 else GENERIC
+    for n in FORWARD_TILE_COUNTS:
         x = _rand((n, delta, delta), 20 + delta).to(cuda)
-        before = tile_fft_cuda.launches
-        Tr, Ti = tile_fft_cuda(x, delta=delta)
-        Rr, Ri = tile_fft_ref(x, delta)
-        torch.cuda.synchronize()
-        assert tile_fft_cuda.launches == before + (n > 0)
-        assert Tr.shape == Ti.shape == (n, delta, delta // 2 + 1)
-        if n:
-            scale = max(Rr.abs().max().item(), Ri.abs().max().item())
-            for ours, ref in ((Tr, Rr), (Ti, Ri)):
-                assert (ours - ref).abs().max().item() / scale <= 2e-5
+        _check_forward(tile_fft_cuda, tile_fft_ref, x, delta,
+                       (n, delta, delta // 2 + 1), want)
+
+
+@pytest.mark.parametrize("delta", [5, 16])
+def test_forward_kernels_on_offset_views(cuda, delta):
+    """Contiguous tiles one float past an allocation (a 4-byte offset):
+    the generic form, held to the plain version; the outputs the wrapper
+    allocates stay aligned."""
+    for n in (1, 7, 1001):
+        base = _rand((n, delta, delta), 90 + n)
+        x = torch.empty(base.numel() + 1, device=cuda)[1:].view(
+            n, delta, delta).copy_(base.to(cuda))
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+        _check_forward(tile_rfft_cuda, tile_rfft_ref, x, delta,
+                       (n, num_freq_real(delta)), GENERIC)
+        _check_forward(tile_fft_cuda, tile_fft_ref, x, delta,
+                       (n, delta, delta // 2 + 1), GENERIC)
+
+
+def test_specialised_form_refuses_a_misaligned_view(cuda):
+    """Forced onto tiles off 16 bytes, the specialised form refuses to
+    launch (no silent fallback): the wrapper raises."""
+    x = torch.zeros(16 * 16 * 8 + 1, device=cuda)[1:].view(8, 16, 16)
+    Tr, Ti = (torch.empty((8, num_freq_real(16)), device=cuda)
+              for _ in range(2))
+    Fr, Fi, Fhr, Fhi, *_ = dft_mats(16, cuda, torch.float32)
+    store, _, _ = compact_layout(16, cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dft_ops._launch("tile_rfft_f32", x.device, x, Tr, Ti, Fr, Fi, Fhr,
+                        Fhi, store, 8, num_freq_real(16), 16,
+                        SPECIALISED.code,
+                        dft_ops.forward_tables(16).ctypes.data)
 
 
 @pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])

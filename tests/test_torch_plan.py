@@ -179,6 +179,56 @@ def test_not_ported_knobs_raise(kwargs):
         tconv.plan_conv((1, 3, 16, 16), (4, 3, 3, 3), padding=1, **kwargs)
 
 
+@pytest.mark.parametrize("delta", [33, 48])
+def test_fft_cuda_refuses_delta_beyond_its_kernels(delta):
+    """fft-cuda is refused at planning time beyond the tile DFT kernels'
+    delta <= 32 (plan_network too); fft-torch runs those deltas and
+    matches the JAX fft-xla there."""
+    x, k = _rand((1, 2, 40, 40), 11), _rand((3, 2, 3, 3), 12)
+    with pytest.raises(ValueError, match=r"fft-cuda.*delta <= 32"):
+        tconv.plan_conv(x.shape, k.shape, padding=1, delta=delta,
+                        backend="fft-cuda")
+    layers = [tconv.NetworkConv("c1", x.shape, k.shape, 1)]
+    with pytest.raises(ValueError, match=r"fft-cuda.*delta <= 32"):
+        tconv.plan_network(layers, backend="fft-cuda", delta=delta)
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, delta=delta,
+                           backend="fft-torch")
+    jplan = jconv.plan_conv(x.shape, k.shape, padding=1, delta=delta,
+                            backend="fft-xla")
+    y = plan(_t(x), _t(k))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jplan(
+        jnp.asarray(x), jnp.asarray(k))), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        y.numpy(), conv2d_direct(_t(x), _t(k), padding=1).numpy(),
+        rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("backend", ["direct", "fft-torch", "fft-cuda"])
+def test_overlap_auto_is_off_on_a_local_plan(backend):
+    """As in the reference, "auto" resolves to "off" on a local plan
+    before the plan-cache key: one plan for both."""
+    shape, kshape = (1, 3, 16, 16), (4, 3, 3, 3)
+    off = tconv.plan_conv(shape, kshape, padding=1, backend=backend)
+    auto = tconv.plan_conv(shape, kshape, padding=1, backend=backend,
+                           overlap="auto")
+    assert auto is off
+    jauto = jconv.plan_conv(shape, kshape, padding=1, overlap="auto",
+                            backend="fft-xla" if backend != "direct"
+                            else "direct")
+    assert jauto.overlap == "off"
+
+
+@pytest.mark.parametrize("overlap", ["slab:1", "bogus", "slab:x", "slab:"])
+def test_malformed_overlap_raises_value_error(overlap):
+    """Malformed values are a ValueError with the reference's message."""
+    shape, kshape = (1, 3, 16, 16), (4, 3, 3, 3)
+    with pytest.raises(ValueError) as theirs:
+        jconv.plan_conv(shape, kshape, padding=1, overlap=overlap)
+    with pytest.raises(ValueError) as ours:
+        tconv.plan_conv(shape, kshape, padding=1, overlap=overlap)
+    assert str(ours.value) == str(theirs.value)
+
+
 def test_fft_plans_are_forward_only():
     """Forward only where no grad is asked for: under torch.no_grad(), or
     with no operand requiring grad, an FFT plan records nothing for
