@@ -173,21 +173,33 @@ def _cuda_device(name, device):
         raise ValueError(f"{name}: unsupported device {device}")
 
 
+# torch's raw handle of the current stream: a private call (used here with
+# torch 2.11.0+cu128) that costs far less host time than
+# ``torch.cuda.current_stream(device).cuda_stream``, which a small launch
+# pays in full; the public call where a release drops it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device):
+    """The handle of ``device``'s current stream."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
 def _launch(entry, device, *args):
     """Launch the kernel entry point ``entry`` on ``device``'s current
-    stream (tensors pass as their data pointers); raise if the launch
-    failed."""
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream (tensors pass as their data pointers, ``_ptrs``); raise if the
+    launch failed."""
     if device.index == torch.cuda.current_device():
-        # the common case, without a device switch: a raw stream handle
-        # costs far less host time than a Stream object (the launch path
-        # Triton uses), and small launches are bound by that time
-        stream = torch._C._cuda_getCurrentRawStream(device.index)
-        rc = getattr(_lib(), entry)(*args, stream)
+        rc = getattr(_lib(), entry)(*args, _stream(device))
     else:
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = getattr(_lib(), entry)(*args, stream)
+            rc = getattr(_lib(), entry)(*args, _stream(device))
     if rc != 0:
         raise RuntimeError(f"dft_tile kernel launch failed: "
                            f"{_lib().dft_tile_error_string(rc).decode()} "
@@ -215,20 +227,23 @@ def tile_rfft_cuda(x, *, delta: int = 16):
     _check_delta(name, delta)
     _check_tiles(name, x, delta)
     _check_layout(name, (x,))
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         return tile_rfft_ref(x, delta)
-    _cuda_device(name, x.device)
+    _cuda_device(name, device)
     n = x.shape[0]
     P = num_freq_real(delta)
     Tr = x.new_empty((n, P))        # x's float32 and device, less host time
-    Ti = torch.empty_like(Tr)
+    Ti = x.new_empty((n, P))
     if n == 0:
         return Tr, Ti
-    mats, store, table = _forward_consts(delta, x.device)
-    form = choose_form(delta, x.data_ptr())
-    _launch("tile_rfft_f32", x.device, x, Tr, Ti, *mats, store, n, P, delta,
-            form.code, table)
+    mats, store, table = _forward_consts(delta, device)
+    ptr = x.data_ptr()
+    form = choose_form(delta, ptr)
+    _launch("tile_rfft_f32", device, ptr, Tr.data_ptr(), Ti.data_ptr(),
+            *mats, store, n, P, delta, form.code, table)
     tile_rfft_cuda.launches += 1
+    tile_rfft_cuda.form_launches[form.name] += 1
     return Tr, Ti
 
 
@@ -250,8 +265,8 @@ def tile_irfft_cuda(Zr, Zi, *, delta: int = 16):
         return y
     *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
     _, src, sgn = compact_layout(delta, Zr.device)
-    _launch("tile_irfft_f32", Zr.device, Zr, Zi, y, Fvr, Fvi, Wr, Wi, src, sgn,
-            n, P, delta)
+    _launch("tile_irfft_f32", Zr.device,
+            *_ptrs(Zr, Zi, y, Fvr, Fvi, Wr, Wi, src, sgn), n, P, delta)
     tile_irfft_cuda.launches += 1
     return y
 
@@ -280,8 +295,9 @@ def tile_irfft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
         return y
     *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
     _, src, sgn = compact_layout(delta, Zr.device)
-    _launch("tile_irfft_epilogue_f32", Zr.device, Zr, Zi, bias, y, Fvr, Fvi,
-            Wr, Wi, src, sgn, n, P, delta, ACTIVATION_CODES[activation])
+    _launch("tile_irfft_epilogue_f32", Zr.device,
+            *_ptrs(Zr, Zi, bias, y, Fvr, Fvi, Wr, Wi, src, sgn), n, P, delta,
+            ACTIVATION_CODES[activation])
     tile_irfft_epilogue_cuda.launches += 1
     return y
 
@@ -295,19 +311,22 @@ def tile_fft_cuda(x, *, delta: int = 16):
     _check_delta(name, delta)
     _check_tiles(name, x, delta)
     _check_layout(name, (x,))
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         return tile_fft_ref(x, delta)
-    _cuda_device(name, x.device)
+    _cuda_device(name, device)
     n = x.shape[0]
     Tr = x.new_empty((n, delta, delta // 2 + 1))
-    Ti = torch.empty_like(Tr)
+    Ti = x.new_empty((n, delta, delta // 2 + 1))
     if n == 0:
         return Tr, Ti
-    mats, _, table = _forward_consts(delta, x.device)
-    form = choose_form(delta, x.data_ptr())
-    _launch("tile_fft_f32", x.device, x, Tr, Ti, *mats, n, delta, form.code,
-            table)
+    mats, _, table = _forward_consts(delta, device)
+    ptr = x.data_ptr()
+    form = choose_form(delta, ptr)
+    _launch("tile_fft_f32", device, ptr, Tr.data_ptr(), Ti.data_ptr(), *mats,
+            n, delta, form.code, table)
     tile_fft_cuda.launches += 1
+    tile_fft_cuda.form_launches[form.name] += 1
     return Tr, Ti
 
 
@@ -327,7 +346,8 @@ def tile_ifft_cuda(Zr, Zi, *, delta: int = 16):
     if n == 0:
         return y
     *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
-    _launch("tile_ifft_f32", Zr.device, Zr, Zi, y, Fvr, Fvi, Wr, Wi, n, delta)
+    _launch("tile_ifft_f32", Zr.device, *_ptrs(Zr, Zi, y, Fvr, Fvi, Wr, Wi),
+            n, delta)
     tile_ifft_cuda.launches += 1
     return y
 
@@ -353,13 +373,17 @@ def tile_ifft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
     if n == 0:
         return y
     *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
-    _launch("tile_ifft_epilogue_f32", Zr.device, Zr, Zi, bias, y, Fvr, Fvi, Wr,
-            Wi, n, delta, ACTIVATION_CODES[activation])
+    _launch("tile_ifft_epilogue_f32", Zr.device,
+            *_ptrs(Zr, Zi, bias, y, Fvr, Fvi, Wr, Wi), n, delta,
+            ACTIVATION_CODES[activation])
     tile_ifft_epilogue_cuda.launches += 1
     return y
 
 
 tile_rfft_cuda.launches = 0
+# launches of the forward kernels by form (``choose_form``)
+tile_rfft_cuda.form_launches = {GENERIC.name: 0, SPECIALISED.name: 0}
+tile_fft_cuda.form_launches = {GENERIC.name: 0, SPECIALISED.name: 0}
 tile_irfft_cuda.launches = 0
 tile_irfft_epilogue_cuda.launches = 0
 tile_fft_cuda.launches = 0

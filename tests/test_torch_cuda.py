@@ -155,23 +155,27 @@ def test_irfft_epilogue_kernel_matches_plain(cuda, delta, pad):
 
 
 # forward kernels: n = 0 returns empty planes without a launch; the other
-# counts are not all multiples of a block's tiles, and 20001 makes the
-# specialised form loop over its grid
+# counts are not all multiples of a block's tiles (8 in the specialised
+# form, so 20001 ends in a block of one tile)
 FORWARD_TILE_COUNTS = (0, 1, 7, 1001, 3000, 3001, 20001)
 
 
 def _check_forward(wrapper, ref, x, delta, out_shape, form=None):
     """One launch of a forward wrapper on tiles ``x``, in the form the
-    chooser gives (``form``, when given), held to its plain version."""
+    chooser gives (``form``, when given), held to its plain version; the
+    wrapper's per-form count shows the form it launched."""
     n = x.shape[0]
     got_form = choose_form(delta, x.data_ptr())
     if form is not None:
         assert got_form == form
     before = wrapper.launches
+    forms = dict(wrapper.form_launches)
     Tr, Ti = wrapper(x, delta=delta)
     Rr, Ri = ref(x, delta)
     torch.cuda.synchronize()
     assert wrapper.launches == before + (n > 0)
+    forms[got_form.name] += n > 0
+    assert wrapper.form_launches == forms
     assert Tr.shape == Ti.shape == out_shape
     if n:
         scale = max(Rr.abs().max().item(), Ri.abs().max().item())
@@ -244,8 +248,9 @@ def test_specialised_form_refuses_a_misaligned_view(cuda):
     Fr, Fi, Fhr, Fhi, *_ = dft_mats(16, cuda, torch.float32)
     store, _, _ = compact_layout(16, cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
-        dft_ops._launch("tile_rfft_f32", x.device, x, Tr, Ti, Fr, Fi, Fhr,
-                        Fhi, store, 8, num_freq_real(16), 16,
+        dft_ops._launch("tile_rfft_f32", x.device,
+                        *dft_ops._ptrs(x, Tr, Ti, Fr, Fi, Fhr, Fhi, store),
+                        8, num_freq_real(16), 16,
                         SPECIALISED.code,
                         dft_ops.forward_tables(16).ctypes.data)
 

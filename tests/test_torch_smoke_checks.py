@@ -1,0 +1,113 @@
+"""The checks of chip_smoke.py that need no card, on the CPU: the training
+step through recorded branches (the float64 reference its grads are held
+to), the flip count, the forced generic form, and the launch counts that
+refuse a generic-form launch on a main path."""
+import collections
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
+
+# a narrow trunk with the served trunk's layer names, so that its pools
+# fall where serve's do (after Vconv1.2 and Vconv2.2)
+Layer = collections.namedtuple("Layer", "name padding")
+LAYERS = [Layer("Vconv1.1", 1), Layer("Vconv1.2", 1), Layer("Vconv2.1", 1),
+          Layer("Vconv2.2", 1)]
+CHANNELS = [3, 4, 4, 6, 6]
+
+
+def _trunk(dtype, seed=0):
+    """Weights, biases, input and loss weights of the narrow trunk on the
+    CPU, made from a seed with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def init(shape, s=0.3):
+        return torch.as_tensor(s * rng.standard_normal(shape), dtype=dtype)
+    kernels = {l.name: init((CHANNELS[i + 1], CHANNELS[i], 3, 3))
+               for i, l in enumerate(LAYERS)}
+    biases = {l.name: init((CHANNELS[i + 1],), 0.1)
+              for i, l in enumerate(LAYERS)}
+    x = init((2, 3, 16, 16), 1.0)
+    r = init((2, CHANNELS[-1], 4, 4), 1.0)
+    return kernels, biases, x, r
+
+
+def _step(loss_fn, kernels, biases, dtype, **kw):
+    ks = {n: k.to(dtype).requires_grad_() for n, k in kernels.items()}
+    bs = {n: b.to(dtype).requires_grad_() for n, b in biases.items()}
+    params = [ks[l.name] for l in LAYERS] + [bs[l.name] for l in LAYERS]
+    loss = loss_fn(LAYERS, kernels=ks, biases=bs, **kw)
+    return loss, torch.autograd.grad(loss, params)
+
+
+def test_branch_loss_reproduces_the_step_it_follows():
+    """On direct in float64, the step that takes recorded branches gives
+    the recorded step's loss and grads."""
+    kernels, biases, x, r = _trunk(torch.float64)
+    branches = []
+    loss, grads = _step(smoke.vgg_train_loss, kernels, biases, torch.float64,
+                        backend="direct", x=x, r=r, branches=branches)
+    assert len(branches) == len(LAYERS) + 2     # 4 ReLU masks, 2 pools
+    loss_b, grads_b = _step(smoke.vgg_branch_loss, kernels, biases,
+                            torch.float64, x=x, r=r, branches=branches)
+    assert abs(loss_b.item() - loss.item()) <= 1e-12 * abs(loss.item())
+    for g, gb in zip(grads, grads_b):
+        assert torch.allclose(g, gb, rtol=0, atol=1e-12)
+
+
+def test_fft_cuda_step_meets_the_smoke_gates():
+    """The training-step gates of chip_smoke.py at a small size on the
+    CPU: fft-cuda's float32 grads (kernels' plain versions) within
+    GRAD_TOL of float64 direct through the same branches, and at most
+    FLIP_LIMIT choices unlike float64's own."""
+    kernels, biases, x, r = _trunk(torch.float32)
+    branches, branches64 = [], []
+    _, grads = _step(smoke.vgg_train_loss, kernels, biases, torch.float32,
+                     backend="fft-cuda", x=x, r=r, branches=branches)
+    _, grads64 = _step(smoke.vgg_branch_loss, kernels, biases,
+                       torch.float64, x=x.double(), r=r.double(),
+                       branches=branches)
+    _step(smoke.vgg_train_loss, kernels, biases, torch.float64,
+          backend="direct", x=x.double(), r=r.double(), branches=branches64)
+    errs = smoke.rel_errs(LAYERS, grads, grads64)
+    assert len(errs) == 2 * len(LAYERS)
+    assert max(errs.values()) <= smoke.GRAD_TOL
+    assert sum(smoke.flip_counts(branches, branches64)) <= smoke.FLIP_LIMIT
+
+
+def test_flip_counts():
+    a = [torch.tensor([True, False, True]), torch.tensor([[0, 1], [2, 3]])]
+    b = [torch.tensor([True, True, False]), torch.tensor([[0, 1], [3, 3]])]
+    assert smoke.flip_counts(a, b) == [2, 1]
+    assert smoke.flip_counts(a, a) == [0, 0]
+
+
+def test_forced_generic_form_restores_the_chooser():
+    chooser = dft_ops.choose_form
+    assert chooser(16, 0) == dft_ops.SPECIALISED
+    with smoke.forced_generic_form():
+        assert dft_ops.choose_form(16, 0) == dft_ops.GENERIC
+    assert dft_ops.choose_form is chooser
+
+
+def test_expect_counts_refuses_a_generic_launch():
+    """Every main path's forward launches must take the specialised form:
+    a count of generic launches is a launch nobody asked for."""
+    smoke.zero_counts()
+    counts = smoke.read_counts()
+    assert counts["tile_rfft generic"] == counts["tile_fft generic"] == 0
+    smoke.expect_counts("path", counts, {})
+    counts["tile_rfft"] = counts["tile_rfft generic"] = 1
+    with pytest.raises(AssertionError, match="tile_rfft generic"):
+        smoke.expect_counts("path", counts, {"tile_rfft": 1})
