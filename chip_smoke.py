@@ -13,13 +13,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               at 224x224, batch 4: its served forward, its prepare and its
               training step), with its time, the plain version's, the
               library call's and the least time the card could take
-              (``bound_ms``); the forward tile DFT's rows name the kernel
-              form the wrapper launched (``form``, which must be the
-              specialised one at these shapes) and give the achieved TB/s
-              and the device time of the kernel and of the library call
-              (``device_ms``, ``library_device_ms``: taken after every
-              other timing, so these rows come out last); and the training
-              step's dk (cuDNN) in both formulations
+              (``bound_ms``); the tile DFTs' rows (forward and inverse)
+              name the kernel form the wrapper launched (``form``, which
+              must be the specialised one at these shapes) and give the
+              achieved TB/s and the device time of the kernel and of the
+              library call (``device_ms``, ``library_device_ms``: taken
+              after every other timing, so these rows come out last); and
+              the training step's dk (cuDNN) in both formulations
   4. slice    ``repro_torch.launch.serve`` serves the VGG trunk on backend
               ``fft-cuda`` (plan_network -> prepare -> request batches ->
               weight-update sweep); launch counters show every forward ran
@@ -54,8 +54,8 @@ and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
 (4, 6, 7, 8) and read right after it; each path must launch its own
-kernels and none of the others, and the forward tile DFT only in its
-specialised form.
+kernels and none of the others, and every tile DFT, forward and inverse,
+only in its specialised form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
@@ -130,8 +130,12 @@ WITNESS_EPS = (0.0, 1e-7, 3e-7)         # input scalings, branch_witness
 LOSS_TOL = 1e-3                         # |l - l_direct| / |l_direct|
 
 
-# forward wrappers whose kernel has forms (``dft_ops.choose_form``)
-FORMS = {"tile_rfft": tile_rfft_cuda, "tile_fft": tile_fft_cuda}
+# wrappers whose kernel has forms (``dft_ops.choose_form``,
+# ``dft_ops.choose_inverse_form``)
+FORMS = {"tile_rfft": tile_rfft_cuda, "tile_fft": tile_fft_cuda,
+         "tile_irfft_epilogue": tile_irfft_epilogue_cuda,
+         "tile_irfft": tile_irfft_cuda, "tile_ifft": tile_ifft_cuda,
+         "tile_ifft_epilogue": tile_ifft_epilogue_cuda}
 
 
 def zero_counts():
@@ -142,8 +146,8 @@ def zero_counts():
 
 
 def read_counts():
-    """Launches per kernel, and the forward kernels' launches in their
-    generic form (``<kernel> generic``)."""
+    """Launches per kernel, and the tile DFTs' launches in their generic
+    form (``<kernel> generic``)."""
     counts = {name: wrapper.launches
               for name, (wrapper, _, _) in KERNELS.items()}
     for name, wrapper in FORMS.items():
@@ -153,8 +157,8 @@ def read_counts():
 
 def expect_counts(what, got, want):
     """``want`` names the kernels the path launches; every other kernel
-    must not have been launched, nor a forward kernel in its generic form
-    (every main path's tiles take the specialised one)."""
+    must not have been launched, nor a tile DFT in its generic form (every
+    main path's tiles and planes take the specialised one)."""
     want = {**{k: 0 for k in got}, **want}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
@@ -300,6 +304,10 @@ def check_cgemm(layers, gen):
 
 
 def check_inverse(layers, gen):
+    """The fused compact inverse at every output tile count of the served
+    trunk (ReLU), under the other activations at Vconv1.2, and on planes
+    padded to P = 136 with NaN past point 130.  No single library call
+    computes it.  The rows are emitted by ``device_times``."""
     rows = []
     d = 16
     cases = [(name, spec, "relu", freq_count(spec, "real"))
@@ -315,7 +323,8 @@ def check_inverse(layers, gen):
             Zr[:, 130:] = float("nan")
             Zi[:, 130:] = float("nan")
         b = torch.randn((n,), generator=gen, device="cuda")
-        y = tile_irfft_epilogue_cuda(Zr, Zi, b, activation=act, delta=d)
+        y, form = form_launch(tile_irfft_epilogue_cuda, Zr, Zi, b,
+                              activation=act, delta=d)
         y0 = tile_irfft_epilogue_ref(Zr[:, :130], Zi[:, :130], b,
                                      activation=act, delta=d)
         torch.cuda.synchronize()
@@ -332,11 +341,11 @@ def check_inverse(layers, gen):
         dh = d // 2 + 1
         nbytes = 4 * (2 * n * P + n + n * d * d)
         flops = n * (8 * d * dh * d + 4 * d * d * dh)
+        bd = bound(nbytes, flops, torch.float32)
         row = dict(kernel="tile_irfft_epilogue", layer=name,
                    shape=[n, P, d], activation=act, max_abs_err=err,
                    scaled_err=err / scale, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, **bound(nbytes, flops, torch.float32))
-        emit("kernel", **row)
+                   library_ms=None, **form_fields(ms, form, bd), **bd)
         rows.append(row)
     return rows
 
@@ -349,52 +358,77 @@ def device_ms(fn, reps=20):
     return device_profile(lambda: [fn() for _ in range(reps)])[1] / reps / 1e3
 
 
-def forward_launch(wrapper, x, d):
-    """One launch of a forward wrapper on tiles ``x`` at a main path's
-    shape, which must take the specialised form there: the wrapper's
-    per-form count names the form it launched."""
+def form_launch(wrapper, *args, **kw):
+    """One launch of a tile DFT wrapper at a main path's shape, which must
+    take the specialised form there: the wrapper's per-form count names
+    the form it launched."""
     before = dict(wrapper.form_launches)
-    out = wrapper(x, delta=d)
+    out = wrapper(*args, **kw)
     form = [f for f, c in wrapper.form_launches.items() if c != before[f]]
     if form != ["specialised"]:
         raise AssertionError(f"{wrapper.__name__} launched form {form} on "
-                             f"{tuple(x.shape)} tiles, not the specialised")
+                             f"{tuple(args[0].shape)}, not the specialised")
     return out, form[0]
 
 
-def forward_fields(ms, form, b):
-    """The forward rows' own fields: the form launched, the achieved bytes
+def form_fields(ms, form, b):
+    """The tile DFT rows' own fields: the form launched, the achieved bytes
     rate and the bound's share of the time ``ms``."""
     return dict(form=form, tb_s=b["bytes"] / ms / 1e9,
                 bound_share=b["bound_ms"] / ms)
 
 
-def forward_device_times(rows):
-    """Add to each forward row the device time of its kernel and of its
-    library call (``device_ms``, ``library_device_ms``), on fresh tiles of
-    the row's count, and emit the row.  Run after every other timing of
-    the script, so that no profiler session runs among timed calls."""
-    d = 16
-    store = compact_layout(d, "cuda")[0].long()
-    for row in rows:
-        n = row["shape"][0]
+def device_calls(row, d=16):
+    """The kernel call and the library call (None where there is none) of
+    a tile DFT row, on fresh inputs of the row's shape."""
+    kernel, n = row["kernel"], row["shape"][0]
+    dh = d // 2 + 1
+    if kernel in ("tile_rfft", "tile_fft"):
         x = torch.randn((n, d, d), device="cuda")
-        if row["kernel"] == "tile_rfft":
-            def kernel():
-                return tile_rfft_cuda(x, delta=d)
+        if kernel == "tile_rfft":
+            store = compact_layout(d, "cuda")[0].long()
+            return (lambda: tile_rfft_cuda(x, delta=d),
+                    lambda: torch.fft.rfft2(x).reshape(n, -1).index_select(
+                        1, store))
+        return (lambda: tile_fft_cuda(x, delta=d),
+                lambda: torch.fft.rfft2(x))
+    if kernel == "tile_ifft":
+        Z = torch.fft.rfft2(torch.randn((n, d, d), device="cuda"))
+        Zr, Zi = Z.real.contiguous(), Z.imag.contiguous()
+        return (lambda: tile_ifft_cuda(Zr, Zi, delta=d),
+                lambda: torch.fft.irfft2(Z, s=(d, d)))
+    if kernel == "tile_ifft_epilogue":
+        Zr, Zi = (torch.randn((n, d, dh), device="cuda") for _ in range(2))
+        b = torch.randn((n,), device="cuda")
+        return (lambda: tile_ifft_epilogue_cuda(
+            Zr, Zi, b, activation=row["activation"], delta=d), None)
+    P = row["shape"][1]
+    Zr, Zi = (torch.randn((n, P), device="cuda") for _ in range(2))
+    if kernel == "tile_irfft":
+        _, src, sgn = compact_layout(d, "cuda")
+        src = src.long()
+        return (lambda: tile_irfft_cuda(Zr, Zi, delta=d),
+                lambda: torch.fft.irfft2(torch.complex(
+                    Zr.index_select(1, src), Zi.index_select(1, src) * sgn)
+                    .view(n, d, dh), s=(d, d)))
+    b = torch.randn((n,), device="cuda")
+    return (lambda: tile_irfft_epilogue_cuda(
+        Zr, Zi, b, activation=row["activation"], delta=d), None)
 
-            def library():
-                return torch.fft.rfft2(x).reshape(n, -1).index_select(
-                    1, store)
-        else:
-            def kernel():
-                return tile_fft_cuda(x, delta=d)
 
-            def library():
-                return torch.fft.rfft2(x)
+def device_times(rows):
+    """Add to each tile DFT row the device time of its kernel and of its
+    library call (``device_ms``, ``library_device_ms``; None where no
+    single library call computes the same function), on fresh inputs of
+    the row's shape, and emit the row.  Run after every other timing of
+    the script, so that no profiler session runs among timed calls."""
+    for row in rows:
+        kernel, library = device_calls(row)
         row.update(device_ms=device_ms(kernel),
-                   library_device_ms=device_ms(library))
+                   library_device_ms=(device_ms(library) if library
+                                      else None))
         emit("kernel", **row)
+        del kernel, library
 
 
 def check_forward(layers, gen):
@@ -402,7 +436,7 @@ def check_forward(layers, gen):
     of the served trunk (stage 2 runs in every prepare and, for the
     forward's and the dx plan's kernels, twice a training step).  The
     library call is two: ``torch.fft.rfft2`` of the tiles and the
-    ``store`` gather.  The rows are emitted by ``forward_device_times``."""
+    ``store`` gather.  The rows are emitted by ``device_times``."""
     rows = []
     d = 16
     P = freq_count(layers[0][1], "real")
@@ -412,7 +446,7 @@ def check_forward(layers, gen):
     cases += [(name, "stage2", spec.Cout * spec.C) for name, spec in layers]
     for name, stage, n in cases:
         x = torch.randn((n, d, d), generator=gen, device="cuda")
-        (Tr, Ti), form = forward_launch(tile_rfft_cuda, x, d)
+        (Tr, Ti), form = form_launch(tile_rfft_cuda, x, delta=d)
         Rr, Ri = tile_rfft_ref(x, d)
         torch.cuda.synchronize()
         err = max((Tr - Rr).abs().max().item(), (Ti - Ri).abs().max().item())
@@ -433,7 +467,7 @@ def check_forward(layers, gen):
                    shape=[n, d, P], max_abs_err=err, scaled_err=err / scale,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    library="torch.fft.rfft2 + index_select (two calls)",
-                   **forward_fields(ms, form, b), **b)
+                   **form_fields(ms, form, b), **b)
         rows.append(row)
     return rows
 
@@ -441,7 +475,8 @@ def check_forward(layers, gen):
 def check_plain_inverse(dx_layers, gen):
     """The plain compact inverse at the tile count of every dx plan of a
     training step.  The library call is two: the ``src``/``sgn`` scatter
-    (a gather, a sign product, a complex pack) and ``torch.fft.irfft2``."""
+    (a gather, a sign product, a complex pack) and ``torch.fft.irfft2``.
+    The rows are emitted by ``device_times``."""
     rows = []
     d = 16
     dh = d // 2 + 1
@@ -452,7 +487,7 @@ def check_plain_inverse(dx_layers, gen):
         n = spec.B * spec.Cout * spec.X * spec.D
         Zr, Zi = (torch.randn((n, P), generator=gen, device="cuda")
                   for _ in range(2))
-        y = tile_irfft_cuda(Zr, Zi, delta=d)
+        y, form = form_launch(tile_irfft_cuda, Zr, Zi, delta=d)
         y0 = tile_irfft_ref(Zr, Zi, d)
         torch.cuda.synchronize()
         err = (y - y0).abs().max().item()
@@ -468,12 +503,12 @@ def check_plain_inverse(dx_layers, gen):
             .view(n, d, dh), s=(d, d)))
         nbytes = 4 * (2 * n * P + n * d * d)
         flops = n * (8 * d * dh * d + 4 * d * d * dh)
+        b = bound(nbytes, flops, torch.float32)
         row = dict(kernel="tile_irfft", layer=name, stage="dx plan",
                    shape=[n, P, d], max_abs_err=err, scaled_err=err / scale,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    library="scatter + torch.fft.irfft2 (two steps)",
-                   **bound(nbytes, flops, torch.float32))
-        emit("kernel", **row)
+                   **form_fields(ms, form, b), **b)
         rows.append(row)
     return rows
 
@@ -490,7 +525,7 @@ def rect_bytes_flops(n, d, tail=False):
 def check_rect_forward(layers, gen):
     """Kernel 5 at every stage-1 tile count and every stage-2 count of the
     served trunk.  The library call is one: ``torch.fft.rfft2``.  The rows
-    are emitted by ``forward_device_times``."""
+    are emitted by ``device_times``."""
     rows = []
     d = 16
     cases = [(name, "stage1", spec.B * spec.C * spec.X * spec.D)
@@ -498,7 +533,7 @@ def check_rect_forward(layers, gen):
     cases += [(name, "stage2", spec.Cout * spec.C) for name, spec in layers]
     for name, stage, n in cases:
         x = torch.randn((n, d, d), generator=gen, device="cuda")
-        (Tr, Ti), form = forward_launch(tile_fft_cuda, x, d)
+        (Tr, Ti), form = form_launch(tile_fft_cuda, x, delta=d)
         Rr, Ri = tile_fft_ref(x, d)
         X = torch.fft.rfft2(x)
         torch.cuda.synchronize()
@@ -518,7 +553,7 @@ def check_rect_forward(layers, gen):
                    shape=[n, d, d // 2 + 1], max_abs_err=err,
                    scaled_err=err / scale, library_abs_diff=library_err,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   library="torch.fft.rfft2", **forward_fields(ms, form, b),
+                   library="torch.fft.rfft2", **form_fields(ms, form, b),
                    **b)
         rows.append(row)
     return rows
@@ -530,7 +565,8 @@ def check_rect_inverse(layers, gen):
     Kernel 6 reads spectra made by an rfft2 of real tiles, so that its
     library call, ``torch.fft.irfft2``, is defined on them (cuFFT's C2R
     is unspecified on a non-Hermitian grid); kernel 7 reads random planes
-    and has no single library call."""
+    and has no single library call.  The rows are emitted by
+    ``device_times``."""
     rows6, rows7 = [], []
     d = 16
     dh = d // 2 + 1
@@ -543,7 +579,7 @@ def check_rect_inverse(layers, gen):
             Z = torch.fft.rfft2(torch.randn((n, d, d), generator=gen,
                                             device="cuda"))
             Zr, Zi = Z.real.contiguous(), Z.imag.contiguous()
-            y = tile_ifft_cuda(Zr, Zi, delta=d)
+            y, form = form_launch(tile_ifft_cuda, Zr, Zi, delta=d)
             y0 = tile_ifft_ref(Zr, Zi, d)
             y_lib = torch.fft.irfft2(Z, s=(d, d))
             torch.cuda.synchronize()
@@ -553,22 +589,24 @@ def check_rect_inverse(layers, gen):
                 raise AssertionError(
                     f"tile_ifft {name}: scaled error {err / scale:.3e} > "
                     f"{INVERSE_TOL}")
+            ms = time_ms(lambda: tile_ifft_cuda(Zr, Zi, delta=d))
+            bd = bound(*rect_bytes_flops(n, d), torch.float32)
             row = dict(kernel="tile_ifft", layer=name, shape=[n, d, dh],
                        max_abs_err=err, scaled_err=err / scale,
                        library_abs_diff=(y - y_lib).abs().max().item(),
-                       ms=time_ms(lambda: tile_ifft_cuda(Zr, Zi, delta=d)),
+                       ms=ms,
                        plain_ms=time_ms(lambda: tile_ifft_ref(Zr, Zi, d)),
                        library_ms=time_ms(
                            lambda: torch.fft.irfft2(Z, s=(d, d))),
                        library="torch.fft.irfft2",
-                       **bound(*rect_bytes_flops(n, d), torch.float32))
-            emit("kernel", **row)
+                       **form_fields(ms, form, bd), **bd)
             rows6.append(row)
             del Z, Zr, Zi, y, y0, y_lib
         Zr, Zi = (torch.randn((n, d, dh), generator=gen, device="cuda")
                   for _ in range(2))
         b = torch.randn((n,), generator=gen, device="cuda")
-        y = tile_ifft_epilogue_cuda(Zr, Zi, b, activation=act, delta=d)
+        y, form = form_launch(tile_ifft_epilogue_cuda, Zr, Zi, b,
+                              activation=act, delta=d)
         y0 = tile_ifft_epilogue_ref(Zr, Zi, b, activation=act, delta=d)
         torch.cuda.synchronize()
         err = (y - y0).abs().max().item()
@@ -577,16 +615,14 @@ def check_rect_inverse(layers, gen):
             raise AssertionError(
                 f"tile_ifft_epilogue {name} {act}: scaled error "
                 f"{err / scale:.3e} > {INVERSE_TOL}")
+        ms = time_ms(lambda: tile_ifft_epilogue_cuda(
+            Zr, Zi, b, activation=act, delta=d))
+        bd = bound(*rect_bytes_flops(n, d, tail=True), torch.float32)
         row = dict(kernel="tile_ifft_epilogue", layer=name, shape=[n, d, dh],
                    activation=act, max_abs_err=err, scaled_err=err / scale,
-                   ms=time_ms(lambda: tile_ifft_epilogue_cuda(
+                   ms=ms, plain_ms=time_ms(lambda: tile_ifft_epilogue_ref(
                        Zr, Zi, b, activation=act, delta=d)),
-                   plain_ms=time_ms(lambda: tile_ifft_epilogue_ref(
-                       Zr, Zi, b, activation=act, delta=d)),
-                   library_ms=None,
-                   **bound(*rect_bytes_flops(n, d, tail=True),
-                           torch.float32))
-        emit("kernel", **row)
+                   library_ms=None, **form_fields(ms, form, bd), **bd)
         rows7.append(row)
     return rows6, rows7
 
@@ -818,16 +854,18 @@ def rel_errs(layers, grads, grads64):
 
 
 class forced_generic_form:
-    """Within the block, every forward tile DFT launches its generic form
-    (the one kernel of every delta before the specialised form came),
-    whatever ``choose_form`` would pick."""
+    """Within the block, every tile DFT, forward and inverse, launches its
+    generic form (the one kernel of every delta before the specialised
+    forms came), whatever ``choose_form`` and ``choose_inverse_form``
+    would pick."""
 
     def __enter__(self):
-        self.saved = dft_ops.choose_form
+        self.saved = dft_ops.choose_form, dft_ops.choose_inverse_form
         dft_ops.choose_form = lambda delta, ptr: dft_ops.GENERIC
+        dft_ops.choose_inverse_form = lambda delta, ptrs, ld: dft_ops.GENERIC
 
     def __exit__(self, *exc):
-        dft_ops.choose_form = self.saved
+        dft_ops.choose_form, dft_ops.choose_inverse_form = self.saved
 
 
 def train_phase():
@@ -955,7 +993,7 @@ def train_phase():
 def branch_witness(layers, make_step):
     """Why the grads are not held to a free float64 step: with the input
     scaled by 1 + eps for eps in ``WITNESS_EPS``, each float32 step (the
-    forward tile DFT in its specialised form, in its generic form, and
+    tile DFTs in their specialised forms, in their generic forms, and
     cuDNN) against the free float64 step at the same input, and against
     the float64 step through its own branches, with its flips.  Reported,
     not held: a change of rounding as small as eps moves which choices
@@ -1087,7 +1125,8 @@ def main():
     rect_counts = rect_phase(res, layers, y_ref, slice_p50_ms)
     train_counts = train_phase()
     trainer_counts = trainer_phase()
-    forward_device_times(fwd_rows + rfwd_rows)
+    device_times(fwd_rows + rfwd_rows + inv_rows + binv_rows + rinv_rows
+                 + rinv_ep_rows)
 
     # launches: the four main paths together (slice, rect, train, trainer)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]

@@ -65,8 +65,19 @@
 // written as y[t] (delta x delta, float32).  The column weights of the
 // inverse rfft (1 for the self-conjugate DC and, at even delta, Nyquist
 // columns, 2 for the rest) live in W, so odd and even delta take the same
-// code.  One template, the tail (kTail) and the scatter (kScatter) compiled
-// in or out.
+// code.  Each form is one template, the tail (kTail) and the scatter
+// (kScatter) compiled in or out.
+//
+// Two kernel forms, the code ops.choose_inverse_form passes (kForm*):
+//   specialised (rinv16_kernel): delta 16, the tile of every plan path, on
+//     16-byte-aligned planes and output with an even row stride ld.
+//     Columns, then rows, in registers; the tables (Finv and W, rows 0-8)
+//     by value in the launch's parameters; the compact scatter compiled in
+//     (no src/sgn); shared memory only for the block's spectrum rows and one
+//     transpose.  Its design is set out above the kernel.
+//   generic (rinv_kernel): every delta <= 32, odd included, and planes off
+//     16 bytes.  The launcher refuses a form it cannot run: no silent
+//     fallback.
 //
 // Replaces: src/repro/kernels/dft_tile/kernel.py:_rinv_kernel (compact,
 // wrapped by tile_irfft_pallas), :_rinv_epilogue_kernel (compact, fused
@@ -78,11 +89,15 @@
 // floats (2.1-2.2 kB) for about 28 kFLOP of small complex products: 13
 // FLOP per byte against the card's 20, so it is bound by memory traffic
 // (247,808 output tiles of a served VGG forward, 539 MB rect: 0.16 ms).
+// The specialised form does about 6.1k FMAs a tile (12 kFLOP, 6 per byte),
+// well under the ridge.  The generic form issues about 600 shared-memory
+// warp instructions a tile (its tables, Z and Y), which bound it near
+// 0.6-0.65 ms there instead.
 //
-// Design, the inverse forms and the generic forward form.  The Pallas
-// kernels' gain is that the intermediate product never reaches device
-// memory (nor, compact, the rect spectrum); the same holds here, in both
-// forward forms too.  A block loads the DFT matrices and the layout table
+// Design, the generic forms.  The Pallas kernels' gain is that the
+// intermediate product never reaches device memory (nor, compact, the rect
+// spectrum); the same holds here, in every form.  A block loads the DFT
+// matrices and the layout table
 // into shared memory once, then each of its warps walks over tiles
 // (grid-stride): the warp reads its tile (or gathers its compact row
 // through src/sgn) straight from device memory into a per-warp shared
@@ -496,6 +511,252 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// ---- the inverse tile DFT at delta = 16 ("specialised" form) -------------
+// The forward form run backwards.  A block of 128 threads takes 8 tiles,
+// one block per 8 tiles (no loop over tiles, so ptxas keeps no table in
+// registers across one).
+//  Load: the block copies its 8 spectrum rows, both planes, into shared
+//    memory with vector loads: 16-byte in the rect form (144 floats a row),
+//    8-byte in the compact form (a row of 130 floats starts only 8 bytes
+//    aligned), each row to its own padded slot (kZCompact16, kZRect16), so
+//    that the column reads below miss each other's banks.  Rows of stride
+//    ld: points past 130 (compact) are never read.
+//  Stage A, by columns: thread (tile, c) reads column c of Z into
+//    registers and forms Y[h] = sum_u Finv[h][u] Z[u].  Finv[16-h] =
+//    conj(Finv[h]), so the four sums over u of (Re Finv, Im Finv) x (Re z,
+//    Im z) give Y[h] and Y[16-h] at once: 9 units (h = 0, 8 and the pairs
+//    (h, 16-h), h = 1..7).  The two warps of a 4-tile group split them (h =
+//    0, 8 and pairs 1-3; pairs 4-7: 256 FMAs a thread each), so h is
+//    warp-uniform and every table operand is at a compile-time offset of a
+//    __grid_constant__ parameter, read from the constant bank: no table read
+//    touches shared memory.  Stage B reads only the real parts of columns 0
+//    and 8 (W's imaginary column 0 is 0, column 8 at most 3.4e-16), so one
+//    thread takes both: it holds column 0 as (a, b) and column 8 as (c, d)
+//    = (Re, -Im), and the same four sums, each over its own operands, are
+//    Re Y[:,0] (s1 -+ s2) and Re Y[:,8] (s3 +- s4).  Every other thread
+//    holds its column as (a, b) = (Re, Im) and (c, d) = (Im, Re).  In the
+//    compact form the conj-mirror scatter is compile-time: rows 9-15 of
+//    columns 0 and 8 read row 16-u with the imaginary part negated
+//    (compact16 gives the index of every stored point); no src/sgn table.
+//  Transpose: Y goes to shared memory as 8 complex "columns" a row (column
+//    0 packs Re Y[:,0] and Re Y[:,8]), rows padded as in the forward form.
+//  Stage B, by rows: thread (tile, h) reads row h of Y (four 16-byte loads)
+//    and forms y[h][w] = sum_v Wr[w][v] Yr[h][v] - Wi[w][v] Yi[h][v].
+//    W[16-w] = conj(W[w]), so the same two sums give y[h][w] and
+//    y[h][16-w]; the tail (bias, activation) follows in registers.
+//  Store: each thread puts its row in the spectrum buffer, dead since
+//    stage A (its four 16-byte chunks swizzled by row so that 8 rows miss
+//    each other's banks); the block's 8 tiles are 8 KB contiguous in y,
+//    and it writes them in 16-byte stores, a warp's 512 bytes contiguous.
+//    (Storing each row from its own thread puts a warp's 16-byte stores 64
+//    bytes apart, half a sector each, and measured slower on the card.)
+// About 6.1k FMAs a tile (4.1k in stage A, 2.1k in stage B), 3 barriers a
+// block; per tile about 50 shared-memory warp instructions.
+constexpr int kZCompact16 = 136;   // shared floats a compact row (130 used;
+                                   // 136 = 8 mod 32: the 4 tiles of a warp's
+                                   // column reads fall on 4 bank octets)
+constexpr int kZRect16 = 152;      // a rect row (144 used; 152 = 24 mod 32)
+
+struct InvTables16 {           // row-major, float32
+  float fr[kDh16][kD16];       // Finv rows 0-8
+  float fi[kDh16][kD16];
+  float wr[kDh16][kDh16];      // W rows 0-8
+  float wi[kDh16][kDh16];
+};
+
+template <int V>
+struct VecOf;
+template <>
+struct VecOf<2> {
+  using type = float2;
+};
+template <>
+struct VecOf<4> {
+  using type = float4;
+};
+
+// One unit of stage A: Y[H] and, for 1 <= H <= 7, Y[16 - H], into the
+// tile's transpose buffer at column pair c.
+template <int H>
+__device__ __forceinline__ void iunit16(const InvTables16& tab,
+                                        const float (&a)[kD16],
+                                        const float (&b)[kD16],
+                                        const float (&c)[kD16],
+                                        const float (&d)[kD16], float* ys,
+                                        int col) {
+  // Finv[H] real for H = 0 (exactly) and H = 8 (imaginary parts at most
+  // 3.4e-16 in dft_mats), and 16 - H = H there
+  constexpr bool kSingle = H == 0 || H == 8;
+  float s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
+#pragma unroll
+  for (int u = 0; u < kD16; ++u) {
+    const float fr = tab.fr[H][u];
+    s1 = fmaf(fr, a[u], s1);
+    s3 = fmaf(fr, c[u], s3);
+    if constexpr (!kSingle) {
+      const float fi = tab.fi[H][u];
+      s2 = fmaf(fi, b[u], s2);
+      s4 = fmaf(fi, d[u], s4);
+    }
+  }
+  float2* row = reinterpret_cast<float2*>(ys + H * kRow16) + col;
+  if constexpr (kSingle) {
+    *row = make_float2(s1, s3);
+  } else {
+    *row = make_float2(s1 - s2, s3 + s4);
+    reinterpret_cast<float2*>(ys + (kD16 - H) * kRow16)[col] =
+        make_float2(s1 + s2, s3 - s4);
+  }
+}
+
+template <bool kTail, bool kScatter>
+__global__ void __launch_bounds__(kThreads16)
+    rinv16_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
+                  const float* __restrict__ bias, float* __restrict__ y,
+                  const __grid_constant__ InvTables16 tab, long long n,
+                  int ld, int act) {
+  constexpr int P = kScatter ? 130 : kD16 * kDh16;
+  constexpr int V = kScatter ? 2 : 4;            // floats per vector load
+  constexpr int S = kScatter ? kZCompact16 : kZRect16;
+  constexpr int kVecs = P / V;                   // vectors a row
+  constexpr int kIters = (kTiles16 * kVecs + kThreads16 - 1) / kThreads16;
+  using Vec = typename VecOf<V>::type;
+  // the spectrum rows, real then imaginary; then the output tiles
+  // (2 * 8 * S >= 8 * 256 floats)
+  __shared__ __align__(16) float sz[2 * kTiles16 * S];
+  __shared__ __align__(16) float sy[kTiles16 * kTile16];
+  float* szr = sz;
+  float* szi = sz + kTiles16 * S;
+
+  const long long t0 = (long long)blockIdx.x * kTiles16;
+  const long long left = n - t0;
+  const int tiles = left < kTiles16 ? (int)left : kTiles16;
+
+  // load: every vector of the block's rows in flight before the first store
+  Vec lr[kIters], li[kIters];
+#pragma unroll
+  for (int j = 0; j < kIters; ++j) {
+    const int e = threadIdx.x + j * kThreads16;
+    if (e < tiles * kVecs) {
+      const int q = e / kVecs;
+      const long long off = (t0 + q) * ld + (e - q * kVecs) * V;
+      lr[j] = __ldg(reinterpret_cast<const Vec*>(zr + off));
+      li[j] = __ldg(reinterpret_cast<const Vec*>(zi + off));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kIters; ++j) {
+    const int e = threadIdx.x + j * kThreads16;
+    if (e < tiles * kVecs) {
+      const int q = e / kVecs;
+      const int off = q * S + (e - q * kVecs) * V;
+      *reinterpret_cast<Vec*>(szr + off) = lr[j];
+      *reinterpret_cast<Vec*>(szi + off) = li[j];
+    }
+  }
+  __syncthreads();
+
+  // stage A: column c of tile q2, the warp's half of the units
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = warp & 1;
+  const int q2 = (warp >> 1) * 4 + lane / 8, c = lane % 8;
+  float a[kD16], b[kD16], cc[kD16], dd[kD16];
+  {
+    const float* re = szr + q2 * S;
+    const float* im = szi + q2 * S;
+    // (cc, dd): column 8 as (Re, -Im) for c = 0, else column c as (Im, Re)
+    const float* pc = c == 0 ? re : im;
+    const float* pd = c == 0 ? im : re;
+    const float sd = c == 0 ? -1.f : 1.f;
+    const int c8 = c == 0 ? 8 : c;
+#pragma unroll
+    for (int u = 0; u < kD16; ++u) {
+      if (!kScatter || u <= 8) {
+        a[u] = re[u * kDh16 + c];
+        b[u] = im[u * kDh16 + c];
+        cc[u] = pc[u * kDh16 + c8];
+        dd[u] = sd * pd[u * kDh16 + c8];
+      } else {
+        // compact rows 9-15 store columns 1-7; columns 0 and 8 there are
+        // the conjugates of row 16 - u
+        const int m = (kD16 - u) * kDh16;
+        const int p = compact16(u, c == 0 ? 1 : c);
+        const int pa = c == 0 ? m : p;
+        const int pcd = c == 0 ? m + 8 : p;
+        a[u] = re[pa];
+        b[u] = (c == 0 ? -1.f : 1.f) * im[pa];
+        cc[u] = pc[pcd];
+        dd[u] = pd[pcd];   // c = 0: -Im Z[u][8] = +Im Z[16-u][8]
+      }
+    }
+  }
+  float* ys = sy + q2 * kTile16;
+  if (half == 0) {
+    iunit16<0>(tab, a, b, cc, dd, ys, c);
+    iunit16<8>(tab, a, b, cc, dd, ys, c);
+    iunit16<1>(tab, a, b, cc, dd, ys, c);
+    iunit16<2>(tab, a, b, cc, dd, ys, c);
+    iunit16<3>(tab, a, b, cc, dd, ys, c);
+  } else {
+    iunit16<4>(tab, a, b, cc, dd, ys, c);
+    iunit16<5>(tab, a, b, cc, dd, ys, c);
+    iunit16<6>(tab, a, b, cc, dd, ys, c);
+    iunit16<7>(tab, a, b, cc, dd, ys, c);
+  }
+  __syncthreads();
+
+  // stage B: row h of tile q1; yv = Re Y[h][0], Re Y[h][8], then (Re, Im)
+  // of Y[h][1..7]
+  const int q1 = threadIdx.x / kD16, h = threadIdx.x % kD16;
+  float yv[kD16];
+  const float4* yrow =
+      reinterpret_cast<const float4*>(sy + q1 * kTile16 + h * kRow16);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 v = yrow[k];
+    yv[4 * k] = v.x;
+    yv[4 * k + 1] = v.y;
+    yv[4 * k + 2] = v.z;
+    yv[4 * k + 3] = v.w;
+  }
+  float out[kD16];
+#pragma unroll
+  for (int w = 0; w < kDh16; ++w) {
+    float p1 = tab.wr[w][0] * yv[0];
+    p1 = fmaf(tab.wr[w][8], yv[1], p1);
+#pragma unroll
+    for (int v = 1; v < 8; ++v) p1 = fmaf(tab.wr[w][v], yv[2 * v], p1);
+    if (w == 0 || w == 8) {    // W[0] real, Im W[8] at most 1.1e-16
+      out[w] = p1;
+    } else {
+      float p2 = 0.f;
+#pragma unroll
+      for (int v = 1; v < 8; ++v) p2 = fmaf(tab.wi[w][v], yv[2 * v + 1], p2);
+      out[w] = p1 - p2;
+      out[kD16 - w] = p1 + p2;
+    }
+  }
+  if (kTail) {   // a tile past n has no bias; its row is never stored
+    const float bt = q1 < tiles ? bias[t0 + q1] : 0.f;
+#pragma unroll
+    for (int w = 0; w < kD16; ++w) out[w] = activate(out[w] + bt, act);
+  }
+  // store: row r = q1 * 16 + h at float4 slots 4r..4r+3, chunk k in slot
+  // k ^ ((r >> 1) & 3)
+  float4* so = reinterpret_cast<float4*>(sz) + (q1 * kD16 + h) * 4;
+  const int sw = (h >> 1) & 3;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    so[k ^ sw] = make_float4(out[4 * k], out[4 * k + 1], out[4 * k + 2],
+                             out[4 * k + 3]);
+  __syncthreads();
+  const int vecs = tiles * kD16 * 4;          // float4s of the block's tiles
+  float4* dst = reinterpret_cast<float4*>(y + t0 * (kD16 * kD16));
+  const float4* src = reinterpret_cast<const float4*>(sz);
+  for (int e = threadIdx.x; e < vecs; e += kThreads16)
+    dst[e] = src[(e & ~3) | ((e & 3) ^ ((e >> 3) & 3))];
+}
+
 int multiprocessors() {
   static int cache[kMaxDevices] = {0};
   int dev = 0;
@@ -548,9 +809,10 @@ int launch_rfwd(const void* x, void* tr, void* ti, const void* fr,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-// Forms of the forward kernel, the code ops.choose_form passes.
+// Forms of the tile DFT kernels, the codes ops.choose_form and
+// ops.choose_inverse_form pass.
 constexpr int kFormGeneric = 0;
-constexpr int kFormSpecialised = 1;     // rfwd16_kernel: delta 16, aligned
+constexpr int kFormSpecialised = 1;     // rfwd16_kernel / rinv16_kernel
 
 template <bool kGather>
 int launch_rfwd16(const void* x, void* tr, void* ti, const void* tables,
@@ -625,6 +887,56 @@ int launch_rinv(const void* zr, const void* zi, const void* bias, void* y,
   return (int)cudaGetLastError();
 }
 
+template <bool kTail, bool kScatter>
+int launch_rinv16(const void* zr, const void* zi, const void* bias, void* y,
+                  const void* tables, long long n, int ld, int act,
+                  cudaStream_t stream) {
+  constexpr int P = kScatter ? 130 : kD16 * kDh16;
+  if (tables == nullptr || ld < P || act < 0 || act > 3 ||
+      (kTail && bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // the vector loads of the rows (8-byte compact, 16-byte rect: the rect
+  // row stride is always 144) and the 16-byte output stores need aligned
+  // planes and output and a row stride of whole vectors
+  if (!aligned16(zr) || !aligned16(zi) || !aligned16(y) ||
+      ld % (kScatter ? 2 : 4) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  // one block per 8 tiles, no loop (as the forward form)
+  const long long blocks = (n + kTiles16 - 1) / kTiles16;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaGetLastError();  // start from a clean error state
+  InvTables16 tab;
+  memcpy(&tab, tables, sizeof tab);
+  rinv16_kernel<kTail, kScatter><<<(unsigned)blocks, kThreads16, 0, stream>>>(
+      static_cast<const float*>(zr), static_cast<const float*>(zi),
+      static_cast<const float*>(bias), static_cast<float*>(y), tab, n, ld,
+      act);
+  return (int)cudaGetLastError();
+}
+
+// The inverse tile DFT in form ``form``: the specialised form (delta 16
+// only, aligned planes and output, Finv and W rows 0-8 from the host table
+// ``tables``, 2 x 9 x 16 + 2 x 9 x 9 floats) or the generic one (any delta
+// <= 32, tables in device memory); a form that cannot run these operands is
+// refused.
+template <bool kTail, bool kScatter>
+int launch_inverse(const void* zr, const void* zi, const void* bias, void* y,
+                   const void* fvr, const void* fvi, const void* wr,
+                   const void* wi, const void* src, const void* sgn,
+                   long long n, int ld, int delta, int act, int form,
+                   const void* tables, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (form == kFormSpecialised) {
+    if (delta != kD16) return (int)cudaErrorInvalidValue;
+    return launch_rinv16<kTail, kScatter>(zr, zi, bias, y, tables, n, ld,
+                                          act,
+                                          static_cast<cudaStream_t>(stream));
+  }
+  if (form != kFormGeneric) return (int)cudaErrorInvalidValue;
+  return launch_rinv<kTail, kScatter>(zr, zi, bias, y, fvr, fvi, wr, wi, src,
+                                      sgn, n, ld, delta, act, stream);
+}
+
 }  // namespace
 
 extern "C" int tile_rfft_f32(const void* x, void* tr, void* ti,
@@ -640,9 +952,10 @@ extern "C" int tile_irfft_f32(const void* zr, const void* zi, void* y,
                               const void* fvr, const void* fvi,
                               const void* wr, const void* wi, const void* src,
                               const void* sgn, long long n, int ld, int delta,
-                              void* stream) {
-  return launch_rinv<false, true>(zr, zi, nullptr, y, fvr, fvi, wr, wi, src,
-                                  sgn, n, ld, delta, 0, stream);
+                              int form, const void* tables, void* stream) {
+  return launch_inverse<false, true>(zr, zi, nullptr, y, fvr, fvi, wr, wi,
+                                     src, sgn, n, ld, delta, 0, form, tables,
+                                     stream);
 }
 
 extern "C" int tile_irfft_epilogue_f32(const void* zr, const void* zi,
@@ -651,9 +964,11 @@ extern "C" int tile_irfft_epilogue_f32(const void* zr, const void* zi,
                                        const void* wr, const void* wi,
                                        const void* src, const void* sgn,
                                        long long n, int ld, int delta,
-                                       int act, void* stream) {
-  return launch_rinv<true, true>(zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn,
-                                 n, ld, delta, act, stream);
+                                       int act, int form, const void* tables,
+                                       void* stream) {
+  return launch_inverse<true, true>(zr, zi, bias, y, fvr, fvi, wr, wi, src,
+                                    sgn, n, ld, delta, act, form, tables,
+                                    stream);
 }
 
 extern "C" int tile_fft_f32(const void* x, void* tr, void* ti, const void* fr,
@@ -667,11 +982,12 @@ extern "C" int tile_fft_f32(const void* x, void* tr, void* ti, const void* fr,
 
 extern "C" int tile_ifft_f32(const void* zr, const void* zi, void* y,
                              const void* fvr, const void* fvi, const void* wr,
-                             const void* wi, long long n, int delta,
-                             void* stream) {
-  return launch_rinv<false, false>(zr, zi, nullptr, y, fvr, fvi, wr, wi,
-                                   nullptr, nullptr, n,
-                                   delta * (delta / 2 + 1), delta, 0, stream);
+                             const void* wi, long long n, int delta, int form,
+                             const void* tables, void* stream) {
+  return launch_inverse<false, false>(zr, zi, nullptr, y, fvr, fvi, wr, wi,
+                                      nullptr, nullptr, n,
+                                      delta * (delta / 2 + 1), delta, 0, form,
+                                      tables, stream);
 }
 
 extern "C" int tile_ifft_epilogue_f32(const void* zr, const void* zi,
@@ -679,10 +995,12 @@ extern "C" int tile_ifft_epilogue_f32(const void* zr, const void* zi,
                                       const void* fvr, const void* fvi,
                                       const void* wr, const void* wi,
                                       long long n, int delta, int act,
+                                      int form, const void* tables,
                                       void* stream) {
-  return launch_rinv<true, false>(zr, zi, bias, y, fvr, fvi, wr, wi, nullptr,
-                                  nullptr, n, delta * (delta / 2 + 1), delta,
-                                  act, stream);
+  return launch_inverse<true, false>(zr, zi, bias, y, fvr, fvi, wr, wi,
+                                     nullptr, nullptr, n,
+                                     delta * (delta / 2 + 1), delta, act,
+                                     form, tables, stream);
 }
 
 extern "C" const char* dft_tile_error_string(int code) {

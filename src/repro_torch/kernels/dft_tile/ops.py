@@ -26,8 +26,13 @@ The forward kernel has two forms, and ``choose_form`` picks one from the
 tile size and the tile tensor's alignment: ``specialised`` (delta 16, the
 tile of every plan path: rows and columns in registers, the DFT table
 passed by value to the launch, 16-byte row loads) and ``generic`` (any
-delta <= 32, or tiles whose data pointer is off 16 bytes).  The form only
+delta <= 32, or tiles whose data pointer is off 16 bytes).  The inverse
+kernel has the same two forms, and ``choose_inverse_form`` picks one from
+the tile size, the planes' and the output's alignment and the row stride:
+``specialised`` (delta 16: columns and then rows in registers, Finv and W
+by value, the compact scatter compiled in) and ``generic``.  The form only
 changes the kernel: a CUDA tensor never falls back to the plain version.
+Each wrapper counts its launches by form in ``<wrapper>.form_launches``.
 """
 from __future__ import annotations
 
@@ -53,26 +58,29 @@ _ARGTYPES = {
     # x, tr, ti, fr, fi, fhr, fhi, store, n, P, delta, form, tables, stream
     "tile_rfft_f32": [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3
     + [_P, _P],
-    # zr, zi, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, stream
-    "tile_irfft_f32": [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-    + [_P],
-    # zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act, stream
+    # zr, zi, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, form, tables,
+    # stream
+    "tile_irfft_f32": [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+    + [_P, _P],
+    # zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act, form,
+    # tables, stream
     "tile_irfft_epilogue_f32": [_P] * 10 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 3 + [_P],
+    + [ctypes.c_int] * 4 + [_P, _P],
     # x, tr, ti, fr, fi, fhr, fhi, n, delta, form, tables, stream
     "tile_fft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int, _P, _P],
-    # zr, zi, y, fvr, fvi, wr, wi, n, delta, stream
-    "tile_ifft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, _P],
-    # zr, zi, bias, y, fvr, fvi, wr, wi, n, delta, act, stream
+    # zr, zi, y, fvr, fvi, wr, wi, n, delta, form, tables, stream
+    "tile_ifft_f32": [_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+    + [_P, _P],
+    # zr, zi, bias, y, fvr, fvi, wr, wi, n, delta, act, form, tables, stream
     "tile_ifft_epilogue_f32": [_P] * 8 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 2 + [_P],
+    + [ctypes.c_int] * 3 + [_P, _P],
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class Form:
-    """One form of the forward tile DFT kernel."""
+    """One form of a tile DFT kernel, forward or inverse."""
     code: int                   # passed to the kernel (csrc: kForm*)
     name: str
 
@@ -94,6 +102,21 @@ def _form(delta: int, aligned: bool) -> Form:
     return SPECIALISED if delta == SPECIALISED_DELTA and aligned else GENERIC
 
 
+def choose_inverse_form(delta: int, ptrs, ld: int) -> Form:
+    """The inverse kernel's form for tiles of size ``delta``, planes and
+    output at the data pointers ``ptrs`` and planes of row stride ``ld``
+    floats: the specialised form copies the planes' rows in vectors (8
+    bytes compact, 16 rect) and writes the output in 16-byte stores, so it
+    needs delta 16, every pointer 16-byte aligned and an even ``ld``."""
+    return _inverse_form(delta, all(p % 16 == 0 for p in ptrs), ld % 2 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _inverse_form(delta: int, aligned: bool, even: bool) -> Form:
+    return (SPECIALISED if delta == SPECIALISED_DELTA and aligned and even
+            else GENERIC)
+
+
 @functools.lru_cache(maxsize=None)
 def forward_tables(delta: int) -> np.ndarray:
     """The host copy of the table the specialised form takes by value:
@@ -101,6 +124,19 @@ def forward_tables(delta: int) -> np.ndarray:
     1, delta) float32 -- the values of ``dft_mats``."""
     _, _, Fhr, Fhi, *_ = dft_mats(delta)
     return np.ascontiguousarray(np.stack([Fhr.numpy(), Fhi.numpy()]))
+
+
+@functools.lru_cache(maxsize=None)
+def inverse_tables(delta: int) -> np.ndarray:
+    """The host copy of the tables the specialised inverse takes by value,
+    flat float32: rows 0..delta//2 of Finv, real then imaginary (each
+    (delta//2 + 1, delta)), then rows 0..delta//2 of W, real then
+    imaginary (each (delta//2 + 1, delta//2 + 1)) -- the values of
+    ``dft_mats``."""
+    dh = delta // 2 + 1
+    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta)
+    return np.concatenate([m.numpy()[:dh].ravel()
+                           for m in (Fvr, Fvi, Wr, Wi)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,14 +223,10 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _ptrs(*tensors):
-    return [t.data_ptr() for t in tensors]
-
-
 def _launch(entry, device, *args):
     """Launch the kernel entry point ``entry`` on ``device``'s current
-    stream (tensors pass as their data pointers, ``_ptrs``); raise if the
-    launch failed."""
+    stream (tensors pass as their data pointers); raise if the launch
+    failed."""
     if device.index == torch.cuda.current_device():
         rc = getattr(_lib(), entry)(*args, _stream(device))
     else:
@@ -204,6 +236,12 @@ def _launch(entry, device, *args):
         raise RuntimeError(f"dft_tile kernel launch failed: "
                            f"{_lib().dft_tile_error_string(rc).decode()} "
                            f"({rc})")
+
+
+def _count(wrapper, form):
+    """One launch of ``wrapper``'s kernel in form ``form``."""
+    wrapper.launches += 1
+    wrapper.form_launches[form.name] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -242,9 +280,30 @@ def tile_rfft_cuda(x, *, delta: int = 16):
     form = choose_form(delta, ptr)
     _launch("tile_rfft_f32", device, ptr, Tr.data_ptr(), Ti.data_ptr(),
             *mats, store, n, P, delta, form.code, table)
-    tile_rfft_cuda.launches += 1
-    tile_rfft_cuda.form_launches[form.name] += 1
+    _count(tile_rfft_cuda, form)
     return Tr, Ti
+
+
+@functools.lru_cache(maxsize=None)
+def _inverse_consts(delta, device):
+    """The inverse launch's constant arguments, cached per device: the data
+    pointers of the generic form's tables Finv, W (the caches of
+    ``dft_mats`` and ``compact_layout`` keep them alive) and of the compact
+    layout's ``src``, ``sgn``, and the address of the specialised form's
+    host table."""
+    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, device, torch.float32)
+    _, src, sgn = compact_layout(delta, device)
+    return (tuple(t.data_ptr() for t in (Fvr, Fvi, Wr, Wi)),
+            (src.data_ptr(), sgn.data_ptr()),
+            inverse_tables(delta).ctypes.data)
+
+
+def _inverse_output(Zr, Zi, delta, ld):
+    """The output tiles (n, delta, delta) on the planes' device, the
+    planes' and the output's data pointers and the form they take."""
+    y = Zr.new_empty((Zr.shape[0], delta, delta))  # float32, less host time
+    ptrs = (Zr.data_ptr(), Zi.data_ptr(), y.data_ptr())
+    return y, ptrs, choose_inverse_form(delta, ptrs, ld)
 
 
 def tile_irfft_cuda(Zr, Zi, *, delta: int = 16):
@@ -256,18 +315,18 @@ def tile_irfft_cuda(Zr, Zi, *, delta: int = 16):
     _check_delta(name, delta)
     _check_planes(name, Zr, Zi, delta)
     _check_layout(name, (Zr, Zi))
-    if Zr.device.type == "cpu":
+    device = Zr.device
+    if device.type == "cpu":
         return tile_irfft_ref(Zr, Zi, delta)
-    _cuda_device(name, Zr.device)
+    _cuda_device(name, device)
     n, P = Zr.shape
-    y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
+    y, (zr, zi, out), form = _inverse_output(Zr, Zi, delta, P)
     if n == 0:
         return y
-    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
-    _, src, sgn = compact_layout(delta, Zr.device)
-    _launch("tile_irfft_f32", Zr.device,
-            *_ptrs(Zr, Zi, y, Fvr, Fvi, Wr, Wi, src, sgn), n, P, delta)
-    tile_irfft_cuda.launches += 1
+    mats, layout, table = _inverse_consts(delta, device)
+    _launch("tile_irfft_f32", device, zr, zi, out, *mats, *layout, n, P,
+            delta, form.code, table)
+    _count(tile_irfft_cuda, form)
     return y
 
 
@@ -285,20 +344,20 @@ def tile_irfft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
     _check_planes(name, Zr, Zi, delta)
     _check_bias(Zr, bias)
     _check_layout(name, (Zr, Zi, bias))
-    if Zr.device.type == "cpu":
+    device = Zr.device
+    if device.type == "cpu":
         return tile_irfft_epilogue_ref(Zr, Zi, bias, activation=activation,
                                        delta=delta)
-    _cuda_device(name, Zr.device)
+    _cuda_device(name, device)
     n, P = Zr.shape
-    y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
+    y, (zr, zi, out), form = _inverse_output(Zr, Zi, delta, P)
     if n == 0:
         return y
-    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
-    _, src, sgn = compact_layout(delta, Zr.device)
-    _launch("tile_irfft_epilogue_f32", Zr.device,
-            *_ptrs(Zr, Zi, bias, y, Fvr, Fvi, Wr, Wi, src, sgn), n, P, delta,
-            ACTIVATION_CODES[activation])
-    tile_irfft_epilogue_cuda.launches += 1
+    mats, layout, table = _inverse_consts(delta, device)
+    _launch("tile_irfft_epilogue_f32", device, zr, zi, bias.data_ptr(), out,
+            *mats, *layout, n, P, delta, ACTIVATION_CODES[activation],
+            form.code, table)
+    _count(tile_irfft_epilogue_cuda, form)
     return y
 
 
@@ -325,8 +384,7 @@ def tile_fft_cuda(x, *, delta: int = 16):
     form = choose_form(delta, ptr)
     _launch("tile_fft_f32", device, ptr, Tr.data_ptr(), Ti.data_ptr(), *mats,
             n, delta, form.code, table)
-    tile_fft_cuda.launches += 1
-    tile_fft_cuda.form_launches[form.name] += 1
+    _count(tile_fft_cuda, form)
     return Tr, Ti
 
 
@@ -338,17 +396,19 @@ def tile_ifft_cuda(Zr, Zi, *, delta: int = 16):
     _check_delta(name, delta)
     _check_rect_planes(name, Zr, Zi, delta)
     _check_layout(name, (Zr, Zi))
-    if Zr.device.type == "cpu":
+    device = Zr.device
+    if device.type == "cpu":
         return tile_ifft_ref(Zr, Zi, delta)
-    _cuda_device(name, Zr.device)
+    _cuda_device(name, device)
     n = Zr.shape[0]
-    y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
+    y, (zr, zi, out), form = _inverse_output(Zr, Zi, delta,
+                                             delta * (delta // 2 + 1))
     if n == 0:
         return y
-    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
-    _launch("tile_ifft_f32", Zr.device, *_ptrs(Zr, Zi, y, Fvr, Fvi, Wr, Wi),
-            n, delta)
-    tile_ifft_cuda.launches += 1
+    mats, _, table = _inverse_consts(delta, device)
+    _launch("tile_ifft_f32", device, zr, zi, out, *mats, n, delta, form.code,
+            table)
+    _count(tile_ifft_cuda, form)
     return y
 
 
@@ -364,28 +424,27 @@ def tile_ifft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
     _check_rect_planes(name, Zr, Zi, delta)
     _check_bias(Zr, bias)
     _check_layout(name, (Zr, Zi, bias))
-    if Zr.device.type == "cpu":
+    device = Zr.device
+    if device.type == "cpu":
         return tile_ifft_epilogue_ref(Zr, Zi, bias, activation=activation,
                                       delta=delta)
-    _cuda_device(name, Zr.device)
+    _cuda_device(name, device)
     n = Zr.shape[0]
-    y = torch.empty((n, delta, delta), dtype=torch.float32, device=Zr.device)
+    y, (zr, zi, out), form = _inverse_output(Zr, Zi, delta,
+                                             delta * (delta // 2 + 1))
     if n == 0:
         return y
-    *_, Fvr, Fvi, Wr, Wi = dft_mats(delta, Zr.device, torch.float32)
-    _launch("tile_ifft_epilogue_f32", Zr.device,
-            *_ptrs(Zr, Zi, bias, y, Fvr, Fvi, Wr, Wi), n, delta,
-            ACTIVATION_CODES[activation])
-    tile_ifft_epilogue_cuda.launches += 1
+    mats, _, table = _inverse_consts(delta, device)
+    _launch("tile_ifft_epilogue_f32", device, zr, zi, bias.data_ptr(), out,
+            *mats, n, delta, ACTIVATION_CODES[activation], form.code, table)
+    _count(tile_ifft_epilogue_cuda, form)
     return y
 
 
-tile_rfft_cuda.launches = 0
-# launches of the forward kernels by form (``choose_form``)
-tile_rfft_cuda.form_launches = {GENERIC.name: 0, SPECIALISED.name: 0}
-tile_fft_cuda.form_launches = {GENERIC.name: 0, SPECIALISED.name: 0}
-tile_irfft_cuda.launches = 0
-tile_irfft_epilogue_cuda.launches = 0
-tile_fft_cuda.launches = 0
-tile_ifft_cuda.launches = 0
-tile_ifft_epilogue_cuda.launches = 0
+# launches of each kernel, and by form (``choose_form``,
+# ``choose_inverse_form``)
+for _wrapper in (tile_rfft_cuda, tile_irfft_cuda, tile_irfft_epilogue_cuda,
+                 tile_fft_cuda, tile_ifft_cuda, tile_ifft_epilogue_cuda):
+    _wrapper.launches = 0
+    _wrapper.form_launches = {GENERIC.name: 0, SPECIALISED.name: 0}
+del _wrapper

@@ -13,9 +13,10 @@ variant of the kernel (each tile, each small-M row tile, cp.async and
 scalar loads), on operands offset from 16 bytes, and at a prepared slab's
 shape at P = 144; the forward tile DFTs (compact and
 rect, in both kernel forms, on aligned tiles and on a 4-byte-offset view)
-scaled atol 2e-5; the inverses and fused inverses 1e-4 absolute on
-unit-scale spectra; a whole conv, and its grads, 3e-4 against cuDNN with
-TF32 off.
+scaled atol 2e-5; the inverses and fused inverses (in both kernel forms,
+on aligned planes, on NaN-padded compact rows and on 4-byte-offset views)
+1e-4 absolute on unit-scale spectra; a whole conv, and its grads, 3e-4
+against cuDNN with TF32 off.
 """
 import itertools
 
@@ -41,7 +42,7 @@ from repro_torch.kernels.dft_tile import (  # noqa: E402
     tile_rfft_cuda, tile_rfft_ref)
 from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
 from repro_torch.kernels.dft_tile.ops import (  # noqa: E402
-    GENERIC, SPECIALISED, choose_form)
+    GENERIC, SPECIALISED, choose_form, choose_inverse_form)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +67,10 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
 
 
 def _rand(shape, seed):
@@ -249,10 +254,120 @@ def test_specialised_form_refuses_a_misaligned_view(cuda):
     store, _, _ = compact_layout(16, cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         dft_ops._launch("tile_rfft_f32", x.device,
-                        *dft_ops._ptrs(x, Tr, Ti, Fr, Fi, Fhr, Fhi, store),
+                        *_ptrs(x, Tr, Ti, Fr, Fi, Fhr, Fhi, store),
                         8, num_freq_real(16), 16,
                         SPECIALISED.code,
                         dft_ops.forward_tables(16).ctypes.data)
+
+
+# the inverse wrappers: (wrapper, plain version, compact, fused tail)
+INVERSES = (
+    (tile_irfft_cuda, tile_irfft_ref, True, False),
+    (tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, True, True),
+    (tile_ifft_cuda, tile_ifft_ref, False, False),
+    (tile_ifft_epilogue_cuda, tile_ifft_epilogue_ref, False, True),
+)
+INVERSE_IDS = ["irfft", "irfft_epilogue", "ifft", "ifft_epilogue"]
+
+
+def _inverse_planes(n, compact, device, seed, pad=0, offset=False):
+    """Two random planes of n tiles at delta 16: (n, 130 + pad) compact,
+    with NaN past point 130 (never to be read), or (n, 16, 9) rect; with
+    ``offset`` each lies one float past an allocation."""
+    shape = (n, 130 + pad) if compact else (n, 16, 9)
+    planes = []
+    for k in range(2):
+        t = _rand(shape, seed + k).to(device)
+        if offset:
+            t = torch.empty(t.numel() + 1, device=device)[1:].view(
+                shape).copy_(t)
+        if pad:
+            t[:, 130:] = float("nan")
+        planes.append(t)
+    return planes
+
+
+def _check_inverse(wrapper, ref, compact, tail, Zr, Zi, form, activation):
+    """One launch of an inverse wrapper, held to its plain version (on the
+    planes' first 130 points, compact) within 1e-4; the wrapper's per-form
+    count shows it launched ``form``."""
+    n = Zr.shape[0]
+    b = _rand((n,), 77).to(Zr.device)
+    args = (Zr, Zi, b) if tail else (Zr, Zi)
+    kw = dict(activation=activation) if tail else {}
+    before, forms = wrapper.launches, dict(wrapper.form_launches)
+    y = wrapper(*args, delta=16, **kw)
+    if compact:
+        args = (Zr[:, :130], Zi[:, :130]) + args[2:]
+    y0 = ref(*args, delta=16, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + (n > 0)
+    forms[form.name] += n > 0
+    assert wrapper.form_launches == forms
+    assert y.shape == (n, 16, 16)
+    if n:
+        assert bool(torch.isfinite(y).all())
+        assert (y - y0).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("wrapper,ref,compact,tail", INVERSES,
+                         ids=INVERSE_IDS)
+def test_specialised_inverse_at_delta_16(cuda, wrapper, ref, compact, tail):
+    """Every inverse wrapper takes the specialised form at delta 16 on
+    aligned planes (tile counts that end in a part block, and 0, which
+    launches nothing), under every activation with the tail."""
+    for n in FORWARD_TILE_COUNTS:
+        Zr, Zi = _inverse_planes(n, compact, cuda, 200 + n)
+        assert choose_inverse_form(16, (Zr.data_ptr(), Zi.data_ptr()),
+                                   130 if compact else 144) == SPECIALISED
+        for activation in (ACTIVATIONS if tail and n == 1001 else ["relu"]):
+            _check_inverse(wrapper, ref, compact, tail, Zr, Zi, SPECIALISED,
+                           activation)
+
+
+@pytest.mark.parametrize("wrapper,ref,tail", [
+    (tile_irfft_cuda, tile_irfft_ref, False),
+    (tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, True)],
+    ids=["irfft", "irfft_epilogue"])
+def test_specialised_inverse_reads_no_trailing_point(cuda, wrapper, ref,
+                                                     tail):
+    """Compact planes padded to P = 136 with NaN past point 130: the
+    specialised form reads rows of stride 136 and none of the NaNs."""
+    for n in (1, 7, 1001):
+        Zr, Zi = _inverse_planes(n, True, cuda, 300 + n, pad=6)
+        _check_inverse(wrapper, ref, True, tail, Zr, Zi, SPECIALISED,
+                       "relu")
+
+
+@pytest.mark.parametrize("wrapper,ref,compact,tail", INVERSES,
+                         ids=INVERSE_IDS)
+def test_inverse_on_offset_views(cuda, wrapper, ref, compact, tail):
+    """Planes one float past an allocation (a 4-byte offset) take the
+    generic form through choose_inverse_form, held to the plain version."""
+    for n in (1, 7, 1001):
+        Zr, Zi = _inverse_planes(n, compact, cuda, 400 + n, offset=True)
+        assert Zr.data_ptr() % 16 == 4
+        _check_inverse(wrapper, ref, compact, tail, Zr, Zi, GENERIC, "relu")
+
+
+def test_specialised_inverse_refuses_a_misaligned_view(cuda):
+    """Forced onto planes off 16 bytes, or onto an odd row stride, the
+    specialised inverse refuses to launch (no silent fallback): the
+    wrapper's launch raises."""
+    y = torch.empty((8, 16, 16), device=cuda)
+    mats, layout, table = dft_ops._inverse_consts(16, y.device)
+    for P, offset in ((130, True), (131, False)):
+        Zr, Zi = (torch.zeros(8 * P + 1, device=cuda)[int(offset):][
+            :8 * P].view(8, P) for _ in range(2))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            dft_ops._launch("tile_irfft_f32", y.device,
+                            *_ptrs(Zr, Zi, y), *mats, *layout, 8, P,
+                            16, SPECIALISED.code, table)
+    Zr, Zi = _inverse_planes(8, False, cuda, 5, offset=True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dft_ops._launch("tile_ifft_f32", y.device,
+                        *_ptrs(Zr, Zi, y), *mats, 8, 16,
+                        SPECIALISED.code, table)
 
 
 @pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])

@@ -1,7 +1,7 @@
 """The checks of chip_smoke.py that need no card, on the CPU: the training
 step through recorded branches (the float64 reference its grads are held
-to), the flip count, the forced generic form, and the launch counts that
-refuse a generic-form launch on a main path."""
+to), the flip count, the forced generic forms, and the launch counts that
+refuse a generic-form launch, forward or inverse, on a main path."""
 import collections
 import importlib.util
 import pathlib
@@ -94,11 +94,18 @@ def test_flip_counts():
 
 
 def test_forced_generic_form_restores_the_chooser():
+    """Both choosers, forward and inverse, give the generic form within
+    the block and are themselves again after it."""
     chooser = dft_ops.choose_form
+    inverse_chooser = dft_ops.choose_inverse_form
     assert chooser(16, 0) == dft_ops.SPECIALISED
+    assert inverse_chooser(16, (0, 0, 0), 130) == dft_ops.SPECIALISED
     with smoke.forced_generic_form():
         assert dft_ops.choose_form(16, 0) == dft_ops.GENERIC
+        assert dft_ops.choose_inverse_form(16, (0, 0, 0),
+                                           130) == dft_ops.GENERIC
     assert dft_ops.choose_form is chooser
+    assert dft_ops.choose_inverse_form is inverse_chooser
 
 
 def test_expect_counts_refuses_a_generic_launch():
@@ -111,3 +118,21 @@ def test_expect_counts_refuses_a_generic_launch():
     counts["tile_rfft"] = counts["tile_rfft generic"] = 1
     with pytest.raises(AssertionError, match="tile_rfft generic"):
         smoke.expect_counts("path", counts, {"tile_rfft": 1})
+
+
+@pytest.mark.parametrize("kernel", ["tile_irfft_epilogue", "tile_irfft",
+                                    "tile_ifft", "tile_ifft_epilogue"])
+def test_expect_counts_refuses_a_generic_inverse_launch(kernel):
+    """The inverse wrappers count by form too: a main path whose inverse
+    launched the generic form fails its launch check, and the counts
+    start from 0 for every form."""
+    smoke.zero_counts()
+    counts = smoke.read_counts()
+    assert counts[f"{kernel} generic"] == 0
+    assert smoke.FORMS[kernel].form_launches == {"generic": 0,
+                                                 "specialised": 0}
+    counts[kernel] = counts[f"{kernel} generic"] = 1
+    with pytest.raises(AssertionError, match=f"{kernel} generic"):
+        smoke.expect_counts("path", counts, {kernel: 1})
+    counts[f"{kernel} generic"] = 0
+    smoke.expect_counts("path", counts, {kernel: 1})
