@@ -49,11 +49,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   8. trainer  ``repro_torch.examples.train_cnn_fftconv`` at its defaults on
               ``fft-cuda`` (its own asserts), its exact launches, and its
               first losses against the same run on ``direct``
+  9. serve_trace  ``repro_torch.launch.serve --serve-trace`` on ``fft-cuda``:
+              the continuous-batching engine over the full-width trunk,
+              buckets (1, 2, 4, 8), one CUDA graph per bucket, a burst
+              replay of a 64-request ragged trace.  Launches are counted at
+              prepare, warm-up and capture and must be exactly theirs (the
+              trace replays graphs and launches nothing from the host);
+              graph replays equal the batches run; zero plan-cache misses
+              after warm-up.  The first and last requests' results and one
+              per bucket are held to the eager prepared forward of the same
+              bucket (``GRAPH_TOL``) and to cuDNN (``SLICE_TOL``); so are
+              two new inputs replayed through the batch-4 graph (with no
+              launch) and a replay after ``update_weights`` (a recapture).
+              Reported, not gated: per-bucket p50/p99/occupancy,
+              throughput, start-up split, the graphs' memory, a lone
+              batch-4 request's p50 and device busy time beside the eager
+              ``slice``/``profile`` numbers, and the ``pad-max`` and
+              ``replan`` engines on the same trace with the two ratios
+              that ``serve --serve-compare`` gates
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8) and read right after it; each path must launch its own
+(4, 6, 7, 8, 9) and read right after it; each path must launch its own
 kernels and none of the others, and every tile DFT, forward and inverse,
 only in its specialised form.
 
@@ -91,7 +109,7 @@ from repro_torch.kernels.dft_tile import (  # noqa: E402
     tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, tile_irfft_ref,
     tile_rfft_cuda, tile_rfft_ref)
 from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import batcher, serve  # noqa: E402
 from repro_torch.models.layers import conv_block, maxpool2x2  # noqa: E402
 
 IMAGE, BATCH, GEN, SEED = 224, 4, 10, 0
@@ -128,6 +146,11 @@ GRAD_TOL = 3e-4                         # max|g - g_f64| / max|g_f64|,
 FLIP_LIMIT = 100                        # ReLU/pool choices unlike float64's
 WITNESS_EPS = (0.0, 1e-7, 3e-7)         # input scalings, branch_witness
 LOSS_TOL = 1e-3                         # |l - l_direct| / |l_direct|
+GRAPH_TOL = 1e-5                        # graph replay vs the eager prepared
+#                                         forward, scaled by max|y|
+SERVE_MAX_BATCH, SERVE_REQUESTS = 8, 64
+SERVE_WINDOW_MS = 2.0                   # serve --batch-window-ms default
+LONE_REQUESTS = 20                      # timed lone batch-4 requests
 
 
 # wrappers whose kernel has forms (``dft_ops.choose_form``,
@@ -718,6 +741,7 @@ def profile_forward(res):
          idle_share_vs_p50=1 - busy / p50_us,
          kernels=[{"name": k[:90], "device_us": t, "calls": c}
                   for t, k, c in rows[:16]])
+    return busy
 
 
 def rect_forward(layers, G, biases, x, fused):
@@ -1052,6 +1076,180 @@ def trainer_phase():
     return counts
 
 
+def rel_err(y, y0):
+    """max|y - y0| / max|y0|."""
+    return ((y - y0).abs().max() / y0.abs().max()).item()
+
+
+def serve_checks(eng, res, rid, x, kernels, version=0):
+    """Request ``rid`` (input ``x``) against the eager prepared forward of
+    the bucket it ran in, the request's rows at the same offset of a
+    zero-padded batch, and against cuDNN at its own batch size."""
+    label, _, off = eng.placements[rid]
+    bucket, rows = int(label[1:]), x.shape[0]
+    y = eng.results[rid]
+    prepared = eng.nets[(bucket, None)].prepare(   # the graph's spectra
+        kernels, weights_version=version)
+    xpad = torch.zeros((bucket,) + tuple(x.shape[1:]), device=x.device)
+    xpad[off:off + rows] = x
+    direct = plan_network(res.make_layers(rows), backend="direct")
+    with torch.inference_mode():
+        y_eager = res.forward(prepared, xpad)[off:off + rows]
+        y_direct = res.forward(direct.prepare(kernels), x)
+    batcher._sync(y.device)
+    out = dict(rid=rid, bucket=label, rows=rows, offset=off,
+               rel_err_vs_eager=rel_err(y, y_eager),
+               rel_err_vs_cudnn=rel_err(y, y_direct))
+    if not (bool(torch.isfinite(y).all())
+            and out["rel_err_vs_eager"] <= GRAPH_TOL
+            and out["rel_err_vs_cudnn"] <= SLICE_TOL):
+        raise AssertionError(f"serve trace request {out}: not within "
+                             f"{GRAPH_TOL} of eager and {SLICE_TOL} of "
+                             f"cuDNN")
+    return out
+
+
+def serve_trace_phase(slice_p50_ms, profile_busy_us):
+    """``serve --serve-trace`` on the full-width trunk: the engine's
+    launches (prepare, warm-up and capture only), its graph replays and
+    plan-cache misses, its results against eager and cuDNN, new inputs
+    and new weights through the graphs, and the numbers of the trace,
+    beside the pad-max and replan engines on the same trace."""
+    n_layers = len(serve._vgg_scale(IMAGE))
+    zero_counts()
+    res = serve.main(["--serve-trace", "--conv-backend", "fft-cuda",
+                      "--image", str(IMAGE),
+                      "--max-batch", str(SERVE_MAX_BATCH),
+                      "--trace-requests", str(SERVE_REQUESTS),
+                      "--trace-rate", "0", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    eng, rep = res.engines["bucketed"], res.reports["bucketed"]
+    n_buckets = len(eng.policy.batch_buckets())
+    forwards = n_buckets * (batcher.WARMUP_PASSES + 1)
+    # per bucket: one prepare (a forward tile DFT a layer), the warm-up
+    # passes and the capture (a forward tile DFT, CGEMM and fused inverse a
+    # layer each); the trace itself only replays
+    at_capture = {"tile_rfft": n_layers * (n_buckets + forwards),
+                  "cgemm": n_layers * forwards,
+                  "tile_irfft_epilogue": n_layers * forwards}
+    expect_counts("serve trace", counts, at_capture)
+    n_batches = sum(b["n_batches"] for b in rep["buckets"].values())
+    replays = sum(map(sum, rep["graph_replays"].values()))
+    if (rep["executor"], replays, rep["n_requests"],
+            rep["plan_cache_misses_after_warmup"]) != (
+            "cuda-graph", n_batches, SERVE_REQUESTS, 0):
+        raise AssertionError(
+            f"serve trace: executor {rep['executor']}, {replays} replays "
+            f"for {n_batches} batches, {rep['n_requests']} requests, "
+            f"{rep['plan_cache_misses_after_warmup']} plan-cache misses "
+            f"after warm-up")
+
+    # the first and last requests, and the first of every bucket
+    rids = {0, SERVE_REQUESTS - 1}
+    for label in rep["buckets"]:
+        rids.add(min(r for r, p in eng.placements.items() if p[0] == label))
+    checked = [serve_checks(eng, res, rid,
+                            res.inputs[res.trace[rid].batch], res.kernels)
+               for rid in sorted(rids)]
+
+    # new inputs through the batch-4 graph: replays only, each its own
+    # eager output (a graph that missed the ctypes launches would replay
+    # what it saw at capture)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    shape = (4,) + tuple(res.inputs[res.trace[0].batch].shape[1:])
+    xa, xb = (torch.randn(shape, generator=gen, device="cuda")
+              for _ in range(2))
+    zero_counts()
+    new_rids = []
+    for x in (xa, xb):
+        new_rids.append(eng.submit(x))
+        eng.drain(force=True)
+    expect_counts("replays of new inputs", read_counts(), {})
+    new_inputs = [serve_checks(eng, res, rid, x, res.kernels)
+                  for rid, x in zip(new_rids, (xa, xb))]
+
+    # a lone batch-4 request: host p50 and device busy time
+    lats = []
+    for _ in range(LONE_REQUESTS):
+        t0 = time.perf_counter()
+        eng.submit(xa)
+        eng.drain(force=True)
+        lats.append(time.perf_counter() - t0)
+    rows, busy, wall_us = device_profile(
+        lambda: (eng.submit(xa), eng.drain(force=True)))
+    lone_p50_ms = serve._percentile(lats, 50) * 1e3
+
+    # new weights: re-prepare and recapture every bucket
+    kernels2 = {n: k + 0.01 for n, k in res.kernels.items()}
+    zero_counts()
+    t0 = time.perf_counter()
+    eng.update_weights(kernels2, weights_version=1)
+    update_s = time.perf_counter() - t0
+    update_counts = read_counts()
+    expect_counts("update_weights", update_counts, at_capture)
+    rid = eng.submit(xa)
+    eng.drain(force=True)
+    updated = serve_checks(eng, res, rid, xa, kernels2, version=1)
+    launches = {k: counts[k] + update_counts[k] for k in KERNELS}
+
+    # the baselines on the same trace and inputs
+    reports = {"bucketed": rep}
+    for mode in ("pad-max", "replan"):
+        base = batcher.ServeEngine(
+            res.make_layers, res.kernels, policy=eng.policy,
+            forward=res.forward, window_s=SERVE_WINDOW_MS * 1e-3, mode=mode,
+            device="cuda", backend="fft-cuda")
+        reports[mode] = batcher.run_trace(
+            base, res.trace, make_input=lambda b, _: res.inputs[b],
+            realtime=False)
+        del base
+    tput_x, p99_x, fails = serve.compare_modes(reports)
+    del eng, res
+    torch.cuda.empty_cache()
+
+    def summary(r):
+        return dict(throughput_rows_s=r["throughput_rows_s"],
+                    p50_ms=r["p50_us"] / 1e3, p99_ms=r["p99_us"] / 1e3,
+                    occupancy=r["occupancy"], wall_s=r["wall_s"],
+                    startup_s=r["startup_s"],
+                    graph_pool_bytes=r["graph_pool_bytes"])
+    emit("serve_trace", backend="fft-cuda", image=IMAGE,
+         max_batch=SERVE_MAX_BATCH, requests=SERVE_REQUESTS,
+         window_ms=SERVE_WINDOW_MS, launches=counts,
+         launches_at_capture=at_capture, batches=n_batches,
+         graph_replays=rep["graph_replays"],
+         plan_cache_misses_after_warmup=rep[
+             "plan_cache_misses_after_warmup"],
+         buckets={label: dict(p50_ms=b["p50_us"] / 1e3,
+                              p99_ms=b["p99_us"] / 1e3,
+                              service_p50_ms=b["service_p50_us"] / 1e3,
+                              occupancy=b["occupancy"],
+                              n_requests=b["n_requests"],
+                              n_batches=b["n_batches"])
+                  for label, b in rep["buckets"].items()},
+         **summary(rep), queue_depth_max=rep["queue_depth_max"],
+         startup_plan_prepare_s=rep["startup_plan_prepare_s"],
+         startup_capture_s=rep["startup_capture_s"],
+         graph_pool_bytes_by_bucket=rep["graph_pool_bytes_by_bucket"],
+         tol=GRAPH_TOL, tol_cudnn=SLICE_TOL, checked=checked,
+         new_inputs=new_inputs, update_weights=dict(
+             seconds=update_s, launches=update_counts, **updated),
+         lone_b4=dict(p50_ms=lone_p50_ms, max_ms=max(lats) * 1e3,
+                      device_busy_us=busy, profiled_wall_us=wall_us,
+                      idle_share_vs_p50=1 - busy / (lone_p50_ms * 1e3),
+                      kernel_launches=sum(c for _, _, c in rows),
+                      eager_slice_p50_ms=slice_p50_ms,
+                      eager_profile_busy_us=profile_busy_us,
+                      kernels=[{"name": k[:90], "device_us": t, "calls": c}
+                               for t, k, c in rows[:8]]),
+         pad_max=summary(reports["pad-max"]),
+         replan=summary(reports["replan"]),
+         tput_ratio_vs_pad_max=tput_x, p99_ratio_replan_over_bucketed=p99_x,
+         serve_compare_gates_failed=fails)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -1121,16 +1319,18 @@ def main():
          p99_ms=serve._percentile(res.latencies_s, 99) * 1e3,
          latencies_ms=[t * 1e3 for t in res.latencies_s])
 
-    profile_forward(res)
+    profile_busy_us = profile_forward(res)
     rect_counts = rect_phase(res, layers, y_ref, slice_p50_ms)
     train_counts = train_phase()
     trainer_counts = trainer_phase()
+    trace_counts = serve_trace_phase(slice_p50_ms, profile_busy_us)
     device_times(fwd_rows + rfwd_rows + inv_rows + binv_rows + rinv_rows
                  + rinv_ep_rows)
 
-    # launches: the four main paths together (slice, rect, train, trainer)
+    # launches: the five main paths together (slice, rect, train, trainer,
+    # serve_trace)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
-                + trainer_counts[k] for k in KERNELS}
+                + trainer_counts[k] + trace_counts[k] for k in KERNELS}
     main_cg = [r for r in cg_rows if r["dtype"] == "float32"
                and r["three_m"] and r["spectrum"] == "real"]
     main_inv = inv_rows[:n_layers]

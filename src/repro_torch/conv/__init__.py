@@ -17,7 +17,9 @@ from repro_torch.conv.plan import (
 )
 from repro_torch.conv.stages import stage_trace
 from repro_torch.conv.netplan import (
-    NetworkConv, NetworkPlan, PreparedNetwork, plan_network,
+    NetworkConv, NetworkPlan, PreparedNetwork,
+    BucketedNetworkPlan, plan_network,
+    plan_network_buckets, prepare_network_buckets, bucket_report,
 )
 from repro_torch.conv import backends as _backends
 
@@ -25,7 +27,9 @@ _backends.register_builtin()
 
 __all__ = [
     "ConvPlan", "PreparedConv", "plan_conv", "conv2d", "Epilogue",
-    "NetworkConv", "NetworkPlan", "PreparedNetwork", "plan_network",
+    "NetworkConv", "NetworkPlan", "PreparedNetwork",
+    "BucketedNetworkPlan", "plan_network",
+    "plan_network_buckets", "prepare_network_buckets", "bucket_report",
     "plan_cache_info", "clear_plan_cache", "plan_cache_capacity",
     "prepared_cache_info", "clear_prepared_cache",
     "stage_trace",

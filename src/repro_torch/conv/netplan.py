@@ -18,14 +18,23 @@ a model in ONE pass against the shared plan cache:
 ``NetworkPlan.prepare`` runs each layer's kernel transform exactly once
 per ``weights_version`` (repeat calls under the same version hit the
 prepared cache; a new version after a weight update re-transforms
-everything in one sweep).  Batch buckets (``buckets=``) come with the
-continuous-batching engine and are not ported yet.
+everything in one sweep).  ``plan_network(make_layers, buckets=batches)``
+plans one network per padded batch bucket (a ``BucketedNetworkPlan``
+view): the startup sweep of the continuous-batching serve engine
+(``repro_torch.launch.batcher``).  The older ``prepare_all`` /
+``plan_network_buckets`` / ``prepare_network_buckets`` / ``bucket_report``
+spellings remain as DeprecationWarning shims.
+
+Not ported yet (they raise ``NotImplementedError``): ``NetworkPlan.report``
+(it needs the plan-lint analyzer) and ``BucketedNetworkPlan.export`` (it
+needs the plan artifacts).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Mapping, Sequence
+import warnings
+from typing import Any, Callable, Mapping, Optional, Sequence, Union
 
 from repro_torch.conv.epilogue import Epilogue
 from repro_torch.conv.plan import ConvPlan, PreparedConv, plan_conv
@@ -127,6 +136,22 @@ class NetworkPlan:
         return PreparedNetwork(layers=layers,
                                weights_version=weights_version)
 
+    def prepare_all(self, params: Mapping[str, Any], *,
+                    weights_version=None) -> PreparedNetwork:
+        """Deprecated spelling of ``NetworkPlan.prepare``."""
+        warnings.warn(
+            "NetworkPlan.prepare_all is deprecated; use "
+            "NetworkPlan.prepare(params, weights_version=...)",
+            DeprecationWarning, stacklevel=2)
+        return self.prepare(params, weights_version=weights_version)
+
+    def report(self) -> dict:
+        """Stage-op and collective counts of one forward pass: not ported
+        yet (ROADMAP Queue 1 item 6, the plan-lint analyzer)."""
+        raise NotImplementedError(
+            "NetworkPlan.report is not yet ported to repro_torch: it needs "
+            "the plan-lint analyzer (ROADMAP Queue 1 item 6)")
+
     def describe(self) -> str:
         total = sum(p.flops() for p in self.plans.values())
         distinct = len({id(p) for p in self.plans.values()})
@@ -140,7 +165,61 @@ class NetworkPlan:
         return "\n".join(lines)
 
 
-def plan_network(layers: Sequence[NetworkConv], *,
+@dataclasses.dataclass(frozen=True, eq=False)
+class BucketedNetworkPlan:
+    """One ``NetworkPlan`` per padded batch-size bucket: the serve
+    engine's startup sweep as a first-class view.  Mapping-like over
+    ``bucket -> NetworkPlan``; ``prepare`` sweeps every bucket under ONE
+    ``weights_version``."""
+    nets: "collections.OrderedDict[int, NetworkPlan]"
+
+    def __getitem__(self, bucket: int) -> NetworkPlan:
+        return self.nets[bucket]
+
+    def __iter__(self):
+        return iter(self.nets)
+
+    def __len__(self):
+        return len(self.nets)
+
+    def items(self):
+        return self.nets.items()
+
+    def keys(self):
+        return self.nets.keys()
+
+    def values(self):
+        return self.nets.values()
+
+    def prepare(self, params: Mapping[str, Any], *,
+                weights_version=None) -> "collections.OrderedDict":
+        """``NetworkPlan.prepare`` for every bucket under ONE
+        ``weights_version``: each distinct (plan, kernel) pair
+        transforms once (buckets sharing a geometry hit the prepared
+        cache), and a weight update is one sweep re-preparing all
+        buckets under the next version."""
+        return collections.OrderedDict(
+            (b, net.prepare(params, weights_version=weights_version))
+            for b, net in self.nets.items())
+
+    def report(self) -> dict:
+        """Cross-bucket dedupe and cost summary: how many *distinct*
+        frozen plans the bucket set resolves to (the shared-cache dedupe
+        the serve engine relies on), plus per-bucket layer counts and
+        FLOPs/pass."""
+        return _bucket_report(self.nets)
+
+    def export(self, path: str,
+               params: Optional[Mapping[str, Any]] = None, *,
+               weights_version=None) -> str:
+        """AOT plan artifacts: not ported yet (ROADMAP Queue 1 item 7)."""
+        raise NotImplementedError(
+            "BucketedNetworkPlan.export is not yet ported to repro_torch: "
+            "it needs the plan artifacts (ROADMAP Queue 1 item 7)")
+
+
+def plan_network(layers: Union[Sequence[NetworkConv], Callable], *,
+                 buckets: Optional[Sequence[int]] = None,
                  backend: str = "auto", schedule: str = "auto", mesh=None,
                  delta: int = 16, three_m: bool = True, compute_dtype=None,
                  spectrum: str = "auto", overlap: str = "off"):
@@ -154,14 +233,33 @@ def plan_network(layers: Sequence[NetworkConv], *,
     ``plan_conv``, which rejects a mesh and a slab overlap until they are
     ported (``overlap="auto"`` resolves to ``"off"``) and ``fft-cuda``
     beyond its kernels' tile limit.
+
+    With ``buckets=batches``, ``layers`` must instead be a callable
+    ``make_layers(batch)`` returning the ``NetworkConv`` sequence for one
+    padded batch size; the result is a ``BucketedNetworkPlan`` (one
+    ``NetworkPlan`` per bucket, shared-cache dedupe across buckets): the
+    startup sweep of the continuous-batching serve engine.
     """
-    if callable(layers):
-        raise TypeError(
-            "plan_network got a callable layer factory: batch buckets are "
-            "not yet ported to repro_torch; pass the layer sequence")
     shared = dict(backend=backend, schedule=schedule, mesh=mesh, delta=delta,
                   three_m=three_m, compute_dtype=compute_dtype,
                   spectrum=spectrum, overlap=overlap)
+    if buckets is not None:
+        if not callable(layers):
+            raise TypeError(
+                "plan_network(..., buckets=...) needs a make_layers(batch) "
+                "callable, not a layer sequence")
+        dupes = [b for b, c in collections.Counter(buckets).items()
+                 if c > 1]
+        if dupes:
+            raise ValueError(f"duplicate bucket batch sizes: {dupes}")
+        nets = collections.OrderedDict(
+            (int(b), plan_network(layers(int(b)), **shared))
+            for b in buckets)
+        return BucketedNetworkPlan(nets=nets)
+    if callable(layers):
+        raise TypeError(
+            "plan_network got a callable layer factory; pass buckets= "
+            "to plan per batch bucket, or the layer sequence itself")
     names = [l.name for l in layers]
     dupes = [n for n, c in collections.Counter(names).items() if c > 1]
     if dupes:
@@ -170,3 +268,60 @@ def plan_network(layers: Sequence[NetworkConv], *,
         (l.name, plan_conv(l.x_shape, l.k_shape, **l.plan_kwargs(shared)))
         for l in layers)
     return NetworkPlan(plans=plans)
+
+
+def _bucket_report(nets: Mapping[Any, NetworkPlan]) -> dict:
+    """Cross-bucket dedupe/cost summary over any label -> NetworkPlan
+    mapping (shared by ``BucketedNetworkPlan.report`` and the serve
+    engine's label-keyed view)."""
+    distinct = {id(p) for net in nets.values()
+                for p in net.plans.values()}
+    per_bucket = {
+        b: {"n_layers": len(net),
+            "flops_per_pass": sum(p.flops() for p in net.plans.values())}
+        for b, net in nets.items()}
+    total_layers = sum(len(net) for net in nets.values())
+    return {
+        "n_buckets": len(nets),
+        "n_layer_plans": total_layers,
+        "n_distinct_plans": len(distinct),
+        "dedupe_ratio": (len(distinct) / total_layers if total_layers
+                         else 1.0),
+        "buckets": per_bucket,
+    }
+
+
+# --------------------------------------------------------------------------
+# Deprecated bucket-helper shims (pre-BucketedNetworkPlan spellings)
+# --------------------------------------------------------------------------
+
+def plan_network_buckets(make_layers, batches: Sequence[int],
+                         **plan_kwargs) -> BucketedNetworkPlan:
+    """Deprecated: use ``plan_network(make_layers, buckets=batches)``."""
+    warnings.warn(
+        "plan_network_buckets is deprecated; use "
+        "plan_network(make_layers, buckets=batches)",
+        DeprecationWarning, stacklevel=2)
+    return plan_network(make_layers, buckets=batches, **plan_kwargs)
+
+
+def prepare_network_buckets(nets: Mapping[int, NetworkPlan],
+                            params: Mapping[str, Any], *,
+                            weights_version=None
+                            ) -> "collections.OrderedDict":
+    """Deprecated: use ``BucketedNetworkPlan.prepare``."""
+    warnings.warn(
+        "prepare_network_buckets is deprecated; use "
+        "BucketedNetworkPlan.prepare(params, weights_version=...)",
+        DeprecationWarning, stacklevel=2)
+    return collections.OrderedDict(
+        (b, net.prepare(params, weights_version=weights_version))
+        for b, net in nets.items())
+
+
+def bucket_report(nets: Mapping[Any, NetworkPlan]) -> dict:
+    """Deprecated: use ``BucketedNetworkPlan.report``."""
+    warnings.warn(
+        "bucket_report is deprecated; use BucketedNetworkPlan.report()",
+        DeprecationWarning, stacklevel=2)
+    return _bucket_report(nets)

@@ -8,6 +8,14 @@ and prepared kernels, on the GPU unless ``--device cpu`` is given.
     # on the host, the kernels' plain PyTorch versions at a small size:
     PYTHONPATH=src python -m repro_torch.launch.serve --convnet vgg \
         --conv-backend fft-cuda --smoke --batch 1 --gen 2 --device cpu
+
+    # continuous batching: the shape-bucketed dynamic batcher over
+    # per-bucket prepared plans, one CUDA graph per bucket, on a synthetic
+    # ragged trace (repro_torch.launch.batcher; --serve-compare A/Bs the
+    # pad-to-max and re-plan-per-shape baselines and fails unless the
+    # bucketed engine wins):
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \
+        --conv-backend fft-cuda --max-batch 8 --serve-compare
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.batcher import _percentile, _sync
 
 
 # Table-I VGG entries chain into a sequential trunk with a 2x2 max-pool
@@ -52,20 +61,6 @@ def _vgg_forward(biases):
     return forward
 
 
-def _percentile(values, q: float) -> float:
-    """p-th percentile (nearest-rank on the sorted sample)."""
-    if not values:
-        return float("nan")
-    s = sorted(values)
-    idx = min(len(s) - 1, max(0, int(round(q / 100.0 * (len(s) - 1)))))
-    return s[idx]
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class ServeResult:
     """What one ``serve_convnet`` run served and measured."""
@@ -88,15 +83,20 @@ def serve_convnet(args) -> ServeResult:
     weight update is one invalidation sweep (new ``weights_version``).
     Weights and the request batch are drawn from ``--seed`` with numpy, in
     the same order as ``repro.launch.serve``, so both packages serve the
-    same numbers.
+    same numbers.  ``--serve-trace`` switches to the continuous-batching
+    engine (``serve_trace``).
     """
     from repro_torch.configs.paper_convs import network_convs
     from repro_torch.conv import plan_network, prepared_cache_info
 
+    if args.serve_trace:
+        return serve_trace(args)
+
     device = resolve_device(args.device)
     image = args.image if args.image else (64 if args.smoke else 224)
     layers = network_convs(_vgg_scale(image), args.batch)
-    net = plan_network(layers, backend=args.conv_backend)
+    net = plan_network(layers, backend=args.conv_backend,
+                       overlap=args.overlap)
     print(net.describe())
 
     rng = np.random.default_rng(args.seed)
@@ -156,6 +156,192 @@ def serve_convnet(args) -> ServeResult:
                        latencies_s=lats)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TraceResult:
+    """What one ``serve_trace`` run served and measured."""
+    reports: dict                # mode -> ServeEngine.report()
+    engines: dict                # mode -> ServeEngine (graphs, results)
+    kernels: dict                # layer name -> OIHW kernel (version 0)
+    biases: dict                 # layer name -> (C',) bias
+    inputs: dict                 # batch size -> the request tensor
+    trace: tuple                 # the TraceRequests replayed
+    make_layers: Any             # batch -> NetworkConv sequence
+    forward: Any                 # forward(prepared, x), the engines'
+
+
+def compare_modes(reports) -> tuple:
+    """The ``--serve-compare`` gates over the three modes' reports, as
+    ``repro.launch.serve`` states them: bucketed throughput at least 1.05x
+    pad-max's, bucketed p99 at most half of replan's, zero plan-cache
+    misses after warm-up.  Returns (throughput ratio bucketed / pad-max,
+    p99 ratio replan / bucketed, the failed gates)."""
+    b, pm, rp = (reports[m] for m in ("bucketed", "pad-max", "replan"))
+    fails = []
+    if not b["throughput_rows_s"] >= 1.05 * pm["throughput_rows_s"]:
+        fails.append(
+            f"bucketed throughput {b['throughput_rows_s']:.1f} rows/s "
+            f"does not beat pad-max {pm['throughput_rows_s']:.1f} "
+            "by >= 1.05x")
+    if not b["p99_us"] <= rp["p99_us"] / 2:
+        fails.append(
+            f"bucketed p99 {b['p99_us']/1e3:.2f}ms not <= half of "
+            f"replan p99 {rp['p99_us']/1e3:.2f}ms")
+    if b["plan_cache_misses_after_warmup"] != 0:
+        fails.append(
+            f"bucketed engine planned on the hot path: "
+            f"{b['plan_cache_misses_after_warmup']} plan-cache misses "
+            "after warmup")
+    tput_x = b["throughput_rows_s"] / max(pm["throughput_rows_s"], 1e-9)
+    p99_x = rp["p99_us"] / max(b["p99_us"], 1e-9)
+    return tput_x, p99_x, fails
+
+
+def serve_trace(args) -> TraceResult:
+    """Continuous batching on a synthetic ragged Poisson trace.
+
+    Buckets ragged request batches into padded power-of-two shapes, plans
+    and prepares one network per bucket at startup and captures one CUDA
+    graph per bucket (CPU: runs the eager forward), then drains the queue
+    through them: zero re-planning and no kernel launched from the host on
+    the hot path.  ``--serve-compare`` also replays the SAME trace through
+    the two degenerate strategies (pad everything to ``--max-batch``;
+    re-plan and recapture per exact shape) and fails unless the bucketed
+    engine beats both.  Weights and inputs are drawn from ``--seed`` in
+    ``repro.launch.serve``'s order: kernels of the probe layers, biases,
+    then one input per batch size in the order the trace first asks for
+    it, all before the first engine starts.  Every mode keeps each
+    request's result (``engine.results``), so every mode pays the same
+    copies out.
+    """
+    from repro_torch.configs.paper_convs import network_convs
+    from repro_torch.launch.batcher import (
+        BucketPolicy, ServeEngine, run_trace, synthetic_trace)
+
+    device = resolve_device(args.device)
+    image = args.image if args.image else (64 if args.smoke else 224)
+    scale = _vgg_scale(image)
+
+    def make_layers(batch):
+        return network_convs(scale, batch)
+
+    rng = np.random.default_rng(args.seed)
+
+    def init(shape, s=0.05):
+        return torch.as_tensor(s * rng.standard_normal(shape),
+                               dtype=torch.float32).to(device)
+
+    probe = make_layers(1)
+    kernels = {l.name: init(l.k_shape) for l in probe}
+    biases = {l.name: init((l.k_shape[0],)) for l in probe}
+    forward = _vgg_forward(biases)
+
+    policy = BucketPolicy(max_batch=args.max_batch)
+    trace = synthetic_trace(n_requests=args.trace_requests,
+                            max_batch=args.max_batch,
+                            rate_rps=args.trace_rate or 1.0,
+                            seed=args.seed)
+    inputs = {}                     # one tensor per batch size, reused
+
+    def make_input(batch, image_size):
+        if batch not in inputs:
+            inputs[batch] = init(
+                (batch,) + probe[0].x_shape[1:], 1.0)
+        return inputs[batch]
+
+    # drawn before any engine runs (set-up, the same draws in the same
+    # order), so that no mode's timed replay pays for making them
+    for tr in trace:
+        make_input(tr.batch, tr.image)
+
+    modes = ("bucketed", "pad-max", "replan") if args.serve_compare \
+        else ("bucketed",)
+    reports, engines = {}, {}
+    for mode in modes:
+        eng = ServeEngine(
+            make_layers, kernels, policy=policy, forward=forward,
+            replicas=args.replicas,
+            window_s=args.batch_window_ms * 1e-3, mode=mode,
+            # the A/B compares real completion latencies, so
+            # --serve-compare forces synchronized per-batch timing
+            timing="async" if (args.timing == "async"
+                               and not args.serve_compare) else "per-batch",
+            device=device, backend=args.conv_backend, overlap=args.overlap)
+        rep = run_trace(eng, trace, make_input=make_input,
+                        realtime=args.trace_rate > 0)
+        reports[mode] = rep
+        engines[mode] = eng
+        pool = rep["graph_pool_bytes"]
+        print(f"serve-trace mode={mode} [{eng.plan_source}, "
+              f"{rep['executor']} on {device}]: "
+              f"startup={rep['startup_s']:.2f}s (plan+prepare "
+              f"{rep['startup_plan_prepare_s']:.2f}s, capture "
+              f"{rep['startup_capture_s']:.2f}s) "
+              f"wall={rep['wall_s']:.3f}s "
+              f"tput={rep['throughput_rows_s']:.1f} rows/s "
+              f"p50={rep['p50_us']/1e3:.2f}ms p99={rep['p99_us']/1e3:.2f}ms "
+              f"occupancy={rep['occupancy']:.2f} "
+              f"queue_max={rep['queue_depth_max']} "
+              f"plan_misses_after_warmup="
+              f"{rep['plan_cache_misses_after_warmup']} "
+              f"graph_replays={sum(map(sum, rep['graph_replays'].values()))}"
+              f" graph_pool="
+              f"{'n/a' if pool is None else f'{pool / 2**20:.1f}MiB'}")
+        for label, b in sorted(rep["buckets"].items()):
+            print(f"    {label}: n={b['n_requests']} "
+                  f"batches={b['n_batches']} "
+                  f"p50={b['p50_us']/1e3:.2f}ms "
+                  f"p99={b['p99_us']/1e3:.2f}ms occ={b['occupancy']:.2f}")
+        if args.replicas > 1:
+            print(f"    replica batches: {rep['replica_batches']}")
+    bucketed = engines["bucketed"]
+    br = bucketed.bucket_report()
+    print(f"buckets: {policy.batch_buckets()} x image={image} — "
+          f"{br['n_layer_plans']} layer plans, "
+          f"{br['n_distinct_plans']} distinct (shared-cache dedupe)")
+
+    if args.coldstart_out:
+        import json
+        rep = reports["bucketed"]
+        payload = {
+            "coldstart_s": bucketed.startup_s,
+            "source": bucketed.plan_source,
+            "plan_cache_misses_after_warmup":
+                rep["plan_cache_misses_after_warmup"],
+            "fingerprints_verified": None,
+            "n_buckets": len(policy.batch_buckets()),
+            "image": image,
+        }
+        with open(args.coldstart_out, "w") as fh:
+            json.dump(payload, fh, indent=1, sort_keys=True)
+        print(f"wrote cold-start report to {args.coldstart_out}")
+
+    if args.bench_out:
+        import json
+        rows = bucketed.bench_rows()
+        with open(args.bench_out, "w") as fh:
+            json.dump(rows, fh, indent=1, sort_keys=True)
+        print(f"wrote {len(rows)} serve/* bench rows to {args.bench_out}")
+
+    if args.serve_compare:
+        tput_x, p99_x, fails = compare_modes(reports)
+        print(f"serve-compare: bucketed tput {tput_x:.2f}x pad-max, p99 "
+              f"{p99_x:.2f}x better than replan")
+        if fails:
+            raise SystemExit("serve-compare FAILED:\n  " +
+                             "\n  ".join(fails))
+        print("serve-compare OK: bucketed beats pad-max on throughput "
+              "and replan on p99, zero plan-cache misses after warmup")
+    return TraceResult(reports=reports, engines=engines, kernels=kernels,
+                       biases=biases, inputs=inputs, trace=trace,
+                       make_layers=make_layers, forward=forward)
+
+
+def _not_ported(flag: str, what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{flag} is not yet ported to repro_torch: it needs {what} "
+        f"(ROADMAP Queue 1 item {item})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--convnet", choices=["vgg"], default="vgg",
@@ -165,11 +351,58 @@ def main(argv=None):
     # CUDA kernels on the hot path.
     ap.add_argument("--conv-backend", default="auto",
                     choices=["auto", "direct", "fft-torch", "fft-cuda"])
+    ap.add_argument("--serve-trace", action="store_true",
+                    help="continuous batching: run the shape-bucketed "
+                         "dynamic batcher (repro_torch.launch.batcher, one "
+                         "CUDA graph per bucket) on a synthetic ragged "
+                         "Poisson trace")
+    ap.add_argument("--serve-compare", action="store_true",
+                    help="with --serve-trace: replay the same trace "
+                         "through the pad-to-max and re-plan-per-shape "
+                         "baselines and FAIL unless the bucketed engine "
+                         "beats both (throughput / p99) with zero "
+                         "plan-cache misses after warmup")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="largest batch bucket (powers of two up to "
+                         "this; requests above it are rejected)")
+    ap.add_argument("--batch-window-ms", type=float, default=2.0,
+                    help="batching window: a queued request is flushed "
+                         "after waiting this long even if its bucket "
+                         "is not full")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replicas of the prepared network and its graphs "
+                         "on the device, round-robin dispatch")
+    ap.add_argument("--trace-requests", type=int, default=0,
+                    help="synthetic trace length (default 64, smoke 24)")
+    ap.add_argument("--trace-rate", type=float, default=0.0,
+                    help="Poisson arrival rate in requests/s; 0 replays "
+                         "the trace instantaneously (deterministic)")
     ap.add_argument("--timing", choices=["async", "per-request"],
-                    default="async",
+                    default=None,
                     help="async: throughput mode, one final sync (per-"
                          "request latency NOT derivable); per-request: "
-                         "synchronize every batch and report p50/p99")
+                         "synchronize every batch and report p50/p99. "
+                         "Defaults: async for the fixed-shape loop, "
+                         "per-request for --serve-trace")
+    ap.add_argument("--bench-out", default="",
+                    help="with --serve-trace: write the serve/* bench "
+                         "rows (BENCH_conv.json schema) to this path")
+    ap.add_argument("--coldstart-out", default="",
+                    help="with --serve-trace: write a cold-start JSON "
+                         "report (coldstart_s, source, plan-cache misses "
+                         "after warmup)")
+    ap.add_argument("--export-plans", default="",
+                    help="AOT plan artifacts: not ported yet")
+    ap.add_argument("--load-plans", default="",
+                    help="AOT plan artifacts: not ported yet")
+    ap.add_argument("--overlap", default="off",
+                    help="conv sub-slab comm/compute overlap: off | auto "
+                         "(a local plan has nothing to overlap; slab:<k> "
+                         "is not ported yet)")
+    ap.add_argument("--tune", action="store_true",
+                    help="the measured autotuner: not ported yet")
+    ap.add_argument("--analyze", action="store_true",
+                    help="plan-lint: not ported yet")
     ap.add_argument("--image", type=int, default=0,
                     help="input size (default 224, smoke 64)")
     ap.add_argument("--smoke", action="store_true")
@@ -181,6 +414,18 @@ def main(argv=None):
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
+    if args.tune:
+        raise _not_ported("--tune", "the measured autotuner", 4)
+    if args.analyze:
+        raise _not_ported("--analyze", "the plan-lint analyzer", 6)
+    for flag, value in (("--export-plans", args.export_plans),
+                        ("--load-plans", args.load_plans)):
+        if value:
+            raise _not_ported(flag, "the plan artifacts", 7)
+    if not args.trace_requests:
+        args.trace_requests = 24 if args.smoke else 64
+    if args.timing is None:
+        args.timing = "per-request" if args.serve_trace else "async"
     return serve_convnet(args)
 
 

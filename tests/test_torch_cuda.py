@@ -16,7 +16,10 @@ rect, in both kernel forms, on aligned tiles and on a 4-byte-offset view)
 scaled atol 2e-5; the inverses and fused inverses (in both kernel forms,
 on aligned planes, on NaN-padded compact rows and on 4-byte-offset views)
 1e-4 absolute on unit-scale spectra; a whole conv, and its grads, 3e-4
-against cuDNN with TF32 off.
+against cuDNN with TF32 off.  The serve engine's CUDA graphs (one per
+replica and bucket) against the eager prepared forward of the same
+kernels and spectra: 1e-5 of the largest |y| (the same kernels run on the
+same operands).
 """
 import itertools
 
@@ -26,7 +29,8 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from repro_torch.configs.paper_convs import TABLE1  # noqa: E402
-from repro_torch.conv import Epilogue, plan_conv, stages  # noqa: E402
+from repro_torch.conv import (  # noqa: E402
+    Epilogue, NetworkConv, plan_conv, plan_network, stages)
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core.dft import (  # noqa: E402
     compact_layout, dft_mats, num_freq_real)
@@ -43,6 +47,8 @@ from repro_torch.kernels.dft_tile import (  # noqa: E402
 from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
 from repro_torch.kernels.dft_tile.ops import (  # noqa: E402
     GENERIC, SPECIALISED, choose_form, choose_inverse_form)
+from repro_torch.launch.batcher import (  # noqa: E402
+    WARMUP_PASSES, BucketPolicy, ServeEngine)
 
 pytestmark = pytest.mark.cuda
 
@@ -483,3 +489,151 @@ def test_fft_cuda_plan_matches_cudnn(cuda):
     y0 = direct(x, k, bias=bias)
     scale = y0.abs().max().item()
     assert (y - y0).abs().max().item() / scale <= 3e-4
+
+
+# --------------------------------------------------------------------------
+# The serve engine's CUDA graphs (repro_torch.launch.batcher)
+# --------------------------------------------------------------------------
+
+GRAPH_TOL = 1e-5                # scaled by max|y|
+GRAPH_EP = Epilogue(bias=True, activation="relu")
+GRAPH_WRAPPERS = (cgemm_cuda, tile_rfft_cuda, tile_irfft_epilogue_cuda)
+
+
+def _graph_layers(batch):
+    return [NetworkConv("g1", (batch, 8, 32, 32), (16, 8, 3, 3), padding=1,
+                        epilogue=GRAPH_EP),
+            NetworkConv("g2", (batch, 16, 32, 32), (16, 16, 3, 3),
+                        padding=1, epilogue=GRAPH_EP)]
+
+
+def _graph_params(cuda, seed=20):
+    kernels = {"g1": _rand((16, 8, 3, 3), seed).to(cuda),
+               "g2": _rand((16, 16, 3, 3), seed + 1).to(cuda)}
+    biases = {"g1": _rand((16,), seed + 2).to(cuda),
+              "g2": _rand((16,), seed + 3).to(cuda)}
+    return kernels, biases
+
+
+def _graph_forward(biases):
+    def forward(prepared, x):
+        for name in prepared:
+            x = prepared[name](x, bias=biases[name])
+        return x
+    return forward
+
+
+def _graph_engine(cuda, max_batch=4, **kw):
+    kernels, biases = _graph_params(cuda)
+    eng = ServeEngine(_graph_layers, kernels,
+                      policy=BucketPolicy(max_batch=max_batch),
+                      forward=_graph_forward(biases), backend="fft-cuda",
+                      device=cuda, **kw)
+    return eng, kernels, biases
+
+
+def _eager_rows(eng, kernels, biases, rid, x, version=0):
+    """The rows of request ``rid`` (input ``x``) through the eager
+    prepared network of the bucket it ran in, at the same row offset."""
+    label, _, off = eng.placements[rid]
+    bucket = int(label[1:])
+    net = plan_network(_graph_layers(bucket), backend="fft-cuda")
+    prepared = net.prepare(kernels, weights_version=version)
+    xpad = torch.zeros((bucket,) + tuple(x.shape[1:]), device=x.device)
+    xpad[off:off + x.shape[0]] = x
+    with torch.inference_mode():
+        y = _graph_forward(biases)(prepared, xpad)
+    return y[off:off + x.shape[0]]
+
+
+def _assert_rows(y, y0):
+    scale = y0.abs().max().item()
+    assert (y - y0).abs().max().item() / scale <= GRAPH_TOL
+
+
+def test_graph_replays_match_the_eager_forward(cuda):
+    """Each batch replays its bucket's graph on a new input and gives that
+    input's eager output, so the graph recorded the ctypes kernels'
+    launches and reads the static input, not what it saw at capture."""
+    eng, kernels, biases = _graph_engine(cuda)
+    xs = [_rand((b, 8, 32, 32), 30 + i).to(cuda)
+          for i, b in enumerate((3, 4, 1, 2, 4, 3))]
+    rids = []
+    for x in xs:
+        rids.append(eng.submit(x))
+        eng.drain(force=True)
+    for rid, x in zip(rids, xs):
+        _assert_rows(eng.results[rid], _eager_rows(eng, kernels, biases,
+                                                   rid, x))
+    rep = eng.report()
+    assert rep["executor"] == "cuda-graph"
+    assert sum(map(sum, rep["graph_replays"].values())) == len(xs) == \
+        sum(b["n_batches"] for b in rep["buckets"].values())
+    assert rep["graph_pool_bytes"] > 0
+    assert rep["plan_cache_misses_after_warmup"] == 0
+
+
+def test_graph_results_do_not_alias(cuda):
+    """A request's result is a copy: later replays of the same bucket's
+    graph leave it as it was."""
+    eng, kernels, biases = _graph_engine(cuda)
+    x0 = _rand((4, 8, 32, 32), 40).to(cuda)
+    rid0 = eng.submit(x0)
+    eng.drain(force=True)
+    y0 = eng.results[rid0].clone()
+    for i in range(3):
+        eng.submit(_rand((4, 8, 32, 32), 41 + i).to(cuda))
+        eng.drain(force=True)
+    assert torch.equal(eng.results[rid0], y0)
+    _assert_rows(eng.results[rid0], _eager_rows(eng, kernels, biases, rid0,
+                                                x0))
+
+
+def test_update_weights_recaptures(cuda):
+    eng, kernels, biases = _graph_engine(cuda)
+    x = _rand((2, 8, 32, 32), 50).to(cuda)
+    rid = eng.submit(x)
+    eng.drain(force=True)
+    y_old = eng.results[rid]
+    new = {n: k * 2.0 + 0.01 for n, k in kernels.items()}
+    eng.update_weights(new, weights_version=1)
+    rid2 = eng.submit(x)
+    eng.drain(force=True)
+    _assert_rows(eng.results[rid2],
+                 _eager_rows(eng, new, biases, rid2, x, version=1))
+    assert not torch.allclose(eng.results[rid2], y_old)
+    assert eng.report()["plan_cache_misses_after_warmup"] == 0
+
+
+def test_two_replicas_on_one_card(cuda):
+    eng, kernels, biases = _graph_engine(cuda, max_batch=2, replicas=2)
+    xs = [_rand((2, 8, 32, 32), 60 + i).to(cuda) for i in range(6)]
+    rids = [eng.submit(x) for x in xs]
+    eng.drain(force=True)
+    rep = eng.report()
+    assert rep["replica_batches"] == [3, 3]
+    assert rep["graph_replays"] == {"b2": [3, 3]}
+    assert [eng.placements[r][1] for r in rids] == [0, 1, 0, 1, 0, 1]
+    for rid, x in zip(rids, xs):
+        # each replica owns copies of the kernels: prepare the eager
+        # reference from the same values
+        _assert_rows(eng.results[rid], _eager_rows(eng, kernels, biases,
+                                                   rid, x))
+
+
+def test_replays_launch_no_kernel(cuda):
+    """Launch counters are host-side: they advance at prepare, warm-up and
+    capture, and never on a replay."""
+    before = [w.launches for w in GRAPH_WRAPPERS]
+    eng, _, _ = _graph_engine(cuda, max_batch=2)
+    n_buckets, n_layers = 2, 2
+    forwards = n_buckets * (WARMUP_PASSES + 1)
+    assert [w.launches - b for w, b in zip(GRAPH_WRAPPERS, before)] == [
+        forwards * n_layers, (n_buckets + forwards) * n_layers,
+        forwards * n_layers]
+    before = [w.launches for w in GRAPH_WRAPPERS]
+    for i in range(5):
+        eng.submit(_rand((1 + i % 2, 8, 32, 32), 70 + i).to(cuda))
+        eng.drain(force=True)
+    assert [w.launches for w in GRAPH_WRAPPERS] == before
+    assert sum(map(sum, eng.report()["graph_replays"].values())) == 5

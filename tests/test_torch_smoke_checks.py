@@ -136,3 +136,43 @@ def test_expect_counts_refuses_a_generic_inverse_launch(kernel):
         smoke.expect_counts("path", counts, {kernel: 1})
     counts[f"{kernel} generic"] = 0
     smoke.expect_counts("path", counts, {kernel: 1})
+
+
+def test_serve_checks_hold_a_request_to_eager_and_direct():
+    """``serve_checks`` of phase ``serve_trace`` on a host engine: a
+    request's rows pass against the eager forward of its bucket and
+    against direct, and a result that is off by more than ``GRAPH_TOL``
+    is refused."""
+    import types
+
+    from repro_torch.conv import Epilogue, NetworkConv
+    from repro_torch.launch import batcher
+
+    ep = Epilogue(bias=True, activation="relu")
+
+    def make_layers(batch):
+        return [NetworkConv("a", (batch, 3, 16, 16), (4, 3, 3, 3),
+                            padding=1, epilogue=ep)]
+    rng = np.random.default_rng(0)
+    kernels = {"a": torch.as_tensor(rng.standard_normal((4, 3, 3, 3)),
+                                    dtype=torch.float32)}
+    bias = torch.as_tensor(rng.standard_normal(4), dtype=torch.float32)
+
+    def forward(prepared, x):
+        return prepared["a"](x, bias=bias)
+    eng = batcher.ServeEngine(make_layers, kernels,
+                              policy=batcher.BucketPolicy(max_batch=4),
+                              forward=forward, backend="fft-cuda",
+                              device="cpu")
+    xs = [torch.as_tensor(rng.standard_normal((b, 3, 16, 16)),
+                          dtype=torch.float32) for b in (1, 2)]
+    rids = [eng.submit(x) for x in xs]
+    eng.drain(force=True)                       # one b4 batch, rows 0 and 1
+    res = types.SimpleNamespace(make_layers=make_layers, forward=forward)
+    out = smoke.serve_checks(eng, res, rids[1], xs[1], kernels)
+    assert (out["bucket"], out["rows"], out["offset"]) == ("b4", 2, 1)
+    assert out["rel_err_vs_eager"] <= smoke.GRAPH_TOL
+    assert out["rel_err_vs_cudnn"] <= smoke.SLICE_TOL
+    eng.results[rids[0]] = eng.results[rids[0]] * (1 + 1e-3)
+    with pytest.raises(AssertionError, match="not within"):
+        smoke.serve_checks(eng, res, rids[0], xs[0], kernels)
