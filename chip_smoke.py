@@ -67,22 +67,45 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               ``slice``/``profile`` numbers, and the ``pad-max`` and
               ``replan`` engines on the same trace with the two ratios
               that ``serve --serve-compare`` gates
+ 10. tune     the measured autotuner on the served trunk, on a fresh
+              temporary cache at the default budget: ``plan_network(...,
+              backend="tuned")`` misses and measures all 9 layers, and the
+              kernels' launches during the sweep are exactly every
+              ``fft-cuda`` candidate's warm-up and timed calls (so every
+              candidate of every layer was measured inside the budget: they
+              come last), by CGEMM tile too; one line per layer with every
+              candidate's time (``autotune.candidates`` and the tuner's own
+              measuring function, again), the winner, and the ``fft-cuda``
+              default point's time beside the winner's; the tuned trunk's
+              prepared forward launches exactly its ``fft-cuda`` layers'
+              kernels, each pinned CGEMM row among them, and is held to
+              cuDNN (``SLICE_TOL``); so is the trunk on ``fft-cuda`` with
+              each layer pinned to its fastest measured CGEMM tile (a
+              pinned row on the main path, whatever won); after
+              ``autotune.reset()`` a fresh plan hits the cache on all 9
+              layers, measures nothing and launches nothing, with the same
+              winners, from a file of this ``CACHE_VERSION``.  Reported,
+              not gated: both trunks' p50 and busy time beside the eager
+              ``slice``/``profile``
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9) and read right after it; each path must launch its own
+(4, 6, 7, 8, 9, 10) and read right after it; each path must launch its own
 kernels and none of the others, and every tile DFT, forward and inverse,
 only in its specialised form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
+import collections
+import dataclasses
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,14 +118,16 @@ from repro_torch.configs.paper_convs import network_convs  # noqa: E402
 import torch.nn.functional as TF  # noqa: E402
 
 from repro_torch.conv import (  # noqa: E402
-    Epilogue, autodiff, plan_conv, plan_network, stages)
+    Epilogue, autodiff, autotune, autotune_info, plan_conv, plan_network,
+    stages)
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core.dft import compact_layout  # noqa: E402
 from repro_torch.core.fftconv import freq_count  # noqa: E402
 from repro_torch.examples import train_cnn_fftconv  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cgemm import (  # noqa: E402
-    cgemm_cuda, cgemm_ref, operand_variant)
+    cgemm_cuda, cgemm_ref, choose_variant, operand_variant,
+    shape_for_blocks)
 from repro_torch.kernels.dft_tile import (  # noqa: E402
     tile_fft_cuda, tile_fft_ref, tile_ifft_cuda, tile_ifft_epilogue_cuda,
     tile_ifft_epilogue_ref, tile_ifft_ref, tile_irfft_cuda,
@@ -151,6 +176,10 @@ GRAPH_TOL = 1e-5                        # graph replay vs the eager prepared
 SERVE_MAX_BATCH, SERVE_REQUESTS = 8, 64
 SERVE_WINDOW_MS = 2.0                   # serve --batch-window-ms default
 LONE_REQUESTS = 20                      # timed lone batch-4 requests
+# the tuner's settings, unset for phase tune (its defaults: 2000 ms a
+# layer, 3 timed calls a candidate); its cache goes to a temporary file
+TUNE_ENV = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_CACHE",
+            "REPRO_TORCH_AUTOTUNE_BUDGET_MS", "REPRO_TORCH_AUTOTUNE_REPS")
 
 
 # wrappers whose kernel has forms (``dft_ops.choose_form``,
@@ -166,6 +195,8 @@ def zero_counts():
         wrapper.launches = 0
     for wrapper in FORMS.values():
         wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
+    cgemm_cuda.variant_launches = dict.fromkeys(
+        cgemm_cuda.variant_launches, 0)
 
 
 def read_counts():
@@ -1249,6 +1280,267 @@ def serve_trace_phase(slice_p50_ms, profile_busy_us):
          serve_compare_gates_failed=fails)
     return launches
 
+def cgemm_tile(spec, cfg):
+    """The CGEMM tile (the variant's name without its load form) that a
+    plan or tuned config (its ``bm``/``bn``/``bk``) launches at ``spec``."""
+    row = shape_for_blocks(cfg.bm, cfg.bn, cfg.bk)
+    v = choose_variant(1, spec.M, spec.C, spec.Cout, torch.float32, True,
+                       row)
+    return v.name.removesuffix("-scalar")
+
+
+def tiles_of(variant_launches):
+    """CGEMM launches by tile, from launches by variant name."""
+    out = collections.Counter()
+    for name, n in variant_launches.items():
+        if n:
+            out[name.removesuffix("-scalar")] += n
+    return dict(out)
+
+
+def tune_sweep_launches(specs, reps):
+    """The launches of a tuning sweep that measures every candidate of
+    these layers: one warm-up and ``reps`` timed one-shot calls of each
+    ``fft-cuda`` candidate, a real-spectrum call launching the forward
+    tile DFT twice (input and kernel) and the CGEMM and fused inverse
+    once, a complex one the CGEMM only.  (kernel counts, CGEMM launches
+    by tile)."""
+    counts, tiles = collections.Counter(), collections.Counter()
+    for spec in specs:
+        for c in autotune.candidates(spec):
+            if c.backend != "fft-cuda":
+                continue
+            calls = 1 + reps
+            counts["cgemm"] += calls
+            if c.spectrum == "real":
+                counts["tile_rfft"] += 2 * calls
+                counts["tile_irfft_epilogue"] += calls
+            tiles[cgemm_tile(spec, c)] += calls
+    return dict(counts), dict(tiles)
+
+
+def tuned_forward_launches(plans, forwards, prepares):
+    """The launches of ``prepares`` prepares and ``forwards`` prepared
+    forwards of these plans: a real ``fft-cuda`` layer launches the
+    forward tile DFT per prepare and the forward tile DFT, CGEMM and fused
+    inverse per forward, a complex one the CGEMM per forward; ``direct``
+    and ``fft-torch`` none.  (kernel counts, CGEMM launches by tile)."""
+    counts, tiles = collections.Counter(), collections.Counter()
+    for plan in plans:
+        if plan.backend != "fft-cuda":
+            continue
+        counts["cgemm"] += forwards
+        tiles[cgemm_tile(plan.spec, plan)] += forwards
+        if plan.spectrum == "real":
+            counts["tile_rfft"] += prepares + forwards
+            counts["tile_irfft_epilogue"] += forwards
+    return dict(counts), dict(tiles)
+
+
+def check_tune_sweep(info, n_layers, counts, want, tiles, want_tiles):
+    """The sweep missed and measured every layer and fell back on none,
+    and its launches are exactly every ``fft-cuda`` candidate's, by tile
+    too: since those candidates come last, every candidate of every layer
+    was measured inside the budget."""
+    if tuple(info) != (0, n_layers, 0, n_layers):
+        raise AssertionError(f"tune sweep: tuner counters {info}, want "
+                             f"{n_layers} misses, all measured")
+    expect_counts("tune sweep", counts, want)
+    if tiles != want_tiles:
+        raise AssertionError(f"tune sweep: CGEMM launches by tile {tiles},"
+                             f" want {want_tiles} (a candidate unmeasured)")
+
+
+def check_pinned_rows(plans, tiles, want_tiles):
+    """The tuned forward's CGEMM launches by tile are exactly its
+    ``fft-cuda`` layers', so every layer whose winner pinned a row
+    launched that row."""
+    if tiles != want_tiles:
+        pinned = [(p.spec.M, p.bm) for p in plans
+                  if p.backend == "fft-cuda" and p.bm is not None]
+        raise AssertionError(f"tuned forward: CGEMM launches by tile "
+                             f"{tiles}, want {want_tiles} (pinned rows "
+                             f"(M, bm): {pinned})")
+
+
+def check_tune_round_trip(info, n_layers, winners, again, version):
+    """After ``autotune.reset()`` a fresh plan hits the file on every
+    layer, measures nothing, finds the same winners, and the file has
+    this ``CACHE_VERSION``."""
+    if tuple(info) != (n_layers, 0, 0, 0) or again != winners \
+            or version != autotune.CACHE_VERSION:
+        raise AssertionError(
+            f"tune round trip: counters {info} (want {n_layers} hits), "
+            f"winners {again} vs {winners}, file version {version} (want "
+            f"{autotune.CACHE_VERSION})")
+
+
+def winners_of(net):
+    return {name: (p.backend, p.spectrum, p.bm, p.bn, p.bk)
+            for name, p in net.items()}
+
+
+def trunk_phase(what, net, res, y_ref):
+    """The served trunk's weights and request batch through ``net``'s
+    plans, prepared (weights version ``None``: no cache), GEN synchronized
+    forwards with bias + ReLU + pools: exactly its ``fft-cuda`` layers'
+    launches, by CGEMM tile too, and within ``SLICE_TOL`` of cuDNN; its
+    p50 and busy time."""
+    plans = list(net.plans.values())
+    forward = serve._vgg_forward(res.biases)
+    zero_counts()
+    lats = []
+    with torch.inference_mode():
+        prepared = net.prepare(res.kernels)
+        for _ in range(GEN):
+            t0 = time.perf_counter()
+            y = forward(prepared, res.x)
+            torch.cuda.synchronize()
+            lats.append(time.perf_counter() - t0)
+    counts = read_counts()
+    tiles = tiles_of(cgemm_cuda.variant_launches)
+    want, want_tiles = tuned_forward_launches(plans, GEN, 1)
+    expect_counts(what, counts, want)
+    check_pinned_rows(plans, tiles, want_tiles)
+    rel = rel_err(y, y_ref)
+    if tuple(y.shape) != tuple(y_ref.shape) \
+            or not bool(torch.isfinite(y).all()) or not rel <= SLICE_TOL:
+        raise AssertionError(f"{what} vs cuDNN: shape {tuple(y.shape)}, "
+                             f"{rel:.3e} > {SLICE_TOL}")
+    with torch.inference_mode():
+        rows, busy, wall_us = device_profile(lambda: forward(prepared,
+                                                             res.x))
+    p50_ms = serve._percentile(lats, 50) * 1e3
+    return dict(backends={n: p.backend for n, p in net.items()},
+                forwards=GEN, launches=counts, cgemm_tiles=tiles,
+                rel_err_vs_cudnn=rel, tol=SLICE_TOL, p50_ms=p50_ms,
+                max_ms=max(lats) * 1e3, device_busy_us=busy,
+                profiled_wall_us=wall_us,
+                idle_share_vs_p50=1 - busy / (p50_ms * 1e3),
+                kernel_launches=sum(c for _, _, c in rows))
+
+
+def tune_phase(res, y_ref, slice_p50_ms, profile_busy_us):
+    """The measured autotuner on the served trunk, on a fresh temporary
+    cache at the default budget (the home cache would measure nothing):
+    the sweep, every candidate's time again per layer, the tuned trunk's
+    forward against cuDNN, and the cache's round trip."""
+    convs = network_convs(serve._vgg_scale(IMAGE), BATCH)
+    n_layers = len(convs)
+    saved = {k: os.environ.pop(k) for k in TUNE_ENV if k in os.environ}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tune_")
+    cache = os.path.join(tmp.name, "tune.json")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
+    cuda = torch.device("cuda")
+    try:
+        autotune.reset()
+        reps, budget_ms = autotune._env_reps(), autotune.budget_ms()
+        with autotune.measure_on(cuda):
+            zero_counts()
+            t0 = time.perf_counter()
+            net = plan_network(convs, backend="tuned")
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+            sweep_counts = read_counts()
+            sweep_tiles = tiles_of(cgemm_cuda.variant_launches)
+            info = autotune_info()
+            plans = list(net.plans.values())
+            want, want_tiles = tune_sweep_launches([p.spec for p in plans],
+                                                   reps)
+            check_tune_sweep(info, n_layers, sweep_counts, want,
+                             sweep_tiles, want_tiles)
+            report = net.tuning_report()
+
+            # every candidate again, through the tuner's own measuring
+            # function (not a main path: its launches are not counted)
+            table = {}
+            for name, plan in net.items():
+                spec, cands = plan.spec, []
+                for c in autotune.candidates(spec):
+                    us = autotune._measure_candidate(
+                        c, plan.x_shape, plan.k_shape, padding=plan.padding,
+                        delta=spec.delta, three_m=True, compute_dtype=None,
+                        reps=reps, device=cuda)
+                    cands.append(dict(
+                        backend=c.backend, spectrum=c.spectrum, bm=c.bm,
+                        bn=c.bn, bk=c.bk, us=us,
+                        tile=(cgemm_tile(spec, c)
+                              if c.backend == "fft-cuda" else None)))
+                win = report[name]
+                point = (win["backend"], win["spectrum"], win["bm"])
+                again = next(c["us"] for c in cands if (
+                    c["backend"], c["spectrum"], c["bm"]) == point)
+                default = next(c["us"] for c in cands if (
+                    c["backend"], c["spectrum"], c["bm"]) == (
+                        "fft-cuda", "real", None))
+                pinned = [c for c in cands if c["backend"] == "fft-cuda"
+                          and c["spectrum"] == "real" and c["bm"]]
+                table[name] = dict(winner=point, winner_us=win[
+                    "us_per_call"], fft_cuda_default_us=default,
+                    candidates=cands)
+                emit("tune_layer", layer=name,
+                     shape=[spec.B, spec.C, spec.Cout, spec.H, spec.W],
+                     M=spec.M, candidates=cands, winner=win,
+                     winner_us_in_sweep=win["us_per_call"],
+                     winner_us_again=again,
+                     fft_cuda_default_us=default,
+                     fft_cuda_default_tile=cgemm_tile(
+                         spec, autotune.TunedConfig("fft-cuda", "local")),
+                     best_pinned_over_default=(
+                         min(c["us"] for c in pinned) / default
+                         if pinned else None))
+
+            # the tuned trunk, prepared, with bias + ReLU + pools
+            tuned = trunk_phase("tuned trunk", net, res, y_ref)
+            # fft-cuda on every layer at its fastest measured CGEMM tile: a
+            # pinned row on the main path, whichever backend won above
+            rows_at = {
+                name: min((c for c in table[name]["candidates"]
+                           if (c["backend"], c["spectrum"])
+                           == ("fft-cuda", "real")),
+                          key=lambda c: c["us"]) for name in table}
+            pinned_net = plan_network(
+                [dataclasses.replace(l, overrides=tuple(
+                    (k, rows_at[l.name][k]) for k in ("bm", "bn", "bk")))
+                 for l in convs], backend="fft-cuda")
+            pinned = trunk_phase("fft-cuda trunk at the fastest tiles",
+                                 pinned_net, res, y_ref)
+            pinned["tiles"] = {name: cgemm_tile(p.spec, p)
+                               for name, p in pinned_net.items()}
+
+            # the cache's round trip: a fresh process's view of the file
+            autotune.reset()
+            zero_counts()
+            net2 = plan_network(convs, backend="tuned")
+            rt_counts = read_counts()
+            expect_counts("tune round trip", rt_counts, {})
+            with open(cache) as fh:
+                version = json.load(fh)["version"]
+            rt_info = autotune_info()
+            check_tune_round_trip(rt_info, n_layers, winners_of(net),
+                                  winners_of(net2), version)
+    finally:
+        for k in TUNE_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        autotune.reset()
+        tmp.cleanup()
+    emit("tune", image=IMAGE, batch=BATCH, layers=n_layers,
+         budget_ms=budget_ms, reps=reps,
+         sweep_s=sweep_s, sweep_info=info._asdict(),
+         sweep_launches=sweep_counts, sweep_cgemm_tiles=sweep_tiles,
+         winners={n: list(w) for n, w in winners_of(net).items()},
+         winner_us={n: t["winner_us"] for n, t in table.items()},
+         fft_cuda_default_us={n: t["fft_cuda_default_us"]
+                              for n, t in table.items()},
+         tuned=tuned, fft_cuda_fastest_tiles=pinned,
+         eager_slice_p50_ms=slice_p50_ms,
+         eager_profile_busy_us=profile_busy_us,
+         round_trip=dict(info=rt_info._asdict(), launches=rt_counts,
+                         cache_version=version))
+    return {k: sweep_counts[k] + tuned["launches"][k]
+            + pinned["launches"][k] for k in KERNELS}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1324,13 +1616,15 @@ def main():
     train_counts = train_phase()
     trainer_counts = trainer_phase()
     trace_counts = serve_trace_phase(slice_p50_ms, profile_busy_us)
+    tune_counts = tune_phase(res, y_ref, slice_p50_ms, profile_busy_us)
     device_times(fwd_rows + rfwd_rows + inv_rows + binv_rows + rinv_rows
                  + rinv_ep_rows)
 
-    # launches: the five main paths together (slice, rect, train, trainer,
-    # serve_trace)
+    # launches: the six main paths together (slice, rect, train, trainer,
+    # serve_trace, tune)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
-                + trainer_counts[k] + trace_counts[k] for k in KERNELS}
+                + trainer_counts[k] + trace_counts[k] + tune_counts[k]
+                for k in KERNELS}
     main_cg = [r for r in cg_rows if r["dtype"] == "float32"
                and r["three_m"] and r["spectrum"] == "real"]
     main_inv = inv_rows[:n_layers]

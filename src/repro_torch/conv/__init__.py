@@ -21,6 +21,8 @@ from repro_torch.conv.netplan import (
     BucketedNetworkPlan, plan_network,
     plan_network_buckets, prepare_network_buckets, bucket_report,
 )
+from repro_torch.conv import autotune
+from repro_torch.conv.autotune import TunedConfig, autotune_info
 from repro_torch.conv import backends as _backends
 
 _backends.register_builtin()
@@ -33,6 +35,7 @@ __all__ = [
     "plan_cache_info", "clear_plan_cache", "plan_cache_capacity",
     "prepared_cache_info", "clear_prepared_cache",
     "stage_trace",
+    "autotune", "TunedConfig", "autotune_info",
     "BackendInfo", "ScheduleInfo",
     "register_backend", "register_schedule",
     "get_backend", "get_schedule",

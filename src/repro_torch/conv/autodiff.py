@@ -65,7 +65,8 @@ def _pre_activation_plan(plan):
 def _transposed_plan(plan):
     """The plan computing dx: conv of dy (B, C', Ho, Wo) with the flipped,
     transposed kernel (C, C', kh, kw) at full-correlation padding, on the
-    same backend x schedule (and precision knobs) as the forward.
+    same backend x schedule (and precision and tile knobs) as the
+    forward.
     No epilogue — cotangents propagate through the raw conv."""
     from repro_torch.conv.plan import plan_conv
     s = plan.spec
@@ -73,6 +74,7 @@ def _transposed_plan(plan):
         (s.B, s.Cout, s.Ho, s.Wo), (s.C, s.Cout, s.kh, s.kw),
         padding=(s.kh - 1, s.kw - 1), delta=s.delta, backend=plan.backend,
         schedule=plan.schedule, three_m=plan.three_m,
+        bm=plan.bm, bn=plan.bn, bk=plan.bk,
         compute_dtype=plan.compute_dtype, spectrum=plan.spectrum)
 
 

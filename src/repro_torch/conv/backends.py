@@ -42,8 +42,11 @@ from repro_torch.core import fftconv as F
 
 
 def _cuda_cgemm_fn(plan):
-    from repro_torch.kernels.cgemm import cgemm_cuda
-    return functools.partial(cgemm_cuda, three_m=plan.three_m)
+    """The plan's CGEMM: its pinned tile row, or the chooser's pick."""
+    from repro_torch.kernels.cgemm import cgemm_cuda, shape_for_blocks
+    return functools.partial(cgemm_cuda, three_m=plan.three_m,
+                             shape=shape_for_blocks(plan.bm, plan.bn,
+                                                    plan.bk))
 
 
 def _tile_bias(bias, spec, like):

@@ -145,6 +145,43 @@ class NetworkPlan:
             DeprecationWarning, stacklevel=2)
         return self.prepare(params, weights_version=weights_version)
 
+    def tuning_report(self) -> dict:
+        """Per-layer autotune winners after a ``backend="tuned"`` planning
+        sweep: the resolved (backend, schedule, tile) of every layer, plus
+        the measured timing and provenance when the tuning cache has an
+        entry for the layer's geometry that describes this plan's config
+        (``us_per_call`` is ``None`` for layers resolved by the cost model
+        or planned with a non-tuned backend).  The cache is read for the
+        measuring device (``autotune.measure_on``, else the GPU)."""
+        from repro_torch.conv import autotune
+        out = {}
+        for name, plan in self.plans.items():
+            cfg = None
+            for sched_req in (plan.schedule, "auto"):
+                c = autotune.lookup(
+                    plan.x_shape, plan.k_shape, padding=plan.padding,
+                    delta=plan.spec.delta, schedule=sched_req,
+                    three_m=plan.three_m, compute_dtype=plan.compute_dtype)
+                # only attribute a timing that describes THIS plan's
+                # resolved config: the cache may hold a different
+                # request's winner for the same geometry
+                if c is not None and (
+                        c.backend, c.schedule, c.bm, c.bn, c.bk, c.dft_bt,
+                        c.overlap
+                ) == (plan.backend, plan.schedule, plan.bm, plan.bn,
+                      plan.bk, plan.dft_bt, "off"):
+                    cfg = c
+                    break
+            out[name] = {
+                "backend": plan.backend, "schedule": plan.schedule,
+                "spectrum": plan.spectrum,
+                "bm": plan.bm, "bn": plan.bn, "bk": plan.bk,
+                "dft_bt": plan.dft_bt, "overlap": "off",
+                "us_per_call": cfg.us_per_call if cfg else None,
+                "source": cfg.source if cfg else "unmeasured",
+            }
+        return out
+
     def report(self) -> dict:
         """Stage-op and collective counts of one forward pass: not ported
         yet (ROADMAP Queue 1 item 6, the plan-lint analyzer)."""
@@ -239,6 +276,11 @@ def plan_network(layers: Union[Sequence[NetworkConv], Callable], *,
     padded batch size; the result is a ``BucketedNetworkPlan`` (one
     ``NetworkPlan`` per bucket, shared-cache dedupe across buckets): the
     startup sweep of the continuous-batching serve engine.
+
+    ``backend="tuned"`` measures each distinct layer geometry once (the
+    tuning cache answers every repeat, across buckets too) on the device
+    of ``autotune.measure_on``, all while planning: a serve engine's
+    captures come after.  ``NetworkPlan.tuning_report`` lists the winners.
     """
     shared = dict(backend=backend, schedule=schedule, mesh=mesh, delta=delta,
                   three_m=three_m, compute_dtype=compute_dtype,

@@ -24,18 +24,22 @@ The prepared cache is keyed by (plan, kernel object) and checked against
 with the same version returns the cached ``PreparedConv``.
 
 ``backend="auto"`` picks direct vs FFT from the ``ConvSpec`` cost model;
-``schedule="auto"`` is ``local``.
+``schedule="auto"`` is ``local``.  ``backend="tuned"`` measures instead
+(``repro_torch.conv.autotune``): the candidate (backend, spectrum, CGEMM
+tile) points are timed on the device, the winner is cached per machine,
+and its tile rides the plan down into the CUDA CGEMM.
 
 Every stage-pipeline backend trains: when grad mode is on and an operand
 requires grad, ``plan(x, k, ...)`` and ``prepared(x, ...)`` run through the
 plan-level VJP (``repro_torch.conv.autodiff``); otherwise they run the
 pipeline straight, and record nothing for autograd.  ``overlap`` is
 ``"off"`` on every local plan (``"auto"`` resolves to it, as in the
-reference).  Not ported yet (they raise): meshes and the sharded schedules,
-``overlap="slab:<k>"``, ``backend="tuned"`` and the plan knobs ``bm``/
-``bn``/``bk``/``dft_bt`` (the CUDA kernels choose their own tiles: the
-CGEMM from its tile table, ``kernels.cgemm.ops.choose_variant``; the tile
-DFTs from ``kernels.dft_tile.ops.choose_form``; no knob pins them yet).
+reference).  ``bm``/``bn``/``bk`` pin a row of the CUDA CGEMM's compiled
+tile table (``kernels.cgemm.ops.SHAPES``) on ``fft-cuda`` plans; the
+reference honours any positive block, the port takes only the rows its
+kernel was compiled with.  Not ported yet (they raise): meshes and the
+sharded schedules, ``overlap="slab:<k>"`` and ``dft_bt`` (the tile DFT
+kernels take a compile-time number of tiles per block).
 
 ``backend="fft-cuda"`` runs tiles up to ``kernels.dft_tile.ops.MAX_DELTA``
 (32); a larger ``delta`` is refused when the plan is made.
@@ -80,6 +84,10 @@ class ConvPlan:
     schedule: str                      # resolved registry name
     padding: tuple                     # (pad_h, pad_w)
     three_m: bool = True               # 3M (Karatsuba) vs 4M complex product
+    bm: Optional[int] = None           # CUDA CGEMM tile row (fft-cuda)
+    bn: Optional[int] = None
+    bk: Optional[int] = None
+    dft_bt: Optional[int] = None       # always None: not ported
     compute_dtype: Any = None          # CGEMM operand dtype (e.g. bf16)
     epilogue: Epilogue = Epilogue()    # fused elementwise tail (stage 4)
     spectrum: str = "real"             # "real" (compact Hermitian) | "complex"
@@ -222,6 +230,9 @@ class ConvPlan:
             f"  cost-model FLOPs: direct {s.direct_flops():.3e}, fft "
             f"{s.cgemm_flops(three_m=self.three_m) + s.transform_flops():.3e}",
         ]
+        if self.bm or self.bn or self.bk or self.dft_bt:
+            lines.append(f"  blocks bm={self.bm} bn={self.bn} bk={self.bk} "
+                         f"dft_bt={self.dft_bt}")
         if self.compute_dtype is not None:
             lines.append(f"  compute_dtype={self.compute_dtype}")
         return "\n".join(lines)
@@ -382,8 +393,17 @@ def _check_cuda_delta(delta):
             "backend 'fft-torch' or a smaller delta")
 
 
+def _cuda_blocks(bm, bn, bk) -> tuple:
+    """The (bm, bn, bk) of the CUDA CGEMM tile row that the knobs name
+    (all ``None`` when none is pinned)."""
+    # imported here: the kernel package imports repro_torch.conv
+    from repro_torch.kernels.cgemm.ops import SHAPES, shape_for_blocks
+    row = shape_for_blocks(bm, bn, bk)
+    return (None, None, None) if row is None else SHAPES[row][:3]
+
+
 def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
-             compute_dtype, epilogue, spectrum) -> ConvPlan:
+             bm, bn, bk, compute_dtype, epilogue, spectrum) -> ConvPlan:
     _, _, kh, kw = k_shape
     if spectrum not in SPECTRA:
         raise ValueError(
@@ -409,6 +429,7 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
     be = registry.get_backend(backend)
     if backend == "fft-cuda":
         _check_cuda_delta(delta)
+        bm, bn, bk = _cuda_blocks(bm, bn, bk)
     if schedule not in be.schedules:
         raise ValueError(
             f"backend {backend!r} does not support schedule {schedule!r} "
@@ -423,7 +444,7 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
             f"spectrum='complex' (the full-spectrum twin) only applies to "
             f"the FFT stage pipelines; backend {backend!r} has no spectrum")
     return ConvPlan(spec=spec, backend=backend, schedule=schedule,
-                    padding=padding, three_m=three_m,
+                    padding=padding, three_m=three_m, bm=bm, bn=bn, bk=bk,
                     compute_dtype=compute_dtype, epilogue=epilogue,
                     spectrum=spectrum)
 
@@ -446,9 +467,21 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
       delta: FFT tile size (the paper uses 16).
       backend: ``"direct"`` | ``"fft-torch"`` | ``"fft-cuda"`` | ``"auto"``
         (cost-model crossover between direct and ``fft-torch``; never
-        auto-selects the CUDA kernels).
+        auto-selects the CUDA kernels) | ``"tuned"`` (measured selection
+        through ``repro_torch.conv.autotune``: warm persistent cache, or a
+        sweep timed on the device of ``autotune.measure_on`` (default the
+        GPU), or the cost model when measurement is disabled; the tuner
+        also picks the spectrum and the CGEMM tile unless pinned here).
       schedule: ``"local"`` | ``"auto"`` (= local).
       three_m: 3-matmul (Karatsuba) vs 4-matmul complex product.
+      bm, bn, bk: the CUDA CGEMM tile (``fft-cuda`` only; stored and
+        unused on the other backends).  They must name one row of the
+        kernel's compiled table ``kernels.cgemm.ops.SHAPES`` (``bm``
+        alone does); the plan stores that row's full triple.  With
+        ``backend="tuned"`` an explicit pin replaces the tuned tile.
+      dft_bt: the reference's tiles per grid step of the fused inverse;
+        not ported (``NotImplementedError``): the CUDA tile DFT kernels
+        take a compile-time number of tiles per block.
       compute_dtype: CGEMM operand dtype (e.g. ``torch.bfloat16``; float32
         accumulation).
       epilogue: ``Epilogue`` fused into stage 4 (bias add, activation,
@@ -464,13 +497,12 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
         ``plan_cache_capacity``).
 
     ``backend="fft-cuda"`` with ``delta > 32`` is a ``ValueError``: its
-    tile DFT kernels run up to delta 32 (``fft-torch`` runs any delta).
+    tile DFT kernels run up to delta 32 (``fft-torch`` runs any delta);
+    so is a ``bm``/``bn``/``bk`` triple that names no row of its CGEMM.
 
     Not ported yet, and rejected with ``NotImplementedError``: ``mesh``
-    (and the ``nfft``/``wfft`` schedules), ``overlap="slab:<k>"``,
-    ``backend="tuned"`` and the knobs ``bm``/``bn``/``bk``/``dft_bt``,
-    which pin kernel tiles in the reference (the CUDA kernels pick theirs
-    from their shapes, and no knob reaches that choice yet).
+    (and the ``nfft``/``wfft`` schedules), ``overlap="slab:<k>"`` and
+    ``dft_bt``.
 
     Returns:
       A frozen ``ConvPlan``; call it as ``plan(x, k)`` or split with
@@ -484,13 +516,12 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
     if _parse_overlap(overlap) > 1:
         raise _not_ported(f"overlap={overlap!r} (sub-slab overlap of the "
                           "sharded schedules)")
-    if backend == "tuned":
-        raise _not_ported("backend='tuned' (the measured autotuner)")
-    if any(v is not None for v in (bm, bn, bk, dft_bt)):
+    if dft_bt is not None:
         raise _not_ported(
-            "bm/bn/bk/dft_bt (the CUDA kernels pick their tiles from the "
-            "shapes: cgemm.ops.choose_variant, dft_tile.ops.choose_form; "
-            "no plan knob pins them yet)")
+            "dft_bt (the CUDA tile DFT kernels take a compile-time number "
+            "of tiles per block, dft_tile.cu kTiles16 and kWarps; pinning "
+            "it needs a template parameter of the kernels, ROADMAP Queue 1 "
+            "item 10)")
     if isinstance(spec, ConvSpec):
         if k_shape is not None or padding is not None or delta is not None:
             raise TypeError(
@@ -511,10 +542,35 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
     x_shape, k_shape = tuple(map(int, x_shape)), tuple(map(int, k_shape))
     padding = _normalize_padding(padding)
     epilogue = Epilogue() if epilogue is None else epilogue
+    if backend == "tuned":
+        # Measured selection resolves BEFORE the plan cache, so the plan
+        # is memoized under the *resolved* config: a cost-model fallback
+        # (measurement disabled) is never frozen in — once the tuning
+        # cache warms, the next call adopts the winner.
+        if max(k_shape[2], k_shape[3]) > delta:
+            backend = "direct"      # oversize kernel: only direct fits
+        else:
+            from repro_torch.conv import autotune
+            # tune unpinned: pins constrain the *plan*, not the machine's
+            # measured winner (pinned tune() calls get their own key)
+            tuned = autotune.tune(
+                x_shape, k_shape, padding=padding, delta=delta,
+                schedule=schedule, three_m=three_m,
+                compute_dtype=compute_dtype, spectrum=spectrum,
+                overlap=overlap)
+            backend = tuned.backend
+            if schedule == "auto":
+                schedule = tuned.schedule
+            if spectrum == "auto":
+                spectrum = tuned.spectrum
+            # an explicit pin beats the tuned tile; the knobs name one
+            # row together, so the pin replaces the whole triple
+            if bm is None and bn is None and bk is None:
+                bm, bn, bk = tuned.bm, tuned.bn, tuned.bk
     if spectrum == "auto":
         spectrum = "real"    # deterministic default — share the cache entry
     key = (x_shape, k_shape, padding, delta, backend, schedule, three_m,
-           compute_dtype, epilogue, spectrum)
+           bm, bn, bk, compute_dtype, epilogue, spectrum)
     if cache:
         with _cache_lock:
             plan = _plan_cache.get(key)
@@ -523,7 +579,7 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
                 _plan_cache.move_to_end(key)
                 return plan
     plan = _resolve(x_shape, k_shape, padding, delta, backend, schedule,
-                    three_m, compute_dtype, epilogue, spectrum)
+                    three_m, bm, bn, bk, compute_dtype, epilogue, spectrum)
     if cache:
         with _cache_lock:
             _cache_misses += 1

@@ -24,12 +24,19 @@ otherwise with masked scalar loads (``Variant.scalar``; C = 3 at
 Vconv1.1).  The variant only changes the kernel: a CUDA tensor never falls
 back to the plain version.  The tiles and ring depths are the fastest of
 those ``python -m repro_torch.kernels.cgemm.sweep`` timed on the card.
+
+A caller may pin the tile: ``cgemm_cuda(..., shape=i)`` launches row ``i``
+of ``SHAPES`` whatever M is (every row's grid covers any M), with the
+load form still taken from the operands.  ``shape_for_blocks(bm, bn, bk)``
+names the row of a plan's ``bm``/``bn``/``bk`` knobs, and
+``cgemm_cuda.variant_launches`` counts the launches by variant name.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -68,8 +75,36 @@ class Variant:
 
     @property
     def name(self) -> str:
-        tile = f"{self.bm}x{self.bn}"
-        return f"{self.form}-{tile}" + ("-scalar" if self.scalar else "")
+        return variant_name(self.code)
+
+
+def variant_name(code: int) -> str:
+    """``<form>-<bm>x<bn>[-scalar]`` of a variant code."""
+    shape, scalar = code % len(SHAPES), code >= len(SHAPES)
+    bm, bn = SHAPES[shape][:2]
+    form = "small" if shape in SMALL else "large"
+    return f"{form}-{bm}x{bn}" + ("-scalar" if scalar else "")
+
+
+def shape_for_blocks(bm=None, bn=None, bk=None) -> Optional[int]:
+    """The row of ``SHAPES`` that a (bm, bn, bk) triple names, ``None``
+    entries matching any value; ``None`` when all three are ``None``.
+    ``bm`` is unique across rows, so it alone names a row.  A triple that
+    names no row, or more than one, is a ``ValueError``."""
+    if bm is None and bn is None and bk is None:
+        return None
+    rows = [i for i, row in enumerate(SHAPES)
+            if all(v is None or (type(v) is int and v == have)
+                   for v, have in zip((bm, bn, bk), row))]
+    if len(rows) != 1:
+        table = ", ".join(f"{i}: (bm={r[0]}, bn={r[1]}, bk={r[2]})"
+                          for i, r in enumerate(SHAPES))
+        raise ValueError(
+            f"bm={bm!r}, bn={bn!r}, bk={bk!r} name "
+            f"{'no' if not rows else 'more than one'} row of the CUDA "
+            f"CGEMM's tile table; its rows are {table} (bm alone names "
+            "a row)")
+    return rows[0]
 
 
 def shape_smem_bytes(shape: int, element_size: int) -> int:
@@ -83,18 +118,30 @@ def shape_smem_bytes(shape: int, element_size: int) -> int:
     return stages * stage + 4 * (2 * bk * bm + widened)
 
 
-@functools.lru_cache(maxsize=4096)
+def default_shape(M: int) -> int:
+    """The row ``choose_variant`` picks for M when none is pinned."""
+    return (next(i for i in SMALL if SHAPES[i][0] >= M)
+            if M <= SMALL_M_MAX else LARGE)
+
+
+# typed: a pin of True or 1.0 must not hit the cache entry of row 1
+@functools.lru_cache(maxsize=4096, typed=True)
 def choose_variant(P: int, M: int, C: int, N: int, dtype,
-                   aligned: bool = True) -> Variant:
+                   aligned: bool = True, shape: Optional[int] = None
+                   ) -> Variant:
     """The kernel form for a (P, M, C) x (P, C, N) product.  ``aligned``
-    says whether every operand's data pointer is 16-byte aligned."""
+    says whether every operand's data pointer is 16-byte aligned.
+    ``shape``, an index into ``SHAPES``, pins the tile in place of the
+    M-based pick; the load form still follows the operands, so a pin
+    never asks the kernel for ``cp.async`` on operands it refuses."""
     if dtype not in _ENTRY:
         raise TypeError(f"cgemm takes float32 or bfloat16, got {dtype}")
+    _check_shape(shape)
     size = dtype.itemsize
     scalar = (not aligned or (C * size) % 16 != 0
               or (N * size) % 16 != 0)
-    shape = (next(i for i in SMALL if SHAPES[i][0] >= M)
-             if M <= SMALL_M_MAX else LARGE)
+    if shape is None:
+        shape = default_shape(M)
     bm, bn, bk, tm, tn, stages = SHAPES[shape]
     return Variant(code=shape + len(SHAPES) * scalar,
                    form="small" if shape in SMALL else "large",
@@ -134,6 +181,13 @@ def compiled_shapes(dtype) -> list:
     return rows
 
 
+def _check_shape(shape):
+    if shape is not None and (type(shape) is not int
+                              or not 0 <= shape < len(SHAPES)):
+        raise ValueError(f"cgemm shape must be a row of SHAPES "
+                         f"(0..{len(SHAPES) - 1}), got {shape!r}")
+
+
 def _check(Dr, Di, Gr, Gi):
     if Dr.dim() != 3 or Gr.dim() != 3:
         raise ValueError(f"cgemm wants D (P, M, C) and G (P, C, N), got "
@@ -157,17 +211,23 @@ def _check(Dr, Di, Gr, Gi):
         raise ValueError("cgemm needs contiguous operands")
 
 
-def operand_variant(Dr, Di, Gr, Gi) -> Variant:
-    """The variant ``cgemm_cuda`` launches for these operands."""
+def operand_variant(Dr, Di, Gr, Gi, shape: Optional[int] = None
+                    ) -> Variant:
+    """The variant ``cgemm_cuda`` launches for these operands (with the
+    tile row ``shape`` pinned, if given)."""
     P, M, C = Dr.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (Dr, Di, Gr, Gi))
-    return choose_variant(P, M, C, Gr.shape[2], Dr.dtype, aligned)
+    return choose_variant(P, M, C, Gr.shape[2], Dr.dtype, aligned, shape)
 
 
-def cgemm_cuda(Dr, Di, Gr, Gi, *, three_m: bool = True):
+def cgemm_cuda(Dr, Di, Gr, Gi, *, three_m: bool = True,
+               shape: Optional[int] = None):
     """Batched complex GEMM: (P,M,C) x (P,C,N) -> (P,M,N) (real, imag),
-    3M (Karatsuba) or 4M, float32 accumulation, Z in the operand dtype."""
+    3M (Karatsuba) or 4M, float32 accumulation, Z in the operand dtype.
+    ``shape`` pins the kernel's tile row (``SHAPES``; ``None``: the
+    chooser's pick)."""
     _check(Dr, Di, Gr, Gi)
+    _check_shape(shape)
     device = Dr.device
     if device.type == "cpu":
         return cgemm_ref(Dr, Di, Gr, Gi, three_m=three_m)
@@ -179,9 +239,10 @@ def cgemm_cuda(Dr, Di, Gr, Gi, *, three_m: bool = True):
     Zi = torch.empty((P, M, N), dtype=Dr.dtype, device=device)
     if Zr.numel() == 0:
         return Zr, Zi
-    launch(Dr, Di, Gr, Gi, Zr, Zi, three_m,
-           operand_variant(Dr, Di, Gr, Gi).code)
+    v = operand_variant(Dr, Di, Gr, Gi, shape)
+    launch(Dr, Di, Gr, Gi, Zr, Zi, three_m, v.code)
     cgemm_cuda.launches += 1
+    cgemm_cuda.variant_launches[v.name] += 1
     return Zr, Zi
 
 
@@ -202,3 +263,5 @@ def launch(Dr, Di, Gr, Gi, Zr, Zi, three_m: bool, code: int):
 
 
 cgemm_cuda.launches = 0
+cgemm_cuda.variant_launches = {variant_name(code): 0
+                               for code in range(2 * len(SHAPES))}

@@ -396,8 +396,12 @@ class ServeEngine:
         Same-geometry buckets dedupe through the shared plan cache
         (identical frozen plans) and the prepared cache (identical
         (plan, kernel) keys per replica)."""
+        from repro_torch.conv import autotune
         from repro_torch.conv.netplan import plan_network
-        net = plan_network(self._layers_for(key), **self._plan_kwargs)
+        # backend="tuned" measures here, on the engine's device, before
+        # any capture
+        with autotune.measure_on(self.device):
+            net = plan_network(self._layers_for(key), **self._plan_kwargs)
         self.nets[key] = net
         x_shape = net[net.layer_names[0]].x_shape
         for r in range(self.replicas):

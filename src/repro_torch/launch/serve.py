@@ -9,6 +9,11 @@ and prepared kernels, on the GPU unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --convnet vgg \
         --conv-backend fft-cuda --smoke --batch 1 --gen 2 --device cpu
 
+    # the measured autotuner picks each layer's backend, spectrum and
+    # CGEMM tile on the device before the first request (cached per
+    # machine; --serve-trace takes it too):
+    PYTHONPATH=src python -m repro_torch.launch.serve --convnet vgg --tune
+
     # continuous batching: the shape-bucketed dynamic batcher over
     # per-bucket prepared plans, one CUDA graph per bucket, on a synthetic
     # ragged trace (repro_torch.launch.batcher; --serve-compare A/Bs the
@@ -74,6 +79,22 @@ class ServeResult:
     latencies_s: Optional[list]  # per-batch latencies (per-request timing)
 
 
+def _print_tuning(net, seconds=None, label=""):
+    """The tuned sweep's time, the cache path and one line per layer (as
+    ``repro.launch.serve --tune`` prints them)."""
+    from repro_torch.conv import autotune
+    if seconds is not None:
+        print(f"autotune sweep: {seconds:.1f}s "
+              f"(cache: {autotune.cache_path()})")
+    for name, r in net.tuning_report().items():
+        us = "cached/unmeasured" if r["us_per_call"] is None \
+            else f"{r['us_per_call']:.0f}us"
+        print(f"  {label}{name}: {r['backend']}/{r['schedule']} "
+              f"spectrum={r['spectrum']} bm={r['bm']} bn={r['bn']} "
+              f"bk={r['bk']} dft_bt={r['dft_bt']} overlap={r['overlap']} "
+              f"{us} [{r['source']}]")
+
+
 def serve_convnet(args) -> ServeResult:
     """Serve the paper's VGG conv trunk through the network planner.
 
@@ -87,7 +108,7 @@ def serve_convnet(args) -> ServeResult:
     engine (``serve_trace``).
     """
     from repro_torch.configs.paper_convs import network_convs
-    from repro_torch.conv import plan_network, prepared_cache_info
+    from repro_torch.conv import autotune, plan_network, prepared_cache_info
 
     if args.serve_trace:
         return serve_trace(args)
@@ -95,8 +116,15 @@ def serve_convnet(args) -> ServeResult:
     device = resolve_device(args.device)
     image = args.image if args.image else (64 if args.smoke else 224)
     layers = network_convs(_vgg_scale(image), args.batch)
-    net = plan_network(layers, backend=args.conv_backend,
-                       overlap=args.overlap)
+    backend = "tuned" if args.tune else args.conv_backend
+    with autotune.measure_on(device):
+        t0 = time.perf_counter()
+        net = plan_network(layers, backend=backend, overlap=args.overlap)
+        if args.tune:
+            # the tuned planning sweep IS the cache warm-up: every
+            # distinct layer geometry was measured (or served from the
+            # persistent cache) before the first request executes
+            _print_tuning(net, time.perf_counter() - t0)
     print(net.describe())
 
     rng = np.random.default_rng(args.seed)
@@ -214,10 +242,12 @@ def serve_trace(args) -> TraceResult:
     copies out.
     """
     from repro_torch.configs.paper_convs import network_convs
+    from repro_torch.conv import autotune
     from repro_torch.launch.batcher import (
         BucketPolicy, ServeEngine, run_trace, synthetic_trace)
 
     device = resolve_device(args.device)
+    backend = "tuned" if args.tune else args.conv_backend
     image = args.image if args.image else (64 if args.smoke else 224)
     scale = _vgg_scale(image)
 
@@ -265,7 +295,7 @@ def serve_trace(args) -> TraceResult:
             # --serve-compare forces synchronized per-batch timing
             timing="async" if (args.timing == "async"
                                and not args.serve_compare) else "per-batch",
-            device=device, backend=args.conv_backend, overlap=args.overlap)
+            device=device, backend=backend, overlap=args.overlap)
         rep = run_trace(eng, trace, make_input=make_input,
                         realtime=args.trace_rate > 0)
         reports[mode] = rep
@@ -293,6 +323,15 @@ def serve_trace(args) -> TraceResult:
                   f"p99={b['p99_us']/1e3:.2f}ms occ={b['occupancy']:.2f}")
         if args.replicas > 1:
             print(f"    replica batches: {rep['replica_batches']}")
+        if args.tune and mode == "bucketed":
+            # the engine tuned every bucket's layers while planning, in
+            # its start-up, before any capture
+            print(f"autotune sweep: in the start-up's plan+prepare "
+                  f"{rep['startup_plan_prepare_s']:.1f}s "
+                  f"(cache: {autotune.cache_path()})")
+            with autotune.measure_on(device):
+                for key, net in eng.nets.items():
+                    _print_tuning(net, label=f"b{key[0]} ")
     bucketed = engines["bucketed"]
     br = bucketed.bucket_report()
     print(f"buckets: {policy.batch_buckets()} x image={image} — "
@@ -400,7 +439,10 @@ def main(argv=None):
                          "(a local plan has nothing to overlap; slab:<k> "
                          "is not ported yet)")
     ap.add_argument("--tune", action="store_true",
-                    help="the measured autotuner: not ported yet")
+                    help="backend='tuned': measure each layer's backend, "
+                         "spectrum and CGEMM tile on --device while "
+                         "planning (cached per machine; overrides "
+                         "--conv-backend)")
     ap.add_argument("--analyze", action="store_true",
                     help="plan-lint: not ported yet")
     ap.add_argument("--image", type=int, default=0,
@@ -414,8 +456,6 @@ def main(argv=None):
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
-    if args.tune:
-        raise _not_ported("--tune", "the measured autotuner", 4)
     if args.analyze:
         raise _not_ported("--analyze", "the plan-lint analyzer", 6)
     for flag, value in (("--export-plans", args.export_plans),

@@ -485,8 +485,48 @@ def test_serve_trace_entry_point_on_cpu(capsys, tmp_path):
     assert bench.exists() and cold.exists()
 
 
+@pytest.mark.parametrize("serve_trace", [False, True],
+                         ids=["fixed", "serve-trace"])
+def test_serve_tune_prints_the_layers_and_serves(capsys, tmp_path,
+                                                 monkeypatch, serve_trace):
+    """``serve --tune --device cpu``: the tuner measures every layer on the
+    host while planning (the bucketed engine before its warm-up), prints
+    the sweep, the cache path and one line per layer (per bucket with
+    --serve-trace), and the tuned plans serve."""
+    from repro_torch.conv import autotune
+    cache = tmp_path / "tune.json"
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(cache))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_BUDGET_MS", "1")
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_REPS", "1")
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    autotune.reset()
+    try:
+        if serve_trace:
+            res = serve.main(["--tune", "--serve-trace", "--device", "cpu",
+                              "--image", "32", "--max-batch", "2",
+                              "--trace-requests", "4"])
+            nets = res.engines["bucketed"].nets.values()
+            assert res.reports["bucketed"]["n_requests"] == 4
+        else:
+            res = serve.main(["--tune", "--device", "cpu", "--smoke",
+                              "--batch", "1", "--gen", "1"])
+            nets = [res.net]
+            assert bool(torch.isfinite(res.y).all())
+        out = capsys.readouterr().out
+        assert f"(cache: {cache})" in out and cache.exists()
+        lines = [l for l in out.splitlines() if "[measured]" in l]
+        assert len(lines) == 9 * len(nets)
+        assert autotune.autotune_info().measured == 9 * len(nets)
+        with autotune.measure_on("cpu"):
+            for net in nets:
+                assert {r["source"] for r in net.tuning_report().values()} \
+                    == {"measured"}
+    finally:
+        autotune.reset()
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--tune"], "item 4"), (["--analyze"], "item 6"),
+    (["--analyze"], "item 6"),
     (["--export-plans", "p.rpa"], "item 7"),
     (["--load-plans", "p.rpa"], "item 7")])
 def test_serve_refuses_what_is_not_ported(flag, item):

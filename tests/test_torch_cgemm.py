@@ -11,8 +11,11 @@ batch 4, 32 and 128, in float32 and bfloat16:
 - a launch the card takes: dynamic shared memory <= 232,448 bytes, at
   most 1024 threads, grid.y and grid.z <= 65535.
 
+A pinned tile row (``shape=``, ``shape_for_blocks``) runs any M and keeps
+the load form the operands allow.
+
 On the CPU the wrapper runs the plain version whatever the variant would
-be, counts no launch, and agrees with the JAX package's Pallas CGEMM
+be, pinned or not, counts no launch, and agrees with the JAX package's Pallas CGEMM
 (interpret mode) at the card tests' ragged and offset shapes: scaled atol
 2e-5 in float32.  tests/test_torch_cuda.py holds the kernel itself, every
 variant, to the plain version on the card.
@@ -30,7 +33,8 @@ from repro_torch.conv import plan_conv
 from repro_torch.conv.autodiff import _transposed_plan
 from repro_torch.kernels.cgemm import (
     cgemm_cuda, cgemm_ref, choose_variant, operand_variant)
-from repro_torch.kernels.cgemm.ops import SHAPES, shape_smem_bytes
+from repro_torch.kernels.cgemm.ops import (
+    LARGE, SHAPES, shape_for_blocks, shape_smem_bytes, variant_name)
 
 SMEM_MAX = 232_448                      # bytes a block may use on an H100
 DTYPES = [torch.float32, torch.bfloat16]
@@ -172,3 +176,70 @@ def test_cpu_wrapper_bf16_offset_view():
     assert cgemm_cuda.launches == before and Zr.dtype == torch.bfloat16
     Rr, Ri = cgemm_ref(*ts, three_m=False)
     assert torch.equal(Zr, Rr) and torch.equal(Zi, Ri)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", range(len(SHAPES)))
+def test_a_pinned_row_runs_any_m(shape, dtype):
+    """A pin overrides the M-based pick; the grid still covers M, and the
+    load form still follows the operands (C = 3 takes scalar loads)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    for M in (1, 4, 17, 33, 1024, 4096):
+        for C, N in ((64, 64), (3, 64), (512, 512)):
+            v = choose_variant(130, M, C, N, dtype, True, shape)
+            assert v.code % len(SHAPES) == shape
+            assert v.scalar == ((C * size) % 16 != 0
+                                or (N * size) % 16 != 0)
+            assert (v.bm, v.bn, v.bk, v.stages) == (
+                SHAPES[shape][0], SHAPES[shape][1], SHAPES[shape][2],
+                SHAPES[shape][5])
+            assert v.grid == (-(-N // v.bn), -(-M // v.bm), 130)
+            assert v.grid[1] <= 65535
+            assert v.name == variant_name(v.code)
+            assert choose_variant(130, M, C, N, dtype, False, shape).scalar
+
+
+def test_shape_for_blocks_names_one_row():
+    assert shape_for_blocks() is None
+    for i, (bm, bn, bk, *_) in enumerate(SHAPES):
+        assert shape_for_blocks(bm) == i
+        assert shape_for_blocks(bm, bn, bk) == i
+        assert shape_for_blocks(bm=bm, bk=bk) == i
+    assert shape_for_blocks(bn=64) == LARGE
+    for bad in (dict(bk=16), dict(bn=128), dict(bm=12), dict(bm=4, bn=64),
+                dict(bm=64, bk=32), dict(bm=64.0), dict(bm=True)):
+        with pytest.raises(ValueError, match="0: \\(bm=64, bn=64, bk=16\\)"):
+            shape_for_blocks(**bad)
+
+
+def test_variant_launches_count_every_variant_by_name():
+    assert set(cgemm_cuda.variant_launches) == {
+        variant_name(code) for code in range(2 * len(SHAPES))}
+    assert "small-32x128-scalar" in cgemm_cuda.variant_launches
+
+
+@pytest.mark.parametrize("shape", [None] + list(range(len(SHAPES))))
+def test_cpu_wrapper_takes_a_pin(shape):
+    """On the CPU a pinned call runs the plain version and counts no
+    launch, like an unpinned one; a row outside the table is refused."""
+    rng = np.random.default_rng(5)
+    ts = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((2, 9, 24), (2, 9, 24), (2, 24, 40), (2, 24, 40))]
+    before = (cgemm_cuda.launches, dict(cgemm_cuda.variant_launches))
+    Zr, Zi = cgemm_cuda(*ts, shape=shape)
+    assert (cgemm_cuda.launches, cgemm_cuda.variant_launches) == before
+    Rr, Ri = cgemm_ref(*ts)
+    assert torch.equal(Zr, Rr) and torch.equal(Zi, Ri)
+    want = 3 if shape is None else shape       # M = 9: small-16 unpinned
+    assert operand_variant(*ts, shape=shape).code % len(SHAPES) == want
+
+
+@pytest.mark.parametrize("shape", [-1, len(SHAPES), 1.0, True])
+def test_a_pin_outside_the_table_is_refused(shape):
+    ts = [torch.zeros(s) for s in ((1, 4, 4), (1, 4, 4), (1, 4, 4),
+                                   (1, 4, 4))]
+    with pytest.raises(ValueError, match="row of SHAPES"):
+        cgemm_cuda(*ts, shape=shape)
+    choose_variant(1, 4, 4, 4, torch.float32, True, 1)   # a cached row 1
+    with pytest.raises(ValueError, match="row of SHAPES"):
+        choose_variant(1, 4, 4, 4, torch.float32, True, shape)

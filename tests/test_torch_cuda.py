@@ -19,7 +19,9 @@ on aligned planes, on NaN-padded compact rows and on 4-byte-offset views)
 against cuDNN with TF32 off.  The serve engine's CUDA graphs (one per
 replica and bucket) against the eager prepared forward of the same
 kernels and spectra: 1e-5 of the largest |y| (the same kernels run on the
-same operands).
+same operands).  Every row of the CGEMM's tile table pinned at each layer
+of the served trunk, against the unpinned launch: scaled atol 2e-5; and
+the measured autotuner's sweep and cache round trip on the card.
 """
 import itertools
 
@@ -637,3 +639,69 @@ def test_replays_launch_no_kernel(cuda):
         eng.drain(force=True)
     assert [w.launches for w in GRAPH_WRAPPERS] == before
     assert sum(map(sum, eng.report()["graph_replays"].values())) == 5
+
+
+# --------------------------------------------------------------------------
+# The CGEMM tile pin and the measured autotuner
+# --------------------------------------------------------------------------
+
+def _served_trunk_specs():
+    from repro_torch.launch import serve
+    from repro_torch.configs.paper_convs import network_convs
+    net = plan_network(network_convs(serve._vgg_scale(224), 4),
+                       backend="fft-cuda")
+    return [(name, p.spec) for name, p in net.items()]
+
+
+@pytest.mark.parametrize("shape", range(len(SHAPES)))
+def test_every_pinned_row_on_every_vgg_layer(cuda, shape):
+    """Each row of the tile table, pinned on the CGEMM shape of each layer
+    of the served trunk (224x224, batch 4, P = 130), equals the unpinned
+    launch within the CGEMM's tolerance, and ``variant_launches`` names
+    the pinned row."""
+    for name, spec in _served_trunk_specs():
+        ops = _cgemm_operands(130, spec.M, spec.C, spec.Cout,
+                              torch.float32, cuda)
+        Ur, Ui = cgemm_cuda(*ops)
+        want = operand_variant(*ops, shape=shape)
+        assert want.code % len(SHAPES) == shape
+        before = dict(cgemm_cuda.variant_launches)
+        Zr, Zi = cgemm_cuda(*ops, shape=shape)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k]
+                 for k, v in cgemm_cuda.variant_launches.items()
+                 if v != before[k]}
+        assert moved == {want.name: 1}, (name, moved)
+        scale = Ur.abs().max().item() + 1e-9
+        for ours, ref in ((Zr, Ur), (Zi, Ui)):
+            err = (ours - ref).abs().max().item() / scale
+            assert err <= 2e-5, (name, shape, err)
+
+
+def test_tune_on_the_card_round_trips(cuda, tmp_path, monkeypatch):
+    """``tune`` on the card returns a measured winner (CUDA-event
+    medians), writes it to its own file, and a reload from that file
+    returns the same winner without measuring; a tuned plan takes it."""
+    from repro_torch.conv import autotune, autotune_info
+    cache = tmp_path / "tune.json"
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(cache))
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE_BUDGET_MS", raising=False)
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE_REPS", raising=False)
+    x_shape, k_shape = (4, 64, 56, 56), (64, 64, 3, 3)
+    autotune.reset()
+    try:
+        w = autotune.tune(x_shape, k_shape, padding=1)
+        assert w.source == "measured" and w.us_per_call > 0
+        assert autotune_info().measured == 1
+        raw = cache.read_text()
+        assert torch.cuda.get_device_name(cuda) in raw
+        autotune.reset()
+        assert autotune.tune(x_shape, k_shape, padding=1) == w
+        assert tuple(autotune_info()) == (1, 0, 0, 0)
+        plan = plan_conv(x_shape, k_shape, padding=1, backend="tuned",
+                         cache=False)
+        assert (plan.backend, plan.spectrum, plan.bm) == (
+            w.backend, w.spectrum, w.bm)
+    finally:
+        autotune.reset()

@@ -2,10 +2,11 @@
 execution of ``fft-torch`` / ``fft-cuda`` (kernels' plain versions on the
 CPU) against ``fft-xla`` / ``fft-pallas`` and the direct oracle, the
 auto backend pick, the plan and prepared caches after the same call
-sequence, the stage-op counts, the knobs that are not ported yet, and the
-conversion of parameters and prepared slabs.  Outputs are held to 1e-4
-against JAX (same algorithm, float32) and 3e-4 against the oracle (as the
-JAX package's own plan tests)."""
+sequence, the stage-op counts, the CGEMM tile pin (``bm``/``bn``/``bk``),
+the knobs that are not ported yet, and the conversion of parameters and
+prepared slabs.  Outputs are held to 1e-4 against JAX (same algorithm,
+float32) and 3e-4 against the oracle (as the JAX package's own plan
+tests)."""
 import numpy as np
 import pytest
 
@@ -17,6 +18,7 @@ import repro.conv as jconv
 import repro_torch.conv as tconv
 from repro_torch import convert
 from repro_torch.core.fftconv import conv2d_direct
+from repro_torch.kernels.cgemm.ops import SHAPES
 
 TWINS = [("fft-torch", "fft-xla"), ("fft-cuda", "fft-pallas")]
 
@@ -171,12 +173,93 @@ def test_stage_counts_one_shot_and_prepared():
 
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object()), dict(schedule="nfft"), dict(overlap="slab:2"),
-    dict(backend="tuned"), dict(backend="fft-cuda", bm=64),
     dict(backend="fft-cuda", dft_bt=128),
 ])
 def test_not_ported_knobs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tconv.plan_conv((1, 3, 16, 16), (4, 3, 3, 3), padding=1, **kwargs)
+
+
+def test_dft_bt_refusal_names_why():
+    with pytest.raises(NotImplementedError,
+                       match="compile-time number of tiles per block.*"
+                             "item 10"):
+        tconv.plan_conv((1, 3, 16, 16), (4, 3, 3, 3), padding=1,
+                        backend="fft-cuda", dft_bt=64)
+
+
+def _spy_cgemm(monkeypatch):
+    """Record the ``shape=`` of every ``cgemm_cuda`` call."""
+    from repro_torch.kernels import cgemm
+    seen, real = [], cgemm.cgemm_cuda
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("shape"))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(cgemm, "cgemm_cuda", spy)
+    return seen
+
+
+@pytest.mark.parametrize("row", range(len(SHAPES)))
+def test_cgemm_pin_reaches_the_kernel(monkeypatch, row):
+    """bm alone names a row of the kernel's tile table: the plan stores
+    the row's full triple, and the row reaches ``cgemm_cuda`` on the
+    forward plan and on the dx plan of its VJP; the output is the
+    unpinned plan's."""
+    x, k = _rand((2, 3, 18, 18), 31), _rand((4, 3, 3, 3), 32)
+    base = tconv.plan_conv(x.shape, k.shape, padding=1,
+                           backend="fft-cuda")(_t(x), _t(k))
+    seen = _spy_cgemm(monkeypatch)
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                           bm=SHAPES[row][0], cache=False)
+    assert (plan.bm, plan.bn, plan.bk) == SHAPES[row][:3]
+    xg = _t(x).requires_grad_()
+    y = plan(xg, _t(k))
+    assert seen == [row]
+    y.sum().backward()
+    assert seen == [row, row]                  # forward, then dx
+    assert torch.equal(y.detach(), base)
+    seen.clear()
+    tconv.plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                    cache=False)(_t(x), _t(k))
+    assert seen == [None]                      # unpinned: the chooser
+
+
+def test_cgemm_pin_is_in_the_plan_cache_key():
+    shape, kshape = (1, 3, 16, 16), (4, 3, 3, 3)
+    free = tconv.plan_conv(shape, kshape, padding=1, backend="fft-cuda")
+    pinned = tconv.plan_conv(shape, kshape, padding=1, backend="fft-cuda",
+                             bm=8)
+    assert pinned is not free and pinned != free
+    assert tconv.plan_conv(shape, kshape, padding=1, backend="fft-cuda",
+                           bm=8) is pinned
+    # the full triple names the same row: an equal plan
+    assert tconv.plan_conv(shape, kshape, padding=1, backend="fft-cuda",
+                           bm=8, bn=128, bk=16) == pinned
+    assert "blocks bm=8 bn=128 bk=16" in pinned.describe()
+    assert "blocks" not in free.describe()
+
+
+@pytest.mark.parametrize("pins", [
+    dict(bm=12), dict(bk=16), dict(bn=128), dict(bm=64, bn=128),
+    dict(bm=True), dict(bm="64")])
+def test_illegal_cgemm_pin_lists_the_table(pins):
+    with pytest.raises(ValueError, match=r"tile table; its rows are 0: "
+                                         r"\(bm=64, bn=64, bk=16\)"):
+        tconv.plan_conv((1, 3, 16, 16), (4, 3, 3, 3), padding=1,
+                        backend="fft-cuda", cache=False, **pins)
+
+
+@pytest.mark.parametrize("backend", ["direct", "fft-torch"])
+def test_pins_are_stored_unused_off_fft_cuda(backend):
+    """As the reference does for fft-xla: the knobs ride on the plan and
+    change nothing."""
+    x, k = _rand((1, 3, 16, 16), 33), _rand((4, 3, 3, 3), 34)
+    plan = tconv.plan_conv(x.shape, k.shape, padding=1, backend=backend,
+                           bm=12, bk=7, cache=False)
+    assert (plan.bm, plan.bn, plan.bk) == (12, None, 7)
+    base = tconv.plan_conv(x.shape, k.shape, padding=1, backend=backend)
+    assert torch.equal(plan(_t(x), _t(k)), base(_t(x), _t(k)))
 
 
 @pytest.mark.parametrize("delta", [33, 48])

@@ -176,3 +176,112 @@ def test_serve_checks_hold_a_request_to_eager_and_direct():
     eng.results[rids[0]] = eng.results[rids[0]] * (1 + 1e-3)
     with pytest.raises(AssertionError, match="not within"):
         smoke.serve_checks(eng, res, rids[0], xs[0], kernels)
+
+
+# --------------------------------------------------------------------------
+# Phase tune: its gates, fed fake counts (on the CPU nothing launches)
+# --------------------------------------------------------------------------
+
+def _served_specs():
+    from repro_torch.configs.paper_convs import network_convs
+    from repro_torch.conv import plan_network
+    from repro_torch.launch import serve
+    net = plan_network(network_convs(serve._vgg_scale(224), 4),
+                       backend="fft-cuda")
+    return [p.spec for p in net.plans.values()]
+
+
+def test_tune_sweep_launches_count_every_fft_cuda_candidate():
+    """On the served trunk the sweep times 4 fft-cuda candidates a layer
+    (unpinned real, one or two neighbouring rows, complex), except the
+    layers whose chooser row has one neighbour: 3 (M = 1024, 256, 64, 4)
+    or 4 (M = 16).  Each is a warm-up and ``reps`` calls."""
+    specs = _served_specs()
+    counts, tiles = smoke.tune_sweep_launches(specs, 3)
+    n_cands = [3, 3, 3, 3, 3, 3, 4, 4, 3]
+    assert [s.M for s in specs] == [1024, 1024, 256, 256, 64, 64, 16, 16, 4]
+    assert counts["cgemm"] == 4 * sum(n_cands)
+    assert counts["tile_irfft_epilogue"] == 4 * (sum(n_cands) - 9)
+    assert counts["tile_rfft"] == 2 * counts["tile_irfft_epilogue"]
+    assert sum(tiles.values()) == counts["cgemm"]
+    # the pinned rows: small-32 next to the large tile, 8 and 32 next to
+    # small-16, 8 next to small-4
+    assert tiles["small-32x128"] == 4 * (6 + 2)
+    assert tiles["small-8x128"] == 4 * (2 + 1)
+    assert tiles["large-64x64"] == 4 * 2 * 6   # unpinned real + complex
+
+
+def _info(hits, misses, fallbacks, measured):
+    from repro_torch.conv.autotune import AutotuneInfo
+    return AutotuneInfo(hits, misses, fallbacks, measured)
+
+
+def test_check_tune_sweep_wants_every_candidate_measured():
+    specs = _served_specs()
+    want, want_tiles = smoke.tune_sweep_launches(specs, 3)
+    smoke.zero_counts()
+    got = {**smoke.read_counts(), **want}
+    smoke.check_tune_sweep(_info(0, 9, 0, 9), 9, got, want,
+                           dict(want_tiles), want_tiles)
+    # a layer that stopped at its budget before a pinned row
+    short = dict(want_tiles, **{"small-32x128":
+                                want_tiles["small-32x128"] - 4})
+    with pytest.raises(AssertionError, match="unmeasured"):
+        smoke.check_tune_sweep(_info(0, 9, 0, 9), 9, got, want, short,
+                               want_tiles)
+    fewer = dict(got, cgemm=got["cgemm"] - 4)
+    with pytest.raises(AssertionError, match="tune sweep: launches"):
+        smoke.check_tune_sweep(_info(0, 9, 0, 9), 9, fewer, want,
+                               want_tiles, want_tiles)
+    # a warm cache measures nothing: the sweep must miss on every layer
+    with pytest.raises(AssertionError, match="9 misses"):
+        smoke.check_tune_sweep(_info(1, 8, 0, 8), 9, got, want,
+                               want_tiles, want_tiles)
+
+
+def test_check_pinned_rows_wants_the_pinned_row_launched():
+    """A tuned forward whose Vconv4.1 won the small-32 row must launch
+    small-32 there, not the chooser's small-16."""
+    import dataclasses
+    from repro_torch.conv import plan_conv
+    specs = _served_specs()
+    plans = [plan_conv(s, backend="direct") for s in specs[:6]]
+    plans.append(plan_conv(specs[6], backend="fft-cuda", bm=32))
+    plans.append(plan_conv(specs[7], backend="fft-cuda"))
+    plans.append(dataclasses.replace(
+        plan_conv(specs[8], backend="fft-cuda"), spectrum="complex"))
+    counts, tiles = smoke.tuned_forward_launches(plans, 10, 1)
+    assert counts == {"cgemm": 30, "tile_rfft": 22,
+                      "tile_irfft_epilogue": 20}
+    assert tiles == {"small-32x128": 10, "small-16x128": 10,
+                     "small-4x128": 10}
+    smoke.check_pinned_rows(plans, dict(tiles), tiles)
+    chooser = {"small-16x128": 20, "small-4x128": 10}
+    with pytest.raises(AssertionError, match=r"pinned rows \(M, bm\): "
+                                             r"\[\(16, 32\)\]"):
+        smoke.check_pinned_rows(plans, chooser, tiles)
+
+
+def test_tiles_of_merges_the_load_forms():
+    from repro_torch.kernels.cgemm import cgemm_cuda
+    launches = dict.fromkeys(cgemm_cuda.variant_launches, 0)
+    launches.update({"large-64x64": 5, "large-64x64-scalar": 1,
+                     "small-4x128": 2})
+    assert smoke.tiles_of(launches) == {"large-64x64": 6, "small-4x128": 2}
+    smoke.zero_counts()
+    assert not any(cgemm_cuda.variant_launches.values())
+
+
+def test_check_tune_round_trip():
+    winners = {"a": ("fft-cuda", "real", 32, 128, 16),
+               "b": ("direct", "real", None, None, None)}
+    version = smoke.autotune.CACHE_VERSION
+    smoke.check_tune_round_trip(_info(2, 0, 0, 0), 2, winners,
+                                dict(winners), version)
+    for info, again, v in (
+            (_info(1, 1, 0, 1), winners, version),     # one re-measured
+            (_info(2, 0, 0, 0), {**winners, "a": ("direct", "real", None,
+                                                  None, None)}, version),
+            (_info(2, 0, 0, 0), winners, version + 1)):
+        with pytest.raises(AssertionError, match="tune round trip"):
+            smoke.check_tune_round_trip(info, 2, winners, again, v)
