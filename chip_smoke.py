@@ -87,13 +87,35 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               winners, from a file of this ``CACHE_VERSION``.  Reported,
               not gated: both trunks' p50 and busy time beside the eager
               ``slice``/``profile``
+ 11. sharded  the paper's schedules on a one-rank NCCL mesh (one card: NCCL
+              takes one rank per GPU): a process group started from a
+              ``HashStore`` with ``device_id=cuda:0``, ``make_mesh((1, 1),
+              ("data", "model"))``, and the served trunk (the slice's
+              weights and request batch) through ``plan_network(mesh=)`` ->
+              ``prepare`` -> forward on ``fft-cuda``, for ``nfft`` and
+              ``wfft`` each with ``overlap="off"`` and ``"slab:2"``; then
+              one layer one-shot on ``nfft``, with and without
+              ``replicate_kernel_transform``.  Gates: the output's
+              ``full_tensor()`` within ``GRAPH_TOL`` of the eager local
+              ``fft-cuda`` trunk (phase ``slice``) and ``SLICE_TOL`` of
+              cuDNN; exact launches per prepare and per forward, counted
+              per layer and per slab, every slab of a layer on one CGEMM
+              row, no generic tile DFT; exact collectives (prepared nfft
+              ``2k`` boundary all-to-alls a layer and no all-reduce,
+              one-shot one more unless the kernel transform is replicated;
+              wfft ``k`` all-reduces a layer and no all-to-all).
+              Before the trunks, the CGEMM at each configuration's
+              per-slab shapes and pinned tile row against its plain
+              version (``CGEMM_TOL``).  Reported, not gated: each
+              configuration's p50 and busy time beside the local trunk's,
+              and the device time of the NCCL kernels
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9, 10) and read right after it; each path must launch its own
-kernels and none of the others, and every tile DFT, forward and inverse,
-only in its specialised form.
+(4, 6, 7, 8, 9, 10, 11) and read right after it; each path must launch its
+own kernels and none of the others, and every tile DFT, forward and
+inverse, only in its specialised form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
@@ -135,6 +157,7 @@ from repro_torch.kernels.dft_tile import (  # noqa: E402
     tile_rfft_cuda, tile_rfft_ref)
 from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
 from repro_torch.launch import batcher, serve  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models.layers import conv_block, maxpool2x2  # noqa: E402
 
 IMAGE, BATCH, GEN, SEED = 224, 4, 10, 0
@@ -178,6 +201,9 @@ SERVE_WINDOW_MS = 2.0                   # serve --batch-window-ms default
 LONE_REQUESTS = 20                      # timed lone batch-4 requests
 # the tuner's settings, unset for phase tune (its defaults: 2000 ms a
 # layer, 3 timed calls a candidate); its cache goes to a temporary file
+SHARDED = [("nfft", "off"), ("nfft", "slab:2"), ("wfft", "off"),
+           ("wfft", "slab:2")]              # (schedule, overlap) of phase 11
+ONE_SHOT_LAYER = "Vconv3.1"
 TUNE_ENV = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_CACHE",
             "REPRO_TORCH_AUTOTUNE_BUDGET_MS", "REPRO_TORCH_AUTOTUNE_REPS")
 
@@ -303,58 +329,64 @@ def dx_plan_layers():
             for name, plan in list(net.items())[1:]]
 
 
+def cgemm_row(name, P, M, C, N, dtype, three_m, spectrum, gen, shape=None,
+              **extra):
+    """One CGEMM case: the wrapper (on tile row ``shape`` of ``SHAPES``
+    when given, else the chooser's) against ``cgemm_ref`` within
+    ``CGEMM_TOL``, timed beside the plain version and complex64
+    ``torch.matmul``; emitted as a ``kernel`` row naming the variant
+    launched, the achieved rate of 3M/4M operations and of bytes, and the
+    bound's share of the time."""
+    Dr, Di = (torch.randn((P, M, C), generator=gen, device="cuda")
+              .to(dtype) for _ in range(2))
+    Gr, Gi = (torch.randn((P, C, N), generator=gen, device="cuda")
+              .to(dtype) for _ in range(2))
+    Zr, Zi = cgemm_cuda(Dr, Di, Gr, Gi, three_m=three_m, shape=shape)
+    Rr, Ri = cgemm_ref(Dr, Di, Gr, Gi, three_m=three_m)
+    torch.cuda.synchronize()
+    err = max((Zr.float() - Rr.float()).abs().max().item(),
+              (Zi.float() - Ri.float()).abs().max().item())
+    scale = Rr.float().abs().max().item() + 1e-9
+    if not err / scale <= CGEMM_TOL[dtype]:
+        raise AssertionError(
+            f"cgemm {name} {dtype} three_m={three_m} shape={shape} "
+            f"{[P, M, C, N]}: scaled error {err / scale:.3e} > "
+            f"{CGEMM_TOL[dtype]}")
+    ms = time_ms(lambda: cgemm_cuda(Dr, Di, Gr, Gi, three_m=three_m,
+                                    shape=shape))
+    plain_ms = time_ms(lambda: cgemm_ref(Dr, Di, Gr, Gi, three_m=three_m))
+    library_ms = None
+    if dtype == torch.float32:
+        Dc, Gc = torch.complex(Dr, Di), torch.complex(Gr, Gi)
+        library_ms = time_ms(lambda: torch.matmul(Dc, Gc))
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 2 * size * (P * M * C + P * C * N + P * M * N)
+    flops = (6 if three_m else 8) * P * M * C * N
+    b = bound(nbytes, flops, dtype)
+    v = operand_variant(Dr, Di, Gr, Gi, shape)
+    row = dict(kernel="cgemm", layer=name, shape=[P, M, C, N],
+               spectrum=spectrum, dtype=str(dtype).removeprefix("torch."),
+               three_m=three_m, variant=v.name, variant_code=v.code,
+               max_abs_err=err, scaled_err=err / scale, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               tflops=flops / ms / 1e9, tb_s=nbytes / ms / 1e9,
+               bound_share=b["bound_ms"] / ms, **extra, **b)
+    emit("kernel", **row)
+    return row
+
+
 def check_cgemm(layers, gen):
     """At the served forward's shapes (P = 130) in float32 3M and 4M and
-    with bf16 operands, and at the rect path's (P = 144) in float32 3M.
-    Each row names the kernel variant the wrapper launched, and gives the
-    achieved rate of 3M/4M operations and of bytes and the bound's share
-    of the time."""
-    rows = []
-    for dtype, three_m, spectrum in (
-            (torch.float32, True, "real"), (torch.float32, False, "real"),
-            (torch.bfloat16, True, "real"), (torch.float32, True, "rect")):
-        for name, spec in layers:
-            P, M, C, N = (freq_count(spec, spectrum), spec.M, spec.C,
-                          spec.Cout)
-            Dr, Di = (torch.randn((P, M, C), generator=gen, device="cuda")
-                      .to(dtype) for _ in range(2))
-            Gr, Gi = (torch.randn((P, C, N), generator=gen, device="cuda")
-                      .to(dtype) for _ in range(2))
-            Zr, Zi = cgemm_cuda(Dr, Di, Gr, Gi, three_m=three_m)
-            Rr, Ri = cgemm_ref(Dr, Di, Gr, Gi, three_m=three_m)
-            torch.cuda.synchronize()
-            err = max((Zr.float() - Rr.float()).abs().max().item(),
-                      (Zi.float() - Ri.float()).abs().max().item())
-            scale = Rr.float().abs().max().item() + 1e-9
-            if not err / scale <= CGEMM_TOL[dtype]:
-                raise AssertionError(
-                    f"cgemm {name} {dtype} three_m={three_m} P={P}: scaled "
-                    f"error {err / scale:.3e} > {CGEMM_TOL[dtype]}")
-            ms = time_ms(lambda: cgemm_cuda(Dr, Di, Gr, Gi,
-                                            three_m=three_m))
-            plain_ms = time_ms(lambda: cgemm_ref(Dr, Di, Gr, Gi,
-                                                 three_m=three_m))
-            library_ms = None
-            if dtype == torch.float32:
-                Dc, Gc = torch.complex(Dr, Di), torch.complex(Gr, Gi)
-                library_ms = time_ms(lambda: torch.matmul(Dc, Gc))
-            size = torch.tensor([], dtype=dtype).element_size()
-            nbytes = 2 * size * (P * M * C + P * C * N + P * M * N)
-            flops = (6 if three_m else 8) * P * M * C * N
-            b = bound(nbytes, flops, dtype)
-            v = operand_variant(Dr, Di, Gr, Gi)
-            row = dict(kernel="cgemm", layer=name, shape=[P, M, C, N],
-                       spectrum=spectrum,
-                       dtype=str(dtype).removeprefix("torch."),
-                       three_m=three_m, variant=v.name,
-                       variant_code=v.code, max_abs_err=err,
-                       scaled_err=err / scale, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms,
-                       tflops=flops / ms / 1e9, tb_s=nbytes / ms / 1e9,
-                       bound_share=b["bound_ms"] / ms, **b)
-            emit("kernel", **row)
-            rows.append(row)
-    return rows
+    with bf16 operands, and at the rect path's (P = 144) in float32 3M,
+    each on the chooser's tile row."""
+    return [cgemm_row(name, freq_count(spec, spectrum), spec.M, spec.C,
+                      spec.Cout, dtype, three_m, spectrum, gen)
+            for dtype, three_m, spectrum in (
+                (torch.float32, True, "real"),
+                (torch.float32, False, "real"),
+                (torch.bfloat16, True, "real"),
+                (torch.float32, True, "rect"))
+            for name, spec in layers]
 
 
 def check_inverse(layers, gen):
@@ -1542,6 +1574,252 @@ def tune_phase(res, y_ref, slice_p50_ms, profile_busy_us):
             + pinned["launches"][k] for k in KERNELS}
 
 
+def sharded_launches(n_layers, slabs, forwards, prepares, one_shot=False):
+    """Launches of a sharded ``fft-cuda`` trunk: per layer and forward,
+    per slab, one forward tile DFT (stage 1), one CGEMM and one fused
+    inverse; per layer one forward tile DFT per prepare, or per forward
+    when one-shot (stage 2 inline, never slabbed)."""
+    per_fwd = n_layers * slabs * forwards
+    stage2 = n_layers * (forwards if one_shot else prepares)
+    return {"tile_rfft": per_fwd + stage2, "cgemm": per_fwd,
+            "tile_irfft_epilogue": per_fwd}
+
+
+def sharded_collectives(schedule, slabs, one_shot=False, replicate=False):
+    """Collectives of one sharded layer's forward: nfft two boundary
+    all-to-alls per slab (#1, #3), and #2 when one-shot with the kernel
+    transform not replicated, never an all-reduce; wfft one all-reduce
+    per slab and no all-to-all."""
+    if schedule == "nfft":
+        return {"all_to_all": 2 * slabs + (one_shot and not replicate),
+                "all_reduce": 0}
+    return {"all_to_all": 0, "all_reduce": slabs}
+
+
+def check_collectives(what, trace, want, n_layers, forwards):
+    """``trace`` (a ``stage_trace``) holds exactly ``want`` per layer and
+    forward, and one boundary all-to-all per all-to-all issued."""
+    got = {kind: trace[("collective", kind)] for kind in want}
+    need = {kind: n * n_layers * forwards for kind, n in want.items()}
+    if got != need or trace["boundary_a2a"] != got["all_to_all"]:
+        raise AssertionError(
+            f"{what}: collectives {got} ({trace['boundary_a2a']} boundary "
+            f"all-to-alls), expected {need}")
+    return got
+
+
+def check_one_row(what, per_layer, slabs):
+    """Every slab of a layer launched the CGEMM on one tile row:
+    ``per_layer`` maps a layer to its launches by variant in one
+    forward."""
+    for name, variants in per_layer.items():
+        rows = tiles_of(variants)
+        if len(rows) != 1 or sum(rows.values()) != slabs:
+            raise AssertionError(
+                f"{what} {name}: CGEMM launches {variants}, expected "
+                f"{slabs} on one tile row")
+
+
+def sharded_forward(prepared, x, biases, per_layer=None):
+    """The served trunk through a sharded network's prepared layers (their
+    ``DTensor`` outputs chained, pools on each rank's block); with
+    ``per_layer``, each layer's CGEMM launches by variant go into it."""
+    h = x
+    for name in prepared:
+        before = dict(cgemm_cuda.variant_launches)
+        h = prepared[name](h, bias=biases[name])
+        if per_layer is not None:
+            per_layer[name] = {v: n - before[v] for v, n in
+                               cgemm_cuda.variant_launches.items()
+                               if n != before[v]}
+        if name in serve._VGG_POOL_AFTER:
+            h = maxpool2x2(h)
+    return h
+
+
+def nccl_us(rows):
+    """Device us of the NCCL kernels among profiler rows."""
+    return sum(t for t, k, _ in rows if "nccl" in k.lower())
+
+
+def sharded_trunk(schedule, overlap, mesh, convs, res, y_local, y_ref):
+    """One sharded configuration of the served trunk: a prepare, one
+    forward counted layer by layer, GEN timed forwards, a profiled one;
+    the gates of phase 11.  Returns (report, launches)."""
+    what = f"sharded {schedule} {overlap}"
+    net = plan_network(convs, backend="fft-cuda", mesh=mesh,
+                       schedule=schedule, overlap=overlap)
+    slabs = {p.num_slabs for p in net.plans.values()}
+    if len(slabs) != 1:
+        raise AssertionError(f"{what}: slab counts {slabs}")
+    slabs = slabs.pop()
+    n_layers = len(net)
+    total = dict.fromkeys(KERNELS, 0)
+    with torch.inference_mode():
+        zero_counts()
+        prepared = net.prepare(res.kernels)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"{what} prepare", counts,
+                      sharded_launches(n_layers, slabs, 0, 1))
+        total = {k: total[k] + counts[k] for k in KERNELS}
+
+        zero_counts()
+        per_layer = {}
+        with stages.stage_trace() as trace:
+            y = sharded_forward(prepared, res.x, res.biases, per_layer)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"{what} forward", counts,
+                      sharded_launches(n_layers, slabs, 1, 0))
+        check_one_row(what, per_layer, slabs)
+        collectives = check_collectives(
+            what, trace, sharded_collectives(schedule, slabs), n_layers, 1)
+        total = {k: total[k] + counts[k] for k in KERNELS}
+        full = y.full_tensor()
+        rel_local, rel_ref = rel_err(full, y_local), rel_err(full, y_ref)
+        if tuple(full.shape) != tuple(y_ref.shape) \
+                or not bool(torch.isfinite(full).all()) \
+                or not (rel_local <= GRAPH_TOL and rel_ref <= SLICE_TOL):
+            raise AssertionError(
+                f"{what}: shape {tuple(full.shape)}, {rel_local:.3e} from "
+                f"the local trunk (<= {GRAPH_TOL}), {rel_ref:.3e} from "
+                f"cuDNN (<= {SLICE_TOL})")
+
+        zero_counts()
+        lats = []
+        for _ in range(GEN):
+            t0 = time.perf_counter()
+            sharded_forward(prepared, res.x, res.biases)
+            torch.cuda.synchronize()
+            lats.append(time.perf_counter() - t0)
+        counts = read_counts()
+        expect_counts(f"{what} timed forwards", counts,
+                      sharded_launches(n_layers, slabs, GEN, 0))
+        total = {k: total[k] + counts[k] for k in KERNELS}
+        rows, busy, wall_us = device_profile(
+            lambda: sharded_forward(prepared, res.x, res.biases))
+    p50_ms = serve._percentile(lats, 50) * 1e3
+    return dict(
+        schedule=schedule, overlap=overlap, slabs=slabs,
+        cgemm_rows={n: tiles_of(v) for n, v in per_layer.items()},
+        launches_per_forward=sharded_launches(n_layers, slabs, 1, 0),
+        collectives_per_forward=collectives,
+        collective_bytes_per_forward={
+            kind: trace[("collective_bytes", kind)]
+            for kind in collectives},
+        rel_err_vs_local=rel_local, rel_err_vs_cudnn=rel_ref,
+        p50_ms=p50_ms, max_ms=max(lats) * 1e3, device_busy_us=busy,
+        nccl_device_us=nccl_us(rows), profiled_wall_us=wall_us,
+        idle_share_vs_p50=1 - busy / (p50_ms * 1e3),
+        kernels=[{"name": k[:90], "device_us": t, "calls": c}
+                 for t, k, c in rows[:12]]), total
+
+
+def sharded_one_shot(mesh, convs, res, gen):
+    """One layer one-shot on nfft, with and without the replicated kernel
+    transform, against the local one-shot plan (``GRAPH_TOL``) and cuDNN
+    (``SLICE_TOL``): exact launches and collectives."""
+    conv = next(c for c in convs if c.name == ONE_SHOT_LAYER)
+    ep = conv.epilogue
+    x = torch.randn(conv.x_shape, generator=gen, device="cuda")
+    k, b = res.kernels[conv.name], res.biases[conv.name]
+    kw = dict(padding=conv.padding, epilogue=ep)
+    with torch.inference_mode():
+        y_local = plan_conv(conv.x_shape, conv.k_shape, backend="fft-cuda",
+                            **kw)(x, k, bias=b)
+        y_ref = plan_conv(conv.x_shape, conv.k_shape, backend="direct",
+                          **kw)(x, k, bias=b)
+    out, total = [], dict.fromkeys(KERNELS, 0)
+    for replicate in (False, True):
+        what = f"sharded one-shot {conv.name} replicate={replicate}"
+        plan = plan_conv(conv.x_shape, conv.k_shape, backend="fft-cuda",
+                         mesh=mesh, schedule="nfft",
+                         replicate_kernel_transform=replicate, **kw)
+        zero_counts()
+        with stages.stage_trace() as trace, torch.inference_mode():
+            y = plan(x, k, bias=b).full_tensor()
+            torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(what, counts,
+                      sharded_launches(1, plan.num_slabs, 1, 0, True))
+        got = check_collectives(what, trace, sharded_collectives(
+            "nfft", plan.num_slabs, True, replicate), 1, 1)
+        rel_local, rel_ref = rel_err(y, y_local), rel_err(y, y_ref)
+        if not (rel_local <= GRAPH_TOL and rel_ref <= SLICE_TOL):
+            raise AssertionError(f"{what}: {rel_local:.3e} from local, "
+                                 f"{rel_ref:.3e} from cuDNN")
+        with torch.inference_mode():
+            ms = time_ms(lambda: plan(x, k, bias=b), reps=5)
+        out.append(dict(layer=conv.name, replicate=replicate,
+                        collectives=got, rel_err_vs_local=rel_local,
+                        rel_err_vs_cudnn=rel_ref, ms=ms))
+        total = {n: total[n] + counts[n] for n in KERNELS}
+    return out, total
+
+
+def check_slab_cgemm(mesh, convs, gen, checked):
+    """The CGEMM of each sharded configuration at the shapes its stage 3
+    runs, one per slab (nfft: P/N, M_slab, C, C'/N; wfft: P, M_slab, C/N,
+    C'), on the tile row its plan pins, against ``cgemm_ref``.  A shape
+    and variant that ``check_cgemm`` already held (``checked``: (P, M, C,
+    N, variant) keys) is not repeated."""
+    rows = []
+    for schedule, overlap in SHARDED:
+        net = plan_network(convs, backend="fft-cuda", mesh=mesh,
+                           schedule=schedule, overlap=overlap)
+        for name, plan in net.items():
+            spec = stages.padded_sharded_spec(plan)
+            n_data = stages.axis_size(mesh, plan.data_axis)
+            n = stages.axis_size(mesh, plan.model_axis)
+            P = freq_count(spec, "real")
+            if schedule == "nfft":
+                P, C, N = (P + (-P) % n) // n, spec.C, spec.Cout // n
+            else:
+                C, N = spec.C // n, spec.Cout
+            row = shape_for_blocks(plan.bm, plan.bn, plan.bk)
+            for b in stages._slab_sizes(spec.B // n_data, plan.num_slabs):
+                M = b * spec.n_tiles
+                key = (P, M, C, N, choose_variant(P, M, C, N, torch.float32,
+                                                  True, row).name)
+                if key in checked:
+                    continue
+                checked.add(key)
+                rows.append(cgemm_row(
+                    name, P, M, C, N, torch.float32, plan.three_m, "real",
+                    gen, row, schedule=schedule, overlap=overlap,
+                    slab_batch=b, pinned_row=row))
+    return rows
+
+
+def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked):
+    """Phase 11: the paper's schedules on a one-rank NCCL mesh.  A process
+    group that fails to start fails the smoke: there is no fallback.
+    ``checked`` holds the CGEMM cases ``check_cgemm`` held already."""
+    tmesh.start_process_group("nccl", device_id=torch.device("cuda", 0))
+    try:
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        convs = network_convs(serve._vgg_scale(IMAGE), BATCH)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        slab_rows = check_slab_cgemm(mesh, convs, gen, checked)
+        configs, total = [], dict.fromkeys(KERNELS, 0)
+        for schedule, overlap in SHARDED:
+            report, counts = sharded_trunk(schedule, overlap, mesh, convs,
+                                           res, res.y, y_ref)
+            configs.append(report)
+            total = {k: total[k] + counts[k] for k in KERNELS}
+        one_shot, counts = sharded_one_shot(mesh, convs, res, gen)
+        total = {k: total[k] + counts[k] for k in KERNELS}
+    finally:
+        tmesh.destroy_process_group()
+    emit("sharded", mesh=[1, 1], backend="nccl", image=IMAGE, batch=BATCH,
+         configs=configs, one_shot=one_shot, launches=total,
+         slab_cgemm_cases=len(slab_rows),
+         local_slice_p50_ms=slice_p50_ms,
+         local_profile_busy_us=profile_busy_us)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -1617,14 +1895,19 @@ def main():
     trainer_counts = trainer_phase()
     trace_counts = serve_trace_phase(slice_p50_ms, profile_busy_us)
     tune_counts = tune_phase(res, y_ref, slice_p50_ms, profile_busy_us)
+    checked = {(*r["shape"], r["variant"]) for r in cg_rows
+               if r["dtype"] == "float32" and r["three_m"]
+               and r["spectrum"] == "real"}
+    sharded_counts = sharded_phase(res, y_ref, slice_p50_ms,
+                                   profile_busy_us, checked)
     device_times(fwd_rows + rfwd_rows + inv_rows + binv_rows + rinv_rows
                  + rinv_ep_rows)
 
-    # launches: the six main paths together (slice, rect, train, trainer,
-    # serve_trace, tune)
+    # launches: the seven main paths together (slice, rect, train, trainer,
+    # serve_trace, tune, sharded)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
                 + trainer_counts[k] + trace_counts[k] + tune_counts[k]
-                for k in KERNELS}
+                + sharded_counts[k] for k in KERNELS}
     main_cg = [r for r in cg_rows if r["dtype"] == "float32"
                and r["three_m"] and r["spectrum"] == "real"]
     main_inv = inv_rows[:n_layers]

@@ -187,8 +187,19 @@ class _PreparedConv(torch.autograd.Function):
         return None, dx, dbias, dres
 
 
+def _refuse_sharded(plan):
+    """The dx plan of a sharded plan would be sharded too, and its
+    operands DTensors: not ported yet."""
+    if plan.mesh is not None:
+        raise NotImplementedError(
+            f"grads through schedule {plan.schedule!r} (the plan-level "
+            "VJP of the sharded schedules) are not yet ported to "
+            "repro_torch (ROADMAP Queue 1 item 12)")
+
+
 def pipeline_conv(plan, x, k, bias=None, residual=None):
     """Differentiable execution of a stage-pipeline plan (epilogue fused)."""
+    _refuse_sharded(plan)
     return _PipelineConv.apply(plan, x, k, bias, residual)
 
 
@@ -196,4 +207,5 @@ def prepared_conv(prepared, x, bias=None, residual=None):
     """Execute a ``PreparedConv`` with grads w.r.t. ``x`` (and bias /
     residual, when the epilogue carries them) defined by the same
     transposed-plan VJP as ``pipeline_conv``."""
+    _refuse_sharded(prepared.plan)
     return _PreparedConv.apply(prepared, x, bias, residual)

@@ -298,7 +298,7 @@ def spec_signature(x_shape, k_shape, *, padding=(0, 0), delta: int = 16,
     legally get different winners must get different signatures: a
     pin-constrained sweep must never answer for an unconstrained one.
     (The reference's mesh, axes and kernel-transform placement belong to
-    the sharded schedules, which the port does not have yet.)"""
+    the tuner over the sharded schedules, which is not ported yet.)"""
     pad = _normalize_padding(padding)
     return (f"v{CACHE_VERSION}"
             f"|x={tuple(map(int, x_shape))}|k={tuple(map(int, k_shape))}"
@@ -365,8 +365,8 @@ def candidates(spec: ConvSpec, *, schedule: str = "auto",
     tiles (then deduplicated)."""
     if schedule not in ("auto", "local"):
         raise NotImplementedError(
-            f"schedule {schedule!r} is not yet ported to repro_torch "
-            "(sharded execution, ROADMAP Queue 1 item 5)")
+            f"the tuner over schedule {schedule!r} is not yet ported to "
+            "repro_torch (nfft/wfft x overlap, ROADMAP Queue 1 item 13)")
     if dft_bt is not None:
         raise NotImplementedError(
             "dft_bt is not yet ported to repro_torch (ROADMAP Queue 1 "

@@ -2,6 +2,11 @@
 
 Schedules:
   local  single device, no collectives.
+  nfft   the paper's NUMA-aware tuple partitioning: transforms run where
+         the data lives, one all-to-all per stage boundary, collective-free
+         hot CGEMM.
+  wfft   the Wang et al. baseline: channel-sharded CGEMM with an
+         all-reduce inside the hot stage.
 
 Backends:
   direct     ``F.conv2d`` (cuDNN on the card; the oracle path, and the
@@ -11,15 +16,18 @@ Backends:
   fft-torch  the paper's 4-stage pipeline composed from
              ``repro_torch.conv.stages`` with the PyTorch matmul CGEMM.
   fft-cuda   the same stage graph on the hand-written CUDA kernels: the
-             hot CGEMM (``kernels/cgemm``) on every spectrum, and on the
-             ``local`` schedule with the ``real`` spectrum the ``dft_tile``
+             hot CGEMM (``kernels/cgemm``) on every spectrum, and with
+             the ``real`` spectrum, on every schedule, the ``dft_tile``
              kernels for the tile transforms — stages 1 and 2 through the
              forward tile DFT, stage 4 through the inverse with a
              bias/activation epilogue fused into its tail (the inverse never
              round-trips to device memory before the elementwise pass), or
              through the plain inverse followed by the epilogue when there
-             is no bias or activation to fuse or a residual.  On CPU
-             tensors every kernel runs its plain PyTorch version.
+             is no bias or activation to fuse or a residual; on
+             ``nfft``/``wfft`` each on the rank's C'/N stage-4 slab (the
+             reference's sharded bodies fuse the epilogue at the stage
+             level instead: the same function).  On CPU tensors every
+             kernel runs its plain PyTorch version.
 
 ``_cuda_fused_inverse`` is the fused stage-4 tail of the ``rect`` layout,
 which no plan uses: direct callers of the raw stage ops pass it to
@@ -110,7 +118,7 @@ def _fft_torch_pipeline(plan):
 
 def _fft_cuda_pipeline(plan):
     tiles = {}
-    if plan.schedule == "local" and plan.spectrum == "real":
+    if plan.spectrum == "real":
         # the dft_tile kernels read and write the compact layout; the
         # full-spectrum twin takes the composed stage ops
         from repro_torch.kernels.dft_tile import (
@@ -124,15 +132,20 @@ def _fft_cuda_pipeline(plan):
 def register_builtin() -> None:
     register_schedule("local", requires_mesh=False,
                       description="single device, no collectives")
+    register_schedule("nfft", requires_mesh=True,
+                      description="paper: tuple partitioning, a2a at stage "
+                                  "boundaries, collective-free CGEMM")
+    register_schedule("wfft", requires_mesh=True,
+                      description="baseline: all-reduce inside the hot CGEMM")
 
     register_backend("direct", _exec_direct, schedules=("local",),
                      native_autodiff=True, supports_epilogue=True,
                      description="torch.nn.functional.conv2d (cuDNN)")
     register_backend("fft-torch", pipeline_factory=_fft_torch_pipeline,
-                     schedules=("local",),
+                     schedules=("local", "nfft", "wfft"),
                      description="FFT conv stage graph, PyTorch matmul "
                                  "CGEMM")
     register_backend("fft-cuda", pipeline_factory=_fft_cuda_pipeline,
-                     schedules=("local",),
+                     schedules=("local", "nfft", "wfft"),
                      description="FFT conv stage graph, CUDA CGEMM and "
                                  "tile DFT kernels")

@@ -9,7 +9,7 @@ a model in ONE pass against the shared plan cache:
         NetworkConv("conv1", x_shape, k_shape, padding=1,
                     epilogue=Epilogue(bias=True, activation="relu")),
         ...
-    ], backend="fft-cuda")
+    ], backend="fft-cuda")          # or mesh=mesh, schedule="nfft"
 
     # serving: one invalidation sweep per weight update
     prepared = net.prepare(params, weights_version=step)
@@ -37,7 +37,8 @@ import warnings
 from typing import Any, Callable, Mapping, Optional, Sequence, Union
 
 from repro_torch.conv.epilogue import Epilogue
-from repro_torch.conv.plan import ConvPlan, PreparedConv, plan_conv
+from repro_torch.conv.plan import (
+    ConvPlan, PreparedConv, plan_conv)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,9 +195,16 @@ class NetworkPlan:
         distinct = len({id(p) for p in self.plans.values()})
         lines = [f"NetworkPlan: {len(self.plans)} layers, {distinct} "
                  f"distinct plans, {total:.3e} FLOPs/pass"]
+        meshes = dict.fromkeys(p.mesh for p in self.plans.values()
+                               if p.mesh is not None)
+        for mesh in meshes:
+            axes = " x ".join(f"{a}={n}" for a, n in
+                              zip(mesh.mesh_dim_names, mesh.shape))
+            lines.append(f"  mesh {axes} ({mesh.device_type})")
         for name, plan in self.plans.items():
             lines.append(
                 f"  {name}: {plan.backend}/{plan.schedule} "
+                f"overlap={plan.overlap} "
                 f"epilogue={plan.epilogue.describe()} "
                 f"flops={plan.flops():.3e}")
         return "\n".join(lines)
@@ -259,6 +267,8 @@ def plan_network(layers: Union[Sequence[NetworkConv], Callable], *,
                  buckets: Optional[Sequence[int]] = None,
                  backend: str = "auto", schedule: str = "auto", mesh=None,
                  delta: int = 16, three_m: bool = True, compute_dtype=None,
+                 data_axis: str = "data", model_axis: str = "model",
+                 replicate_kernel_transform: bool = False,
                  spectrum: str = "auto", overlap: str = "off"):
     """Resolve every conv layer of a model in one planning pass.
 
@@ -266,10 +276,11 @@ def plan_network(layers: Union[Sequence[NetworkConv], Callable], *,
     precision); a ``NetworkConv.overrides`` tuple adjusts individual
     layers.  Resolution goes through the shared ``plan_conv`` cache, so
     same-geometry layers (and repeat ``plan_network`` calls) share frozen
-    ``ConvPlan`` objects.  ``mesh`` and ``overlap`` are passed through to
-    ``plan_conv``, which rejects a mesh and a slab overlap until they are
-    ported (``overlap="auto"`` resolves to ``"off"``) and ``fft-cuda``
-    beyond its kernels' tile limit.
+    ``ConvPlan`` objects.  ``mesh``, its axes, ``schedule``,
+    ``replicate_kernel_transform`` and ``overlap`` pass through to
+    ``plan_conv``: on a mesh every layer is sharded, its output is the
+    ``DTensor`` (B over ``data_axis``, channels over ``model_axis``) that
+    the next sharded layer takes as it is, with no gather in between.
 
     With ``buckets=batches``, ``layers`` must instead be a callable
     ``make_layers(batch)`` returning the ``NetworkConv`` sequence for one
@@ -284,6 +295,8 @@ def plan_network(layers: Union[Sequence[NetworkConv], Callable], *,
     """
     shared = dict(backend=backend, schedule=schedule, mesh=mesh, delta=delta,
                   three_m=three_m, compute_dtype=compute_dtype,
+                  data_axis=data_axis, model_axis=model_axis,
+                  replicate_kernel_transform=replicate_kernel_transform,
                   spectrum=spectrum, overlap=overlap)
     if buckets is not None:
         if not callable(layers):

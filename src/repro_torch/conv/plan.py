@@ -1,17 +1,18 @@
 """Plan/execute convolution engine (FFTW-style).
 
 The best convolution algorithm is geometry-dependent (direct vs FFT
-crossover; tile size; 3M vs 4M complex product), so selection lives in a
-planner rather than at call sites:
+crossover; tile size; 3M vs 4M complex product; nFFT tuple partitioning vs
+wFFT), so selection lives in a planner rather than at call sites:
 
     plan = plan_conv(x.shape, k.shape, padding=1)   # plan once
     y = plan(x, k)                                  # execute many times
 
 ``ConvPlan`` freezes everything the execution needs: the geometry
-(``ConvSpec``), the (backend, schedule) pair, precision, ``three_m`` and the
-fused epilogue.  Plans are memoized in a keyed LRU cache so repeated layer
-shapes pay planning once.  A plan holds no tensors: it runs on whatever
-device its operands lie on.
+(``ConvSpec``), the (backend, schedule) pair, precision, ``three_m``, the
+fused epilogue and, for the sharded schedules, the mesh and its axes.
+Plans are memoized in a keyed LRU cache so repeated layer shapes pay
+planning once.  A plan holds no tensors: it runs on whatever device its
+operands lie on.
 
 On top of the one-shot ``plan(x, k)`` there is a prepare/execute split for
 fixed kernels (serving):
@@ -19,12 +20,26 @@ fixed kernels (serving):
     prepared = plan.prepare(k, weights_version=step)   # stage 2 runs here
     y = prepared(x)                                    # stage 2 never again
 
-The prepared cache is keyed by (plan, kernel object) and checked against
-``weights_version``: prepare with a new version recomputes (invalidation),
-with the same version returns the cached ``PreparedConv``.
+``prepare`` caches the transformed kernel ``G`` in the exact layout the
+schedule consumes — for ``nfft`` each rank's post-all-to-all P-slab, so
+prepared sharded execution runs the kernel transform AND boundary
+all-to-all #2 zero times.  The prepared cache is keyed by (plan, kernel
+object) and checked against ``weights_version``: prepare with a new
+version recomputes (invalidation), with the same version returns the
+cached ``PreparedConv``.
 
-``backend="auto"`` picks direct vs FFT from the ``ConvSpec`` cost model;
-``schedule="auto"`` is ``local``.  ``backend="tuned"`` measures instead
+The sharded schedules (``nfft``, ``wfft``) run SPMD over a
+``torch.distributed`` ``DeviceMesh`` (``repro_torch.launch.mesh``): every
+rank calls the plan with the same global operands (the input may instead
+be a ``DTensor`` placed as the output is), takes its block as the
+reference's ``shard_map`` ``in_specs`` say, and gets a ``DTensor``
+placed (B over ``data_axis``, C' over ``model_axis``) with the unpadded
+global shape; its ``full_tensor()`` is the reference's output.  A
+layer's output feeds the next sharded layer as it is.
+
+``backend="auto"`` picks direct vs FFT from the ``ConvSpec`` cost model
+(``fft-torch`` on a mesh); ``schedule="auto"`` picks ``nfft`` when a mesh
+is given, else ``local``.  ``backend="tuned"`` measures instead
 (``repro_torch.conv.autotune``): the candidate (backend, spectrum, CGEMM
 tile) points are timed on the device, the winner is cached per machine,
 and its tile rides the plan down into the CUDA CGEMM.
@@ -34,12 +49,13 @@ requires grad, ``plan(x, k, ...)`` and ``prepared(x, ...)`` run through the
 plan-level VJP (``repro_torch.conv.autodiff``); otherwise they run the
 pipeline straight, and record nothing for autograd.  ``overlap`` is
 ``"off"`` on every local plan (``"auto"`` resolves to it, as in the
-reference).  ``bm``/``bn``/``bk`` pin a row of the CUDA CGEMM's compiled
+reference); ``"slab:<k>"`` overlaps the sharded schedules' collectives
+with compute.  ``bm``/``bn``/``bk`` pin a row of the CUDA CGEMM's compiled
 tile table (``kernels.cgemm.ops.SHAPES``) on ``fft-cuda`` plans; the
 reference honours any positive block, the port takes only the rows its
-kernel was compiled with.  Not ported yet (they raise): meshes and the
-sharded schedules, ``overlap="slab:<k>"`` and ``dft_bt`` (the tile DFT
-kernels take a compile-time number of tiles per block).
+kernel was compiled with.  Not ported yet (they raise): ``dft_bt`` (the
+tile DFT kernels take a compile-time number of tiles per block), grads
+through the sharded schedules and the tuner over them.
 
 ``backend="fft-cuda"`` runs tiles up to ``kernels.dft_tile.ops.MAX_DELTA``
 (32); a larger ``delta`` is refused when the plan is made.
@@ -57,6 +73,7 @@ import torch
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.conv import autodiff, registry
 from repro_torch.conv.epilogue import Epilogue
+from repro_torch.conv.stages import axis_size, round_up
 from repro_torch.core.fftconv import SPECTRA
 
 
@@ -89,8 +106,18 @@ class ConvPlan:
     bk: Optional[int] = None
     dft_bt: Optional[int] = None       # always None: not ported
     compute_dtype: Any = None          # CGEMM operand dtype (e.g. bf16)
+    mesh: Any = None                   # DeviceMesh of the sharded schedules
+    data_axis: str = "data"
+    model_axis: str = "model"
+    replicate_kernel_transform: bool = False
     epilogue: Epilogue = Epilogue()    # fused elementwise tail (stage 4)
     spectrum: str = "real"             # "real" (compact Hermitian) | "complex"
+    overlap: str = "off"               # "off" | "slab:<k>" sub-slab overlap
+
+    @property
+    def num_slabs(self) -> int:
+        """Batch sub-slab count of the overlapped execution (1 = off)."""
+        return _parse_overlap(self.overlap)
 
     # ---- execution --------------------------------------------------------
     def __call__(self, x, k, *, bias=None, residual=None):
@@ -230,6 +257,13 @@ class ConvPlan:
             f"  cost-model FLOPs: direct {s.direct_flops():.3e}, fft "
             f"{s.cgemm_flops(three_m=self.three_m) + s.transform_flops():.3e}",
         ]
+        if self.mesh is not None:
+            n_data = axis_size(self.mesh, self.data_axis)
+            n_model = axis_size(self.mesh, self.model_axis)
+            lines.append(
+                f"  mesh axes: {self.data_axis}={n_data} "
+                f"x {self.model_axis}={n_model}, replicate_kernel_transform="
+                f"{self.replicate_kernel_transform}, overlap={self.overlap}")
         if self.bm or self.bn or self.bk or self.dft_bt:
             lines.append(f"  blocks bm={self.bm} bn={self.bn} bk={self.bk} "
                          f"dft_bt={self.dft_bt}")
@@ -334,6 +368,16 @@ def clear_prepared_cache() -> None:
         _prepared_invalidations = 0
 
 
+def _mesh_cache_key(mesh):
+    """Value key for a mesh: two distinct ``DeviceMesh`` objects with the
+    same dim names, shape, rank layout and device type share plan-cache
+    entries (object identity would duplicate them)."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
+            tuple(mesh.mesh.flatten().tolist()), mesh.device_type)
+
+
 # --------------------------------------------------------------------------
 # Planner
 # --------------------------------------------------------------------------
@@ -364,6 +408,12 @@ def _auto_backend(spec: ConvSpec, three_m: bool) -> str:
     return "direct" if spec.direct_flops() <= fft else "fft-torch"
 
 
+# overlap="auto" picks "off" below this per-rank batch: slabbing a tiny
+# batch leaves each slab too small to amortize its collective's latency
+# (and k=2 on b_loc<4 would pipeline 1-row slabs).
+_AUTO_OVERLAP_MIN_B = 4
+
+
 def _parse_overlap(overlap) -> int:
     """Sub-slab count encoded by a (resolved) overlap knob value:
     ``"off"`` -> 1, ``"slab:<k>"`` -> k (k >= 2); anything else is a
@@ -380,6 +430,66 @@ def _parse_overlap(overlap) -> int:
     raise ValueError(
         f"unknown overlap {overlap!r} (choose 'off', 'slab:<k>' with "
         "k >= 2, or 'auto')")
+
+
+def _check_mesh(mesh, data_axis, model_axis):
+    """A mesh is a ``DeviceMesh`` with both axes among its dim names."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh must be a torch.distributed DeviceMesh "
+            f"(repro_torch.launch.mesh.make_mesh), got {type(mesh).__name__}")
+    names = tuple(mesh.mesh_dim_names or ())
+    for axis in (data_axis, model_axis):
+        if axis not in names:
+            raise ValueError(f"mesh has no axis {axis!r} (axes: {names})")
+
+
+def _b_loc(B, mesh, data_axis) -> int:
+    """Per-rank batch of a plan on ``mesh`` (B padded to the data axis,
+    as ``padded_sharded_spec`` pads it)."""
+    n_data = axis_size(mesh, data_axis)
+    return round_up(B, n_data) // n_data
+
+
+def _auto_overlap(overlap, x_shape, k_shape, delta, backend, schedule,
+                  mesh, data_axis):
+    """``"auto"`` resolved before the plan-cache key, so that it shares
+    the entry of what it resolves to.  As in the reference: ``"slab:2"``
+    on a sharded stage pipeline (a mesh, a schedule that requires one and
+    a backend with a stage pipeline) with a per-rank batch of at least
+    ``_AUTO_OVERLAP_MIN_B``, else ``"off"``."""
+    if overlap != "auto":
+        return overlap
+    if mesh is None:
+        return "off"
+    sched = registry.get_schedule("nfft" if schedule == "auto" else schedule)
+    if backend == "auto":     # on a mesh: fft-torch, or direct if oversize
+        pipeline = max(k_shape[2:]) <= delta
+    else:
+        pipeline = registry.get_backend(backend).pipeline_factory is not None
+    return "slab:2" if sched.requires_mesh and pipeline \
+        and _b_loc(x_shape[0], mesh, data_axis) >= _AUTO_OVERLAP_MIN_B \
+        else "off"
+
+
+def _resolve_overlap(overlap, spec, sched, be, backend, schedule, mesh,
+                     data_axis) -> str:
+    """Validate + normalize the overlap knob against the resolved
+    (backend, schedule, mesh): explicit slab counts are clamped once to
+    the per-rank batch so every slab is non-empty (``"slab:1"`` never
+    exists — it normalizes to ``"off"``); a slab count on anything but
+    a sharded stage pipeline is the reference's ``ValueError``."""
+    num_slabs = _parse_overlap(overlap)
+    if num_slabs == 1:
+        return "off"
+    if not (sched.requires_mesh and be.pipeline_factory is not None):
+        raise ValueError(
+            f"overlap={overlap!r} requires a sharded stage-pipeline "
+            f"schedule (backend {backend!r} / schedule {schedule!r} has "
+            "no boundary collectives to overlap); use overlap='off'")
+    num_slabs = min(num_slabs, _b_loc(spec.B, mesh, data_axis))
+    return f"slab:{num_slabs}" if num_slabs > 1 else "off"
 
 
 def _check_cuda_delta(delta):
@@ -402,8 +512,10 @@ def _cuda_blocks(bm, bn, bk) -> tuple:
     return (None, None, None) if row is None else SHAPES[row][:3]
 
 
-def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
-             bm, bn, bk, compute_dtype, epilogue, spectrum) -> ConvPlan:
+def _resolve(x_shape, k_shape, padding, delta, backend, schedule, mesh,
+             three_m, bm, bn, bk, compute_dtype, data_axis, model_axis,
+             replicate_kernel_transform, epilogue, spectrum,
+             overlap) -> ConvPlan:
     _, _, kh, kw = k_shape
     if spectrum not in SPECTRA:
         raise ValueError(
@@ -421,11 +533,24 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
     spec = _build_spec(x_shape, k_shape, padding, delta)
 
     if schedule == "auto":
-        schedule = "local"
-    registry.get_schedule(schedule)
+        schedule = "nfft" if mesh is not None else "local"
+    sched = registry.get_schedule(schedule)
+    if sched.requires_mesh and mesh is None:
+        raise ValueError(f"schedule {schedule!r} requires a mesh")
+    if not sched.requires_mesh and mesh is not None:
+        raise ValueError(
+            f"schedule {schedule!r} ignores the mesh; pass schedule='nfft' "
+            "or 'wfft' (or drop the mesh)")
+    # Channel axes are zero-padded up to model-axis multiples inside the
+    # pipelines, and the frequency (P) axis is padded once before the nfft
+    # boundary all-to-alls: no divisibility precondition.
 
     if backend == "auto":
-        backend = "direct" if oversize else _auto_backend(spec, three_m)
+        if oversize:
+            backend = "direct"
+        else:
+            backend = "fft-torch" if sched.requires_mesh \
+                else _auto_backend(spec, three_m)
     be = registry.get_backend(backend)
     if backend == "fft-cuda":
         _check_cuda_delta(delta)
@@ -443,16 +568,34 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, three_m,
         raise ValueError(
             f"spectrum='complex' (the full-spectrum twin) only applies to "
             f"the FFT stage pipelines; backend {backend!r} has no spectrum")
+
+    # -- overlap (comm/compute-overlapped sub-slab execution) ---------------
+    overlap = _resolve_overlap(overlap, spec, sched, be, backend, schedule,
+                               mesh, data_axis)
+    num_slabs = _parse_overlap(overlap)
+    if num_slabs > 1 and backend == "fft-cuda" and bm is None:
+        # Pin the CGEMM tile row ONCE, for the smallest sub-slab's M, so
+        # every slab launches the same row (the chooser would pick per
+        # slab).  An explicit pin already names the row of every slab.
+        from repro_torch.kernels.cgemm.ops import SHAPES, default_shape
+        m_min = (_b_loc(spec.B, mesh, data_axis) // num_slabs) \
+            * spec.n_tiles
+        bm, bn, bk = SHAPES[default_shape(m_min)][:3]
     return ConvPlan(spec=spec, backend=backend, schedule=schedule,
                     padding=padding, three_m=three_m, bm=bm, bn=bn, bk=bk,
-                    compute_dtype=compute_dtype, epilogue=epilogue,
-                    spectrum=spectrum)
+                    compute_dtype=compute_dtype, mesh=mesh,
+                    data_axis=data_axis, model_axis=model_axis,
+                    replicate_kernel_transform=replicate_kernel_transform,
+                    epilogue=epilogue, spectrum=spectrum, overlap=overlap)
 
 
 def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
               backend: str = "auto", schedule: str = "auto", mesh=None,
               three_m: bool = True, bm=None, bn=None, bk=None, dft_bt=None,
-              compute_dtype=None, epilogue: Optional[Epilogue] = None,
+              compute_dtype=None, data_axis: str = "data",
+              model_axis: str = "model",
+              replicate_kernel_transform: bool = False,
+              epilogue: Optional[Epilogue] = None,
               spectrum: str = "auto", overlap: str = "off",
               cache: bool = True) -> ConvPlan:
     """Create (or fetch from the plan cache) a ``ConvPlan``.
@@ -466,13 +609,20 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
       padding: int or ``(ph, pw)`` zero padding (default 0).
       delta: FFT tile size (the paper uses 16).
       backend: ``"direct"`` | ``"fft-torch"`` | ``"fft-cuda"`` | ``"auto"``
-        (cost-model crossover between direct and ``fft-torch``; never
-        auto-selects the CUDA kernels) | ``"tuned"`` (measured selection
+        (cost-model crossover between direct and ``fft-torch``, or
+        ``fft-torch`` on a mesh; never auto-selects the CUDA kernels) |
+        ``"tuned"`` (local plans only: measured selection
         through ``repro_torch.conv.autotune``: warm persistent cache, or a
         sweep timed on the device of ``autotune.measure_on`` (default the
         GPU), or the cost model when measurement is disabled; the tuner
         also picks the spectrum and the CGEMM tile unless pinned here).
-      schedule: ``"local"`` | ``"auto"`` (= local).
+      schedule: ``"local"`` | ``"nfft"`` | ``"wfft"`` | ``"auto"``
+        (``nfft`` when a mesh is given, else ``local``).
+      mesh: a ``torch.distributed`` ``DeviceMesh`` with ``data_axis`` and
+        ``model_axis`` among its dim names
+        (``repro_torch.launch.mesh.make_mesh``); required by the sharded
+        schedules.  Cached plans key meshes by value (dim names, shape,
+        rank layout, device type), so equal meshes share entries.
       three_m: 3-matmul (Karatsuba) vs 4-matmul complex product.
       bm, bn, bk: the CUDA CGEMM tile (``fft-cuda`` only; stored and
         unused on the other backends).  They must name one row of the
@@ -483,16 +633,27 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
         not ported (``NotImplementedError``): the CUDA tile DFT kernels
         take a compile-time number of tiles per block.
       compute_dtype: CGEMM operand dtype (e.g. ``torch.bfloat16``; float32
-        accumulation).
+        accumulation).  On the sharded schedules the cast happens before
+        the hot-path collective (nfft boundary all-to-all / wfft
+        all-reduce), halving its bytes.
+      data_axis, model_axis: the mesh dims the batch and the channels are
+        sharded over.
+      replicate_kernel_transform: nfft only — run the (cheap) kernel
+        transform on every rank in place of boundary all-to-all #2.
       epilogue: ``Epilogue`` fused into stage 4 (bias add, activation,
         residual add).  The operand values are execution arguments:
         ``plan(x, k, bias=b, residual=r)``.
       spectrum: frequency-domain layout of the FFT pipelines: ``"real"``
         (the ``"auto"`` default, the compact Hermitian half-spectrum) or
         ``"complex"`` (the full-spectrum twin).
-      overlap: ``"off"``, or ``"auto"``, which resolves to ``"off"`` on a
-        local plan (before the plan-cache key, so both share one plan).
-        A malformed value is a ``ValueError``.
+      overlap: comm/compute-overlapped execution of the sharded
+        schedules: ``"slab:<k>"`` splits the per-rank batch into k
+        sub-slabs and issues slab i+1's collective before slab i's hot
+        CGEMM; slab counts are clamped to the per-rank batch.  ``"auto"``
+        resolves (before the plan-cache key, so both share one plan) to
+        ``"slab:2"`` on a mesh with a per-rank batch of at least 4, else
+        to ``"off"``.  ``"slab:<k>"`` on a local plan, or a malformed
+        value, is a ``ValueError``, with the reference's message.
       cache: memoize the plan under its argument key (bounded LRU, see
         ``plan_cache_capacity``).
 
@@ -500,22 +661,15 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
     tile DFT kernels run up to delta 32 (``fft-torch`` runs any delta);
     so is a ``bm``/``bn``/``bk`` triple that names no row of its CGEMM.
 
-    Not ported yet, and rejected with ``NotImplementedError``: ``mesh``
-    (and the ``nfft``/``wfft`` schedules), ``overlap="slab:<k>"`` and
-    ``dft_bt``.
+    Not ported yet, and rejected with ``NotImplementedError``: ``dft_bt``
+    (ROADMAP Queue 1 item 10) and ``backend="tuned"`` with a mesh or a
+    sharded schedule (item 13).
 
     Returns:
       A frozen ``ConvPlan``; call it as ``plan(x, k)`` or split with
       ``plan.prepare(k)``.
     """
     global _cache_hits, _cache_misses
-    if mesh is not None or schedule in ("nfft", "wfft"):
-        raise _not_ported("sharded execution (mesh, nfft/wfft schedules)")
-    if overlap == "auto":
-        overlap = "off"      # a local plan has no collective to overlap
-    if _parse_overlap(overlap) > 1:
-        raise _not_ported(f"overlap={overlap!r} (sub-slab overlap of the "
-                          "sharded schedules)")
     if dft_bt is not None:
         raise _not_ported(
             "dft_bt (the CUDA tile DFT kernels take a compile-time number "
@@ -542,6 +696,15 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
     x_shape, k_shape = tuple(map(int, x_shape)), tuple(map(int, k_shape))
     padding = _normalize_padding(padding)
     epilogue = Epilogue() if epilogue is None else epilogue
+    if backend == "tuned" and (mesh is not None
+                               or schedule in ("nfft", "wfft")):
+        raise _not_ported(
+            "the tuner over the sharded schedules (nfft/wfft x overlap; "
+            "ROADMAP Queue 1 item 13)")
+    if mesh is not None:
+        _check_mesh(mesh, data_axis, model_axis)
+    overlap = _auto_overlap(overlap, x_shape, k_shape, delta, backend,
+                            schedule, mesh, data_axis)
     if backend == "tuned":
         # Measured selection resolves BEFORE the plan cache, so the plan
         # is memoized under the *resolved* config: a cost-model fallback
@@ -569,8 +732,10 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
                 bm, bn, bk = tuned.bm, tuned.bn, tuned.bk
     if spectrum == "auto":
         spectrum = "real"    # deterministic default — share the cache entry
-    key = (x_shape, k_shape, padding, delta, backend, schedule, three_m,
-           bm, bn, bk, compute_dtype, epilogue, spectrum)
+    key = (x_shape, k_shape, padding, delta, backend, schedule,
+           _mesh_cache_key(mesh), three_m, bm, bn, bk, compute_dtype,
+           data_axis, model_axis, replicate_kernel_transform, epilogue,
+           spectrum, overlap)
     if cache:
         with _cache_lock:
             plan = _plan_cache.get(key)
@@ -579,7 +744,9 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
                 _plan_cache.move_to_end(key)
                 return plan
     plan = _resolve(x_shape, k_shape, padding, delta, backend, schedule,
-                    three_m, bm, bn, bk, compute_dtype, epilogue, spectrum)
+                    mesh, three_m, bm, bn, bk, compute_dtype, data_axis,
+                    model_axis, replicate_kernel_transform, epilogue,
+                    spectrum, overlap)
     if cache:
         with _cache_lock:
             _cache_misses += 1

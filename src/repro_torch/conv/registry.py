@@ -2,19 +2,21 @@
 
 A *backend* is a compute implementation (direct cuDNN conv, the PyTorch
 FFT-conv stage graph, the same graph on the hand-written CUDA kernels,
-...); a *schedule* is a data-movement strategy (single-device ``local``
-in this package so far).  Backends declare which schedules they support;
-``plan_conv`` resolves a (backend, schedule) pair and the plan dispatches
-through this registry at execute time.
+...); a *schedule* is a data-movement strategy (single-device ``local``,
+or the mesh-sharded ``nfft`` / ``wfft`` of the paper).  Backends declare
+which schedules they support; ``plan_conv`` resolves a (backend,
+schedule) pair and the plan dispatches through this registry at execute
+time.
 
 A backend is registered in one of two forms:
 
   * **stage-pipeline** — ``pipeline_factory(plan) -> StagePipeline`` (see
     ``repro_torch.conv.stages``).  Execution composes the stage graph and
     the plan gets ``prepare``/execute for free, and the backend is
-    differentiable on every schedule it supports through the plan-level
-    VJP (``repro_torch.conv.autodiff``) — its ``differentiable`` set is
-    derived, not declared.
+    differentiable on every mesh-free schedule it supports through the
+    plan-level VJP (``repro_torch.conv.autodiff``) — its
+    ``differentiable`` set is derived, not declared.  The VJP through the
+    sharded schedules is not ported yet (ROADMAP Queue 1 item 12).
   * **opaque execute** — ``execute(plan, x, k) -> y``.  Third-party
     backends register this way:
 
@@ -50,11 +52,15 @@ class BackendInfo:
     @property
     def differentiable(self) -> tuple:
         """Schedules with working reverse-mode grads: stage pipelines get
-        the plan-level VJP and native-autodiff backends differentiate
-        everywhere they execute; opaque backends fall back to their
-        declaration."""
-        if self.pipeline_factory is not None or self.native_autodiff:
+        the plan-level VJP on the schedules that need no mesh (the
+        sharded VJP is not ported yet), native-autodiff backends
+        differentiate everywhere they execute; opaque backends fall back
+        to their declaration."""
+        if self.native_autodiff:
             return self.schedules
+        if self.pipeline_factory is not None:
+            return tuple(s for s in self.schedules
+                         if not _SCHEDULES[s].requires_mesh)
         return self.declared_differentiable
 
     @property

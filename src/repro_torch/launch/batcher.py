@@ -39,7 +39,8 @@ graph overwrites.  A capture that fails raises: the card never falls back
 to eager execution.
 
 Not ported yet (they raise ``NotImplementedError``): ``load_plans=`` and
-``export_plans`` (ROADMAP Queue 1 item 7, the plan artifacts).
+``export_plans`` (ROADMAP Queue 1 item 7, the plan artifacts), and a
+``mesh`` among the plan knobs (item 14).
 """
 from __future__ import annotations
 
@@ -311,7 +312,8 @@ class ServeEngine:
       device: where the engine runs (``repro_torch.device.resolve_device``:
         the GPU unless the caller asks for the CPU).
       load_plans: AOT plan artifacts: not ported yet (raises).
-      plan_kwargs: shared ``plan_network`` knobs (backend=, spectrum=, ...).
+      plan_kwargs: shared ``plan_network`` knobs (backend=, spectrum=, ...);
+        a ``mesh`` is not ported yet (raises).
     """
 
     def __init__(self, make_layers: Callable, params: dict, *,
@@ -333,6 +335,10 @@ class ServeEngine:
             raise NotImplementedError(
                 "load_plans is not yet ported to repro_torch: it needs the "
                 "plan artifacts (ROADMAP Queue 1 item 7)")
+        if plan_kwargs.get("mesh") is not None:
+            raise NotImplementedError(
+                "a ServeEngine over a mesh is not yet ported to "
+                "repro_torch (ROADMAP Queue 1 item 14)")
         t_startup = time.perf_counter()
         self.device = resolve_device(device)
         self.policy = policy

@@ -435,9 +435,10 @@ def main(argv=None):
     ap.add_argument("--load-plans", default="",
                     help="AOT plan artifacts: not ported yet")
     ap.add_argument("--overlap", default="off",
-                    help="conv sub-slab comm/compute overlap: off | auto "
-                         "(a local plan has nothing to overlap; slab:<k> "
-                         "is not ported yet)")
+                    help="conv sub-slab comm/compute overlap: off | "
+                         "slab:<k> | auto (sharded schedules only; the "
+                         "served trunk is local, where slab:<k> is a "
+                         "ValueError)")
     ap.add_argument("--tune", action="store_true",
                     help="backend='tuned': measure each layer's backend, "
                          "spectrum and CGEMM tile on --device while "

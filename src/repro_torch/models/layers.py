@@ -2,6 +2,7 @@
 engine (trainable through the plan-level VJP) and pooling."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as TF
 
 
@@ -28,8 +29,24 @@ def conv2d_planned(x, k, *, padding=1, backend="auto", schedule="auto",
 
 
 def maxpool2x2(x):
-    """2x2/stride-2 max pool over the spatial axes of NCHW ``x``."""
-    return TF.max_pool2d(x, 2, 2)
+    """2x2/stride-2 max pool over the spatial axes of NCHW ``x``.  A
+    ``DTensor`` (a sharded plan's output: B and channels sharded, the
+    spatial axes whole) is pooled on each rank's local block, with no
+    collective."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return TF.max_pool2d(x, 2, 2)
+    B, C, H, W = x.shape
+    Ho, Wo = H // 2, W // 2
+    t = x.to_local()
+    # a rank past the end of an uneven split holds an empty block, which
+    # max_pool2d refuses
+    y = TF.max_pool2d(t, 2, 2) if t.numel() \
+        else t.new_empty(t.shape[:2] + (Ho, Wo))
+    return DTensor.from_local(y.contiguous(), x.device_mesh, x.placements,
+                              run_check=False,
+                              shape=torch.Size((B, C, Ho, Wo)),
+                              stride=(C * Ho * Wo, Ho * Wo, Wo, 1))
 
 
 def conv_block(x, k, bias=None, *, activation="none", residual=None,

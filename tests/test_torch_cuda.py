@@ -21,7 +21,11 @@ replica and bucket) against the eager prepared forward of the same
 kernels and spectra: 1e-5 of the largest |y| (the same kernels run on the
 same operands).  Every row of the CGEMM's tile table pinned at each layer
 of the served trunk, against the unpinned launch: scaled atol 2e-5; and
-the measured autotuner's sweep and cache round trip on the card.
+the measured autotuner's sweep and cache round trip on the card.  The
+sharded schedules on a one-rank NCCL mesh (one card): ``fft-cuda``
+``nfft``/``wfft`` against ``fft-torch`` on the same mesh and against the
+local ``fft-cuda`` plan, 1e-5 of the largest |y|, with exact launches and
+collectives.
 """
 import itertools
 
@@ -705,3 +709,80 @@ def test_tune_on_the_card_round_trips(cuda, tmp_path, monkeypatch):
             w.backend, w.spectrum, w.bm)
     finally:
         autotune.reset()
+
+
+# --------------------------------------------------------------------------
+# The sharded schedules on a one-rank NCCL mesh
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A (1, 1) mesh on a one-rank NCCL group (NCCL takes one rank per
+    GPU), for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.launch import mesh as tmesh
+    tmesh.start_process_group("nccl", device_id=torch.device("cuda", 0))
+    try:
+        yield tmesh.make_mesh((1, 1), ("data", "model"))
+    finally:
+        tmesh.destroy_process_group()
+
+
+SHARDED_WRAPPERS = (tile_rfft_cuda, cgemm_cuda, tile_irfft_epilogue_cuda)
+
+
+@pytest.mark.parametrize("schedule", ["nfft", "wfft"])
+@pytest.mark.parametrize("overlap", ["off", "slab:2"])
+def test_sharded_fft_cuda_matches_fft_torch_and_local(nccl_mesh, schedule,
+                                                      overlap):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = torch.device("cuda")
+    x, k, bias = (_rand((4, 16, 30, 30), 30).to(cuda),
+                  _rand((24, 16, 3, 3), 31).to(cuda),
+                  _rand((24,), 32).to(cuda))
+    ep = Epilogue(bias=True, activation="relu")
+    kw = dict(padding=1, epilogue=ep, mesh=nccl_mesh, schedule=schedule,
+              overlap=overlap)
+    plan = plan_conv(x.shape, k.shape, backend="fft-cuda", **kw)
+    twin = plan_conv(x.shape, k.shape, backend="fft-torch", **kw)
+    local = plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                      epilogue=ep)
+    slabs = plan.num_slabs
+    before = [w.launches for w in SHARDED_WRAPPERS]
+    prepared = plan.prepare(k)
+    with stages.stage_trace() as trace:
+        y = prepared(x, bias=bias).full_tensor()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(SHARDED_WRAPPERS, before)] == [
+        1 + slabs, slabs, slabs]
+    kind, other = (("all_to_all", "all_reduce") if schedule == "nfft"
+                   else ("all_reduce", "all_to_all"))
+    assert trace[("collective", kind)] == (2 if schedule == "nfft"
+                                           else 1) * slabs
+    assert trace[("collective", other)] == 0
+    for y0 in (twin(x, k, bias=bias).full_tensor(),
+               local.prepare(k)(x, bias=bias)):
+        assert (y - y0).abs().max().item() \
+            <= 1e-5 * y0.abs().max().item()
+
+
+@pytest.mark.parametrize("replicate", [False, True])
+def test_sharded_one_shot_on_the_card(nccl_mesh, replicate):
+    cuda = torch.device("cuda")
+    x, k = _rand((4, 16, 30, 30), 33).to(cuda), \
+        _rand((24, 16, 3, 3), 34).to(cuda)
+    plan = plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                     mesh=nccl_mesh, schedule="nfft",
+                     replicate_kernel_transform=replicate)
+    before = [w.launches for w in SHARDED_WRAPPERS]
+    with stages.stage_trace() as trace:
+        y = plan(x, k).full_tensor()
+    torch.cuda.synchronize()
+    # no epilogue to fuse: stage 4 is the plain inverse
+    assert [w.launches - b for w, b in zip(SHARDED_WRAPPERS, before)] == [
+        2, 1, 0]
+    assert trace[("collective", "all_to_all")] == 3 - replicate
+    assert trace[("collective", "all_reduce")] == 0
+    y0 = plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda")(x, k)
+    assert (y - y0).abs().max().item() <= 1e-5 * y0.abs().max().item()

@@ -172,12 +172,50 @@ def test_stage_counts_one_shot_and_prepared():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(schedule="nfft"), dict(overlap="slab:2"),
+    dict(backend="tuned", mesh=object()),
+    dict(backend="tuned", schedule="nfft"),
+    dict(backend="tuned", schedule="wfft"),
     dict(backend="fft-cuda", dft_bt=128),
 ])
 def test_not_ported_knobs_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tconv.plan_conv((1, 3, 16, 16), (4, 3, 3, 3), padding=1, **kwargs)
+
+
+@pytest.mark.parametrize("backend", ["direct", "fft-torch", "fft-cuda"])
+def test_mesh_axis_knobs_are_taken_on_local_plans(backend):
+    """data_axis/model_axis/replicate_kernel_transform are plan knobs
+    with the reference's defaults; a local plan takes them (they matter
+    only on a mesh)."""
+    shape, kshape = (1, 3, 16, 16), (4, 3, 3, 3)
+    kw = dict(data_axis="dp", model_axis="tp",
+              replicate_kernel_transform=True)
+    plan = tconv.plan_conv(shape, kshape, padding=1, backend=backend, **kw)
+    jplan = jconv.plan_conv(shape, kshape, padding=1, backend="fft-xla"
+                            if backend != "direct" else "direct", **kw)
+    for name, value in kw.items():
+        assert getattr(plan, name) == getattr(jplan, name) == value
+    default = tconv.plan_conv(shape, kshape, padding=1, backend=backend)
+    assert (default.data_axis, default.model_axis,
+            default.replicate_kernel_transform) == ("data", "model", False)
+    x, k = _rand(shape, 21), _rand(kshape, 22)
+    np.testing.assert_array_equal(plan(_t(x), _t(k)).numpy(),
+                                  default(_t(x), _t(k)).numpy())
+
+
+@pytest.mark.parametrize("backend", ["direct", "fft-torch", "fft-cuda"])
+def test_slab_overlap_on_a_local_plan_raises_the_reference_error(backend):
+    shape, kshape = (4, 3, 16, 16), (4, 3, 3, 3)
+    with pytest.raises(ValueError) as theirs:
+        jconv.plan_conv(shape, kshape, padding=1, overlap="slab:2",
+                        backend="fft-xla" if backend != "direct"
+                        else "direct")
+    with pytest.raises(ValueError) as ours:
+        tconv.plan_conv(shape, kshape, padding=1, overlap="slab:2",
+                        backend=backend)
+    assert "requires a sharded stage-pipeline schedule" in str(ours.value)
+    assert str(ours.value) == str(theirs.value).replace(
+        "'fft-xla'", f"'{backend}'")
 
 
 def test_dft_bt_refusal_names_why():

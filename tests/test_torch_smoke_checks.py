@@ -1,7 +1,9 @@
 """The checks of chip_smoke.py that need no card, on the CPU: the training
 step through recorded branches (the float64 reference its grads are held
-to), the flip count, the forced generic forms, and the launch counts that
-refuse a generic-form launch, forward or inverse, on a main path."""
+to), the flip count, the forced generic forms, the launch counts that
+refuse a generic-form launch, forward or inverse, on a main path, and
+phase ``sharded``'s expected launches and collectives and its refusals
+(a rehearsal of its forward on a one-rank gloo mesh)."""
 import collections
 import importlib.util
 import pathlib
@@ -285,3 +287,143 @@ def test_check_tune_round_trip():
             (_info(2, 0, 0, 0), winners, version + 1)):
         with pytest.raises(AssertionError, match="tune round trip"):
             smoke.check_tune_round_trip(info, 2, winners, again, v)
+
+
+def test_sharded_launch_and_collective_arithmetic():
+    assert smoke.sharded_launches(9, 2, 1, 0) == {
+        "tile_rfft": 18, "cgemm": 18, "tile_irfft_epilogue": 18}
+    assert smoke.sharded_launches(9, 1, 10, 1) == {
+        "tile_rfft": 99, "cgemm": 90, "tile_irfft_epilogue": 90}
+    assert smoke.sharded_launches(1, 2, 1, 0, one_shot=True) == {
+        "tile_rfft": 3, "cgemm": 2, "tile_irfft_epilogue": 2}
+    assert smoke.sharded_collectives("nfft", 2) == {"all_to_all": 4,
+                                                    "all_reduce": 0}
+    assert smoke.sharded_collectives("nfft", 1, one_shot=True) == {
+        "all_to_all": 3, "all_reduce": 0}
+    assert smoke.sharded_collectives("nfft", 2, one_shot=True,
+                                     replicate=True)["all_to_all"] == 4
+    assert smoke.sharded_collectives("wfft", 2) == {"all_to_all": 0,
+                                                    "all_reduce": 2}
+
+
+def _trace(a2a, ar, boundary=None):
+    return collections.Counter({
+        ("collective", "all_to_all"): a2a, ("collective", "all_reduce"): ar,
+        "boundary_a2a": a2a if boundary is None else boundary})
+
+
+def test_check_collectives_refuses_a_wrong_count():
+    want = smoke.sharded_collectives("nfft", 2)
+    assert smoke.check_collectives("t", _trace(36, 0), want, 9, 1) == {
+        "all_to_all": 36, "all_reduce": 0}
+    for trace in (_trace(35, 0), _trace(36, 1), _trace(36, 0, 35)):
+        with pytest.raises(AssertionError, match="collectives"):
+            smoke.check_collectives("t", trace, want, 9, 1)
+    with pytest.raises(AssertionError, match="collectives"):
+        smoke.check_collectives("t", _trace(1, 18),
+                                smoke.sharded_collectives("wfft", 2), 9, 1)
+
+
+def test_check_one_row_refuses_two_rows_across_slabs():
+    smoke.check_one_row("t", {"a": {"small-8x128": 2},
+                              "b": {"large-64x64": 1,
+                                    "large-64x64-scalar": 1}}, 2)
+    for bad in ({"small-8x128": 1, "small-16x128": 1},   # two rows
+                {"small-8x128": 3}):                      # a slab too many
+        with pytest.raises(AssertionError, match="one tile row"):
+            smoke.check_one_row("t", {"a": bad}, 2)
+
+
+def test_sharded_expect_counts_refuses_a_generic_launch():
+    counts = smoke.read_counts()
+    counts.update(smoke.sharded_launches(9, 2, 1, 0))
+    smoke.expect_counts("sharded", counts, smoke.sharded_launches(9, 2, 1,
+                                                                  0))
+    counts["tile_irfft_epilogue generic"] = 1
+    with pytest.raises(AssertionError, match="generic"):
+        smoke.expect_counts("sharded", counts,
+                            smoke.sharded_launches(9, 2, 1, 0))
+
+
+@pytest.mark.parametrize("schedule", ["nfft", "wfft"])
+def test_sharded_forward_rehearsal_on_a_host_mesh(schedule):
+    """The phase's forward and collective gate on a one-rank gloo mesh at
+    narrow widths: the DTensor chain through the pools equals the local
+    trunk, and the collectives are exactly the expected ones."""
+    from repro_torch.conv import Epilogue, NetworkConv, plan_network, stages
+    from repro_torch.launch import mesh as tmesh
+    kernels, biases, x, _ = _trunk(torch.float32)
+    convs = [NetworkConv(l.name, (2, CHANNELS[i], 16 >> (i // 2),
+                                  16 >> (i // 2)),
+                         (CHANNELS[i + 1], CHANNELS[i], 3, 3), padding=1,
+                         epilogue=Epilogue(bias=True, activation="relu"))
+             for i, l in enumerate(LAYERS)]
+    tmesh.start_process_group("gloo")
+    try:
+        mesh = tmesh.make_host_mesh(1, 1)
+        net = plan_network(convs, backend="fft-cuda", mesh=mesh,
+                           schedule=schedule, overlap="slab:2")
+        with torch.inference_mode():
+            prepared = net.prepare(kernels)
+            with stages.stage_trace() as trace:
+                y = smoke.sharded_forward(prepared, x, biases, {})
+            local = plan_network(convs, backend="fft-cuda").prepare(kernels)
+            y_local = smoke.sharded_forward(local, x, biases)
+            got = smoke.check_collectives(
+                "rehearsal", trace, smoke.sharded_collectives(schedule, 2),
+                len(convs), 1)
+            assert sum(got.values()) == len(convs) * (
+                4 if schedule == "nfft" else 2)
+            assert smoke.rel_err(y.full_tensor(), y_local) <= \
+                smoke.GRAPH_TOL
+    finally:
+        tmesh.destroy_process_group()
+
+
+def test_slab_cgemm_cases_are_the_sharded_forwards_cgemms(monkeypatch):
+    """The CGEMM cases the phase holds against the plain version before
+    the trunks are the (P, M, C, N) and tile rows that the sharded
+    forwards of ``SHARDED`` give the CGEMM, slab by slab (a one-rank gloo
+    mesh at narrow widths)."""
+    import repro_torch.kernels.cgemm as cgemm_pkg
+    from repro_torch.conv import (
+        Epilogue, NetworkConv, clear_plan_cache, clear_prepared_cache,
+        plan_network)
+    from repro_torch.kernels.cgemm.ops import choose_variant
+    from repro_torch.launch import mesh as tmesh
+
+    def case(P, M, C, N, row):
+        return (P, M, C, N,
+                choose_variant(P, M, C, N, torch.float32, True, row).name)
+
+    launched, held = set(), set()
+    real = cgemm_pkg.cgemm_cuda
+
+    def recording(Dr, Di, Gr, Gi, *, three_m=True, shape=None):
+        launched.add(case(*Dr.shape, Gr.shape[2], shape))
+        return real(Dr, Di, Gr, Gi, three_m=three_m, shape=shape)
+    monkeypatch.setattr(cgemm_pkg, "cgemm_cuda", recording)
+    monkeypatch.setattr(smoke, "cgemm_row", lambda name, P, M, C, N, dtype,
+                        three_m, spectrum, gen, shape=None, **extra:
+                        held.add(case(P, M, C, N, shape)))
+    kernels, biases, x, _ = _trunk(torch.float32)
+    x = torch.cat([x, x])                       # batch 4: slabs of 2
+    convs = [NetworkConv(l.name, (4, CHANNELS[i], 16 >> (i // 2),
+                                  16 >> (i // 2)),
+                         (CHANNELS[i + 1], CHANNELS[i], 3, 3), padding=1,
+                         epilogue=Epilogue(bias=True, activation="relu"))
+             for i, l in enumerate(LAYERS)]
+    tmesh.start_process_group("gloo")
+    try:
+        clear_plan_cache()
+        clear_prepared_cache()
+        mesh = tmesh.make_host_mesh(1, 1)
+        with torch.inference_mode():
+            for schedule, overlap in smoke.SHARDED:
+                net = plan_network(convs, backend="fft-cuda", mesh=mesh,
+                                   schedule=schedule, overlap=overlap)
+                smoke.sharded_forward(net.prepare(kernels), x, biases)
+        smoke.check_slab_cgemm(mesh, convs, None, set())
+    finally:
+        tmesh.destroy_process_group()
+    assert held == launched and len(held) == 2 * len(LAYERS)
