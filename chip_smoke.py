@@ -106,16 +106,44 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               wfft ``k`` all-reduces a layer and no all-to-all).
               Before the trunks, the CGEMM at each configuration's
               per-slab shapes and pinned tile row against its plain
-              version (``CGEMM_TOL``).  Reported, not gated: each
+              version (``CGEMM_TOL``), and so is the CGEMM of each
+              configuration's training forward and dx plans (phase 12's);
+              and the forward tile DFT (stages 1 and 2), the fused inverse
+              and the plain inverse at the tile counts each rank runs in
+              those plans, slab by slab, against their plain versions
+              (``FORWARD_TOL``, ``INVERSE_TOL``).  Reported, not gated: each
               configuration's p50 and busy time beside the local trunk's,
               and the device time of the NCCL kernels
+ 12. sharded_train  inside phase 11's process group, before it ends:
+              training steps of phase 7's trunk, weights, biases, input and
+              loss weights through ``plan_conv(..., schedule=, mesh=,
+              overlap=)`` on ``fft-cuda`` for each configuration of phase
+              11 (the plan-level VJP over the mesh: one-shot dx plans on the
+              forward's schedule and slabs, dk and d_bias reduced over the
+              mesh), pools on each rank's block, loss ``(h.full_tensor() *
+              r).sum()``.  Gates: every layer's dk and d_bias a plain
+              tensor; a step's grads within ``SHARDED_GRAD_TOL`` of a local
+              ``fft-cuda`` step's, both with cuDNN held to its
+              deterministic algorithms (its weight gradient, dk, may
+              differ in its last bits from run to run: the timed step's
+              grads against phase 7's last step are reported); the timed
+              step's within ``GRAD_TOL`` of
+              a float64 step through the step's own branches, with at most
+              ``FLIP_LIMIT`` branches unlike a free float64 step's; exact
+              launches per step (per layer and slab) and exact collectives
+              per step (nfft ``2k + 1`` boundary all-to-alls a plan and no
+              all-reduce, wfft ``k`` all-reduces a plan and no all-to-all,
+              and the dk and d_bias reductions under their own kinds).
+              Reported, not gated: the median step, one step's device busy
+              time, NCCL device time, idle share and collective bytes,
+              beside the local step's
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9, 10, 11) and read right after it; each path must launch its
-own kernels and none of the others, and every tile DFT, forward and
-inverse, only in its specialised form.
+(4, 6, 7, 8, 9, 10, 11, 12) and read right after it; each path must
+launch its own kernels and none of the others, and every tile DFT,
+forward and inverse, only in its specialised form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
@@ -132,6 +160,7 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -202,7 +231,9 @@ LONE_REQUESTS = 20                      # timed lone batch-4 requests
 # the tuner's settings, unset for phase tune (its defaults: 2000 ms a
 # layer, 3 timed calls a candidate); its cache goes to a temporary file
 SHARDED = [("nfft", "off"), ("nfft", "slab:2"), ("wfft", "off"),
-           ("wfft", "slab:2")]              # (schedule, overlap) of phase 11
+           ("wfft", "slab:2")]          # (schedule, overlap) of phases 11-12
+SHARDED_GRAD_TOL = 1e-6                 # sharded vs local step's grads,
+#                                         scaled by max|g|, on one rank
 ONE_SHOT_LAYER = "Vconv3.1"
 TUNE_ENV = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_CACHE",
             "REPRO_TORCH_AUTOTUNE_BUDGET_MS", "REPRO_TORCH_AUTOTUNE_REPS")
@@ -394,46 +425,49 @@ def check_inverse(layers, gen):
     trunk (ReLU), under the other activations at Vconv1.2, and on planes
     padded to P = 136 with NaN past point 130.  No single library call
     computes it.  The rows are emitted by ``device_times``."""
-    rows = []
-    d = 16
     cases = [(name, spec, "relu", freq_count(spec, "real"))
              for name, spec in layers]
     name12, spec12 = layers[1]
     cases += [(name12, spec12, act, 130) for act in ("none", "gelu", "silu")]
     cases.append((name12, spec12, "relu", 136))        # P padded past 130
-    for name, spec, act, P in cases:
-        n = spec.B * spec.Cout * spec.X * spec.D
-        Zr, Zi = (torch.randn((n, P), generator=gen, device="cuda")
-                  for _ in range(2))
-        if P > 130:                  # trailing points must never be read
-            Zr[:, 130:] = float("nan")
-            Zi[:, 130:] = float("nan")
-        b = torch.randn((n,), generator=gen, device="cuda")
-        y, form = form_launch(tile_irfft_epilogue_cuda, Zr, Zi, b,
-                              activation=act, delta=d)
-        y0 = tile_irfft_epilogue_ref(Zr[:, :130], Zi[:, :130], b,
-                                     activation=act, delta=d)
-        torch.cuda.synchronize()
-        err = (y - y0).abs().max().item()
-        scale = y0.abs().max().item() + 1e-9
-        if not err / scale <= INVERSE_TOL:
-            raise AssertionError(
-                f"tile_irfft_epilogue {name} {act} P={P}: scaled error "
-                f"{err / scale:.3e} > {INVERSE_TOL}")
-        ms = time_ms(lambda: tile_irfft_epilogue_cuda(
-            Zr, Zi, b, activation=act, delta=d))
-        plain_ms = time_ms(lambda: tile_irfft_epilogue_ref(
-            Zr, Zi, b, activation=act, delta=d))
-        dh = d // 2 + 1
-        nbytes = 4 * (2 * n * P + n + n * d * d)
-        flops = n * (8 * d * dh * d + 4 * d * d * dh)
-        bd = bound(nbytes, flops, torch.float32)
-        row = dict(kernel="tile_irfft_epilogue", layer=name,
-                   shape=[n, P, d], activation=act, max_abs_err=err,
-                   scaled_err=err / scale, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, **form_fields(ms, form, bd), **bd)
-        rows.append(row)
-    return rows
+    return [epilogue_row(name, spec.B * spec.Cout * spec.X * spec.D, P, act,
+                         gen)
+            for name, spec, act, P in cases]
+
+
+def epilogue_row(name, n, P, act, gen, d=16, **extra):
+    """The fused compact inverse on ``n`` tiles of ``P`` points (NaN past
+    point 130, which must never be read) under ``act`` against its plain
+    version, timed beside it.  The row is emitted by ``device_times``."""
+    Zr, Zi = (torch.randn((n, P), generator=gen, device="cuda")
+              for _ in range(2))
+    if P > 130:                      # trailing points must never be read
+        Zr[:, 130:] = float("nan")
+        Zi[:, 130:] = float("nan")
+    b = torch.randn((n,), generator=gen, device="cuda")
+    y, form = form_launch(tile_irfft_epilogue_cuda, Zr, Zi, b,
+                          activation=act, delta=d)
+    y0 = tile_irfft_epilogue_ref(Zr[:, :130], Zi[:, :130], b,
+                                 activation=act, delta=d)
+    torch.cuda.synchronize()
+    err = (y - y0).abs().max().item()
+    scale = y0.abs().max().item() + 1e-9
+    if not err / scale <= INVERSE_TOL:
+        raise AssertionError(
+            f"tile_irfft_epilogue {name} {act} P={P} {extra}: scaled "
+            f"error {err / scale:.3e} > {INVERSE_TOL}")
+    ms = time_ms(lambda: tile_irfft_epilogue_cuda(
+        Zr, Zi, b, activation=act, delta=d))
+    plain_ms = time_ms(lambda: tile_irfft_epilogue_ref(
+        Zr, Zi, b, activation=act, delta=d))
+    dh = d // 2 + 1
+    nbytes = 4 * (2 * n * P + n + n * d * d)
+    flops = n * (8 * d * dh * d + 4 * d * d * dh)
+    bd = bound(nbytes, flops, torch.float32)
+    return dict(kernel="tile_irfft_epilogue", layer=name, shape=[n, P, d],
+                activation=act, max_abs_err=err, scaled_err=err / scale,
+                ms=ms, plain_ms=plain_ms, library_ms=None,
+                **form_fields(ms, form, bd), **extra, **bd)
 
 
 def device_ms(fn, reps=20):
@@ -521,82 +555,95 @@ def check_forward(layers, gen):
     """The forward tile DFT at every stage-1 and every stage-2 tile count
     of the served trunk (stage 2 runs in every prepare and, for the
     forward's and the dx plan's kernels, twice a training step).  The
-    library call is two: ``torch.fft.rfft2`` of the tiles and the
-    ``store`` gather.  The rows are emitted by ``device_times``."""
-    rows = []
-    d = 16
-    P = freq_count(layers[0][1], "real")
-    store = compact_layout(d, "cuda")[0].long()
+    rows are emitted by ``device_times``."""
     cases = [(name, "stage1", spec.B * spec.C * spec.X * spec.D)
              for name, spec in layers]
     cases += [(name, "stage2", spec.Cout * spec.C) for name, spec in layers]
-    for name, stage, n in cases:
-        x = torch.randn((n, d, d), generator=gen, device="cuda")
-        (Tr, Ti), form = form_launch(tile_rfft_cuda, x, delta=d)
-        Rr, Ri = tile_rfft_ref(x, d)
-        torch.cuda.synchronize()
-        err = max((Tr - Rr).abs().max().item(), (Ti - Ri).abs().max().item())
-        scale = max(Rr.abs().max().item(), Ri.abs().max().item()) + 1e-9
-        if not err / scale <= FORWARD_TOL:
-            raise AssertionError(
-                f"tile_rfft {name} {stage}: scaled error {err / scale:.3e}"
-                f" > {FORWARD_TOL}")
-        ms = time_ms(lambda: tile_rfft_cuda(x, delta=d))
-        plain_ms = time_ms(lambda: tile_rfft_ref(x, d))
-        library_ms = time_ms(lambda: torch.fft.rfft2(x).reshape(
-            n, -1).index_select(1, store))
-        dh = d // 2 + 1
-        nbytes = 4 * (n * d * d + 2 * n * P)
-        flops = n * (4 * d * d * dh + 8 * d * P)
-        b = bound(nbytes, flops, torch.float32)
-        row = dict(kernel="tile_rfft", layer=name, stage=stage,
-                   shape=[n, d, P], max_abs_err=err, scaled_err=err / scale,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   library="torch.fft.rfft2 + index_select (two calls)",
-                   **form_fields(ms, form, b), **b)
-        rows.append(row)
-    return rows
+    return [forward_row(name, n, gen, stage=stage)
+            for name, stage, n in cases]
+
+
+def forward_row(name, n, gen, d=16, **extra):
+    """The forward tile DFT on ``n`` tiles against its plain version,
+    timed beside it and the library call, which is two:
+    ``torch.fft.rfft2`` of the tiles and the ``store`` gather.  The row is
+    emitted by ``device_times``."""
+    store = compact_layout(d, "cuda")[0].long()
+    P = store.numel()
+    x = torch.randn((n, d, d), generator=gen, device="cuda")
+    (Tr, Ti), form = form_launch(tile_rfft_cuda, x, delta=d)
+    Rr, Ri = tile_rfft_ref(x, d)
+    torch.cuda.synchronize()
+    err = max((Tr - Rr).abs().max().item(), (Ti - Ri).abs().max().item())
+    scale = max(Rr.abs().max().item(), Ri.abs().max().item()) + 1e-9
+    if not err / scale <= FORWARD_TOL:
+        raise AssertionError(
+            f"tile_rfft {name} {extra}: scaled error {err / scale:.3e} > "
+            f"{FORWARD_TOL}")
+    ms = time_ms(lambda: tile_rfft_cuda(x, delta=d))
+    plain_ms = time_ms(lambda: tile_rfft_ref(x, d))
+    library_ms = time_ms(lambda: torch.fft.rfft2(x).reshape(
+        n, -1).index_select(1, store))
+    dh = d // 2 + 1
+    nbytes = 4 * (n * d * d + 2 * n * P)
+    flops = n * (4 * d * d * dh + 8 * d * P)
+    b = bound(nbytes, flops, torch.float32)
+    return dict(kernel="tile_rfft", layer=name, shape=[n, d, P],
+                max_abs_err=err, scaled_err=err / scale, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library="torch.fft.rfft2 + index_select (two calls)",
+                **form_fields(ms, form, b), **extra, **b)
+
+
+def dft_key(row):
+    """What makes a compact tile DFT case: the kernel, the tile count, the
+    points a tile and the activation (None without one)."""
+    n, a, b = row["shape"]
+    return (row["kernel"], n, b if row["kernel"] == "tile_rfft" else a,
+            row.get("activation"))
+
+
+def plain_inverse_row(name, n, P, gen, d=16, **extra):
+    """The plain compact inverse on ``n`` tiles of ``P`` points against
+    its plain version, timed beside it and the library call, which is
+    two: the ``src``/``sgn`` scatter (a gather, a sign product, a complex
+    pack) and ``torch.fft.irfft2``.  The row is emitted by
+    ``device_times``."""
+    dh = d // 2 + 1
+    _, src, sgn = compact_layout(d, "cuda")
+    src = src.long()
+    Zr, Zi = (torch.randn((n, P), generator=gen, device="cuda")
+              for _ in range(2))
+    y, form = form_launch(tile_irfft_cuda, Zr, Zi, delta=d)
+    y0 = tile_irfft_ref(Zr, Zi, d)
+    torch.cuda.synchronize()
+    err = (y - y0).abs().max().item()
+    scale = y0.abs().max().item() + 1e-9
+    if not err / scale <= INVERSE_TOL:
+        raise AssertionError(
+            f"tile_irfft {name} dx plan {extra}: scaled error "
+            f"{err / scale:.3e} > {INVERSE_TOL}")
+    ms = time_ms(lambda: tile_irfft_cuda(Zr, Zi, delta=d))
+    plain_ms = time_ms(lambda: tile_irfft_ref(Zr, Zi, d))
+    library_ms = time_ms(lambda: torch.fft.irfft2(torch.complex(
+        Zr.index_select(1, src), Zi.index_select(1, src) * sgn)
+        .view(n, d, dh), s=(d, d)))
+    nbytes = 4 * (2 * n * P + n * d * d)
+    flops = n * (8 * d * dh * d + 4 * d * d * dh)
+    b = bound(nbytes, flops, torch.float32)
+    return dict(kernel="tile_irfft", layer=name, stage="dx plan",
+                shape=[n, P, d], max_abs_err=err, scaled_err=err / scale,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library="scatter + torch.fft.irfft2 (two steps)",
+                **form_fields(ms, form, b), **extra, **b)
 
 
 def check_plain_inverse(dx_layers, gen):
     """The plain compact inverse at the tile count of every dx plan of a
-    training step.  The library call is two: the ``src``/``sgn`` scatter
-    (a gather, a sign product, a complex pack) and ``torch.fft.irfft2``.
-    The rows are emitted by ``device_times``."""
-    rows = []
-    d = 16
-    dh = d // 2 + 1
-    _, src, sgn = compact_layout(d, "cuda")
-    src = src.long()
-    for name, spec in dx_layers:
-        P = freq_count(spec, "real")
-        n = spec.B * spec.Cout * spec.X * spec.D
-        Zr, Zi = (torch.randn((n, P), generator=gen, device="cuda")
-                  for _ in range(2))
-        y, form = form_launch(tile_irfft_cuda, Zr, Zi, delta=d)
-        y0 = tile_irfft_ref(Zr, Zi, d)
-        torch.cuda.synchronize()
-        err = (y - y0).abs().max().item()
-        scale = y0.abs().max().item() + 1e-9
-        if not err / scale <= INVERSE_TOL:
-            raise AssertionError(
-                f"tile_irfft {name} dx plan: scaled error {err / scale:.3e}"
-                f" > {INVERSE_TOL}")
-        ms = time_ms(lambda: tile_irfft_cuda(Zr, Zi, delta=d))
-        plain_ms = time_ms(lambda: tile_irfft_ref(Zr, Zi, d))
-        library_ms = time_ms(lambda: torch.fft.irfft2(torch.complex(
-            Zr.index_select(1, src), Zi.index_select(1, src) * sgn)
-            .view(n, d, dh), s=(d, d)))
-        nbytes = 4 * (2 * n * P + n * d * d)
-        flops = n * (8 * d * dh * d + 4 * d * d * dh)
-        b = bound(nbytes, flops, torch.float32)
-        row = dict(kernel="tile_irfft", layer=name, stage="dx plan",
-                   shape=[n, P, d], max_abs_err=err, scaled_err=err / scale,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   library="scatter + torch.fft.irfft2 (two steps)",
-                   **form_fields(ms, form, b), **b)
-        rows.append(row)
-    return rows
+    training step."""
+    return [plain_inverse_row(name, spec.B * spec.Cout * spec.X * spec.D,
+                              freq_count(spec, "real"), gen)
+            for name, spec in dx_layers]
 
 
 def rect_bytes_flops(n, d, tail=False):
@@ -888,24 +935,37 @@ def rect_phase(res, layers, y_ref, slice_p50_ms):
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
 
-def vgg_train_loss(layers, backend, kernels, biases, x, r, branches=None):
+def full(t):
+    """The global tensor of a ``DTensor`` (a sharded plan's output); a
+    plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def vgg_train_loss(layers, backend, kernels, biases, x, r, branches=None,
+                   plans=None):
     """The VGG trunk of ``serve --convnet vgg`` as a model would train it:
     ``conv_block`` (bias + ReLU fused) and ``maxpool2x2``; loss sum(y*r).
-    A list ``branches`` receives the run's discrete choices in order: each
-    ReLU's mask and each pool's argmax indices."""
+    With ``plans`` (a plan per layer, bias + ReLU fused, on a mesh) each
+    layer runs its plan instead, its ``DTensor`` output feeding the next
+    and the pools on each rank's block.  A list ``branches`` receives the
+    run's discrete choices in order: each ReLU's mask and each pool's
+    argmax indices."""
     h = x
     for l in layers:
-        h = conv_block(h, kernels[l.name], biases[l.name],
-                       activation="relu", padding=l.padding,
-                       backend=backend)
+        if plans is None:
+            h = conv_block(h, kernels[l.name], biases[l.name],
+                           activation="relu", padding=l.padding,
+                           backend=backend)
+        else:
+            h = plans[l.name](h, kernels[l.name], bias=biases[l.name])
         if branches is not None:
-            branches.append(h.detach() > 0)
+            branches.append(full(h.detach()) > 0)
         if l.name in serve._VGG_POOL_AFTER:
             if branches is not None:
-                branches.append(TF.max_pool2d(h.detach(), 2, 2,
+                branches.append(TF.max_pool2d(full(h.detach()), 2, 2,
                                               return_indices=True)[1])
             h = maxpool2x2(h)
-    return (h * r).sum()
+    return (full(h) * r).sum()
 
 
 def vgg_branch_loss(layers, kernels, biases, x, r, branches):
@@ -955,6 +1015,45 @@ class forced_generic_form:
         dft_ops.choose_form, dft_ops.choose_inverse_form = self.saved
 
 
+def train_inputs():
+    """The trunk's layers and phase 7's weights, biases, input and loss
+    weights on the card, made from ``SEED`` with numpy."""
+    layers = network_convs(serve._vgg_scale(IMAGE), BATCH)
+    rng = np.random.default_rng(SEED)
+
+    def init(shape, s=0.05):
+        return torch.as_tensor(s * rng.standard_normal(shape),
+                               dtype=torch.float32).cuda()
+    kernels = {l.name: init(l.k_shape) for l in layers}
+    biases = {l.name: init((l.k_shape[0],)) for l in layers}
+    x = init(layers[0].x_shape, 1.0)
+    r = init((BATCH, 512, IMAGE // 32, IMAGE // 32), 1.0)
+    return layers, kernels, biases, x, r
+
+
+def make_train_step(inputs, backend, dtype, taken=None, scale=1.0,
+                    plans=None):
+    """A training step of ``train_inputs()`` on input ``x * scale``:
+    ``step(record)`` returns the loss and the grads of every layer's
+    kernel, then of every layer's bias, and appends its branches to the
+    list ``record``; with ``taken`` the step follows those branches
+    (``vgg_branch_loss``, on direct); with ``plans`` it runs them."""
+    layers, kernels, biases, x, r = inputs
+    ks = {n: k.to(dtype).requires_grad_() for n, k in kernels.items()}
+    bs = {n: b.to(dtype).requires_grad_() for n, b in biases.items()}
+    params = [ks[l.name] for l in layers] + [bs[l.name] for l in layers]
+    xd, rd = (x * scale).to(dtype), r.to(dtype)
+
+    def step(record=None):
+        if taken is None:
+            loss = vgg_train_loss(layers, backend, ks, bs, xd, rd, record,
+                                  plans)
+        else:
+            loss = vgg_branch_loss(layers, ks, bs, xd, rd, taken)
+        return loss, torch.autograd.grad(loss, params)
+    return step
+
+
 def train_phase():
     """Training steps of the full-width trunk on fft-cuda and on direct
     (float32, timed), and on direct in float64: exact launches per step,
@@ -972,58 +1071,43 @@ def train_phase():
     grad by up to a few 1e-3 of its largest entry, and which ones flip
     changes with any change of rounding (PERF.md §6).  That
     comparison is reported beside the gated one, as is cuDNN's float32
-    step."""
-    layers = network_convs(serve._vgg_scale(IMAGE), BATCH)
-    rng = np.random.default_rng(SEED)
-
-    def init(shape, s=0.05):
-        return torch.as_tensor(s * rng.standard_normal(shape),
-                               dtype=torch.float32).cuda()
-    kernels = {l.name: init(l.k_shape) for l in layers}
-    biases = {l.name: init((l.k_shape[0],)) for l in layers}
-    x = init(layers[0].x_shape, 1.0)
-    r = init((BATCH, 512, IMAGE // 32, IMAGE // 32), 1.0)
+    step.  Returns the launches, and the last timed fft-cuda step's grads
+    with the step's median time and device profile (phase 12's
+    reference)."""
+    inputs = train_inputs()
+    layers = inputs[0]
 
     def make_step(backend, dtype, taken=None, scale=1.0):
-        """A training step on input ``x * scale``: ``step(record)`` appends
-        its branches to the list ``record``; with ``taken`` the step
-        follows those branches (``vgg_branch_loss``, on direct)."""
-        ks = {n: k.to(dtype).requires_grad_() for n, k in kernels.items()}
-        bs = {n: b.to(dtype).requires_grad_() for n, b in biases.items()}
-        params = [ks[l.name] for l in layers] + [bs[l.name] for l in layers]
-        xd, rd = (x * scale).to(dtype), r.to(dtype)
+        return make_train_step(inputs, backend, dtype, taken, scale)
 
-        def step(record=None):
-            if taken is None:
-                loss = vgg_train_loss(layers, backend, ks, bs, xd, rd,
-                                      record)
-            else:
-                loss = vgg_branch_loss(layers, ks, bs, xd, rd, taken)
-            return loss, torch.autograd.grad(loss, params)
-        return step
-
-    out = {}
+    out, local = {}, {}
     for backend in ("fft-cuda", "direct"):
         step = make_step(backend, torch.float32)
         step()                                          # warm-up
         torch.cuda.synchronize()
         zero_counts()
-        times = []
+        times, grads = [], None
         for _ in range(TRAIN_STEPS):
             branches = []               # every timed step records its own
             t0 = time.perf_counter()
-            loss, grads = step(branches)
+            prev, (loss, grads) = grads, step(branches)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         out[backend] = (loss, grads, times, read_counts(), branches)
         rows, busy, wall_us = device_profile(step)
+        idle = 1 - busy / (statistics.median(times) * 1e6)
         emit("train_profile", backend=backend, device_busy_us=busy,
              kernel_launches=sum(c for _, _, c in rows),
-             profiled_wall_us=wall_us,
-             idle_share_vs_median_step=1 - busy / (
-                 statistics.median(times) * 1e6),
+             profiled_wall_us=wall_us, idle_share_vs_median_step=idle,
              kernels=[{"name": k[:90], "device_us": t, "calls": c}
                       for t, k, c in rows[:24]])
+        if backend == "fft-cuda":
+            # the same step twice: cuDNN's weight-gradient routine (dk)
+            # may differ from run to run in its last bits
+            local = dict(grads=grads,
+                         step_ms=statistics.median(times) * 1e3,
+                         device_busy_us=busy, idle_share=idle)
+            repeat_err = max(rel_errs(layers, grads, prev).values())
     n = len(layers)
     # per step: forward x and k tiles of every layer, the dx plans' dz and
     # k tiles of layers 2-9; one CGEMM per plan; the forward's bias-only
@@ -1069,12 +1153,13 @@ def train_phase():
          max_direct_f32_rel_err=max(errs_direct.values()),
          direct_f32_branch_flips_vs_f64=flip_counts(out["direct"][4],
                                                     branches64),
+         repeat_max_rel_err=repeat_err,
          step_ms=statistics.median(out["fft-cuda"][2]) * 1e3,
          step_ms_direct=statistics.median(out["direct"][2]) * 1e3,
          step_ms_all=[t * 1e3 for t in out["fft-cuda"][2]],
          step_ms_direct_all=[t * 1e3 for t in out["direct"][2]])
     branch_witness(layers, make_step)
-    return counts
+    return counts, local
 
 
 def branch_witness(layers, make_step):
@@ -1758,50 +1843,256 @@ def sharded_one_shot(mesh, convs, res, gen):
     return out, total
 
 
-def check_slab_cgemm(mesh, convs, gen, checked):
-    """The CGEMM of each sharded configuration at the shapes its stage 3
-    runs, one per slab (nfft: P/N, M_slab, C, C'/N; wfft: P, M_slab, C/N,
-    C'), on the tile row its plan pins, against ``cgemm_ref``.  A shape
-    and variant that ``check_cgemm`` already held (``checked``: (P, M, C,
-    N, variant) keys) is not repeated."""
-    rows = []
+def sharded_train_plans(mesh, convs, schedule, overlap):
+    """Phase 12's plan of each layer of the trunk: one-shot, bias + ReLU
+    fused, on ``mesh``."""
+    return {c.name: plan_conv(c.x_shape, c.k_shape, padding=c.padding,
+                              backend="fft-cuda", schedule=schedule,
+                              mesh=mesh, overlap=overlap,
+                              epilogue=Epilogue(bias=True,
+                                                activation="relu"))
+            for c in convs}
+
+
+def slab_plans(mesh, convs):
+    """(schedule, overlap, layer, plan, role) of every plan that phases 11
+    and 12 run: each configuration's served forward plans (``"served"``:
+    prepared, ReLU fused), its training step's forward plans
+    (``"train"``: one-shot, the bias-only pre-activation plan's inverse)
+    and the dx plans of the step (``"dx"``: every layer's but the
+    first's, whose input needs no grad)."""
     for schedule, overlap in SHARDED:
         net = plan_network(convs, backend="fft-cuda", mesh=mesh,
                            schedule=schedule, overlap=overlap)
         for name, plan in net.items():
-            spec = stages.padded_sharded_spec(plan)
-            n_data = stages.axis_size(mesh, plan.data_axis)
-            n = stages.axis_size(mesh, plan.model_axis)
-            P = freq_count(spec, "real")
-            if schedule == "nfft":
-                P, C, N = (P + (-P) % n) // n, spec.C, spec.Cout // n
-            else:
-                C, N = spec.C // n, spec.Cout
-            row = shape_for_blocks(plan.bm, plan.bn, plan.bk)
-            for b in stages._slab_sizes(spec.B // n_data, plan.num_slabs):
-                M = b * spec.n_tiles
-                key = (P, M, C, N, choose_variant(P, M, C, N, torch.float32,
-                                                  True, row).name)
-                if key in checked:
-                    continue
-                checked.add(key)
-                rows.append(cgemm_row(
-                    name, P, M, C, N, torch.float32, plan.three_m, "real",
-                    gen, row, schedule=schedule, overlap=overlap,
-                    slab_batch=b, pinned_row=row))
+            yield schedule, overlap, name, plan, "served"
+        train = sharded_train_plans(mesh, convs, schedule, overlap)
+        for name, plan in train.items():
+            yield schedule, overlap, name, plan, "train"
+        for name, plan in list(train.items())[1:]:
+            yield (schedule, overlap, name, autodiff._transposed_plan(plan),
+                   "dx")
+
+
+def slab_blocks(plan):
+    """(padded spec, model axis size, per-slab batches) of a sharded plan
+    on its mesh: each rank runs the slabs of its B/n_data block."""
+    spec = stages.padded_sharded_spec(plan)
+    n_data = stages.axis_size(plan.mesh, plan.data_axis)
+    return (spec, stages.axis_size(plan.mesh, plan.model_axis),
+            stages._slab_sizes(spec.B // n_data, plan.num_slabs))
+
+
+def check_slab_cgemm(mesh, convs, gen, checked):
+    """The CGEMM of each sharded plan (``slab_plans``) at the shapes its
+    stage 3 runs, one per slab (nfft: P/N, M_slab, C, C'/N; wfft: P,
+    M_slab, C/N, C'), on the tile row its plan pins, against
+    ``cgemm_ref``.  A shape and variant already held (``checked``: (P, M,
+    C, N, variant) keys, ``check_cgemm``'s first) is not repeated."""
+    rows = []
+    for schedule, overlap, name, plan, role in slab_plans(mesh, convs):
+        spec, n, slabs = slab_blocks(plan)
+        P = freq_count(spec, "real")
+        if schedule == "nfft":
+            P, C, N = (P + (-P) % n) // n, spec.C, spec.Cout // n
+        else:
+            C, N = spec.C // n, spec.Cout
+        row = shape_for_blocks(plan.bm, plan.bn, plan.bk)
+        for b in slabs:
+            M = b * spec.n_tiles
+            key = (P, M, C, N, choose_variant(P, M, C, N, torch.float32,
+                                              True, row).name)
+            if key in checked:
+                continue
+            checked.add(key)
+            rows.append(cgemm_row(
+                name, P, M, C, N, torch.float32, plan.three_m, "real", gen,
+                row, schedule=schedule, overlap=overlap, slab_batch=b,
+                pinned_row=row, dx_plan=role == "dx"))
     return rows
 
 
-def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked):
-    """Phase 11: the paper's schedules on a one-rank NCCL mesh.  A process
-    group that fails to start fails the smoke: there is no fallback.
-    ``checked`` holds the CGEMM cases ``check_cgemm`` held already."""
+def check_slab_dft(mesh, convs, gen, checked):
+    """The compact tile DFTs of each sharded plan (``slab_plans``) at the
+    tile counts the rank runs, against their plain versions: stage 1 per
+    slab on the rank's (b, C/N) block of the input; stage 2 on the
+    kernel, whole in a prepare of nfft or a replicated transform, else
+    the rank's C/N block of it; stage 4 per slab on its (b, C'/N) block
+    of the output, fused with ReLU (served), the bias alone (train) or
+    plain (dx).  A case already held (``checked``: ``dft_key``s, those of
+    ``check_forward``, ``check_inverse`` and ``check_plain_inverse``
+    first) is not repeated.  The rows are emitted by ``device_times``."""
+    rows = []
+    for schedule, overlap, name, plan, role in slab_plans(mesh, convs):
+        spec, n, slabs = slab_blocks(plan)
+        P = freq_count(spec, "real")
+        tiles = spec.X * spec.D
+        whole = schedule == "nfft" and (role == "served"
+                                        or plan.replicate_kernel_transform)
+        cases = [("tile_rfft", spec.Cout * spec.C // (1 if whole else n),
+                  None, "stage2", None)]
+        for b in slabs:
+            cases.append(("tile_rfft", b * spec.C // n * tiles, None,
+                          "stage1", b))
+            cases.append((
+                "tile_irfft" if role == "dx" else "tile_irfft_epilogue",
+                b * spec.Cout // n * tiles,
+                {"dx": None, "train": "none", "served": "relu"}[role],
+                "stage4", b))
+        for kernel, count, act, stage, b in cases:
+            key = (kernel, count, P, act)
+            if key in checked:
+                continue
+            checked.add(key)
+            extra = dict(schedule=schedule, overlap=overlap, role=role,
+                         slab_batch=b, dx_plan=role == "dx")
+            if kernel == "tile_rfft":
+                rows.append(forward_row(name, count, gen, stage=stage,
+                                        **extra))
+            elif kernel == "tile_irfft":
+                rows.append(plain_inverse_row(name, count, P, gen, **extra))
+            else:
+                rows.append(epilogue_row(name, count, P, act, gen, **extra))
+    return rows
+
+
+def sharded_train_launches(n_layers, slabs, steps):
+    """Launches of phase 12's training steps: per step, each layer's
+    one-shot forward (stage 2 once; per slab stage 1, the CGEMM and the
+    inverse with the bias fused) and the dx plan of every layer but the
+    first (stage 2 of the flipped kernel once; per slab stage 1 of dz,
+    the CGEMM and the plain inverse)."""
+    n, k = n_layers, slabs
+    return {"tile_rfft": steps * (2 * n - 1) * (1 + k),
+            "cgemm": steps * (2 * n - 1) * k,
+            "tile_irfft_epilogue": steps * n * k,
+            "tile_irfft": steps * (n - 1) * k}
+
+
+def sharded_train_collectives(schedule, slabs, n_layers):
+    """Collectives of one phase-12 step: a one-shot plan's
+    (``sharded_collectives``) for each of the ``2n - 1`` forward and dx
+    plans; per layer one all-reduce over data and one all-gather over
+    model for dk and again for d_bias, and for every layer but the first
+    (whose input is the plain image) the gather of x or dz over model that
+    dk needs; no grad gathered whole (every operand that takes a grad is
+    a ``DTensor``)."""
+    n = n_layers
+    plans = sharded_collectives(schedule, slabs, one_shot=True)
+    return {**{kind: (2 * n - 1) * c for kind, c in plans.items()},
+            "grad_all_reduce": 2 * n, "grad_all_gather": 2 * n + (n - 1),
+            "grad_full": 0}
+
+
+def deterministic_grads(step):
+    """The grads of one call of ``step`` with cuDNN held to its
+    deterministic algorithms (TF32 off, as everywhere here)."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        return step()[1]
+
+
+def sharded_train(mesh, local):
+    """Phase 12: for each configuration of ``SHARDED`` a warm-up and
+    ``TRAIN_STEPS`` timed training steps of phase 7's trunk on ``mesh``
+    and a profiled one; the gates of the phase, against ``local`` (phase
+    7's last fft-cuda step).  Returns (reports, launches)."""
+    inputs = train_inputs()
+    layers = inputs[0]
+    n = len(layers)
+    branches64 = []
+    make_train_step(inputs, "direct", torch.float64)(branches64)
+    local_det = deterministic_grads(make_train_step(inputs, "fft-cuda",
+                                                    torch.float32))
+    reports, total = [], dict.fromkeys(KERNELS, 0)
+    for schedule, overlap in SHARDED:
+        what = f"sharded_train {schedule} {overlap}"
+        plans = sharded_train_plans(mesh, layers, schedule, overlap)
+        slabs = {p.num_slabs for p in plans.values()}
+        if len(slabs) != 1:
+            raise AssertionError(f"{what}: slab counts {slabs}")
+        slabs = slabs.pop()
+        step = make_train_step(inputs, None, torch.float32, plans=plans)
+        step()                                          # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        times = []
+        with stages.stage_trace() as trace:
+            for _ in range(TRAIN_STEPS):
+                branches = []
+                t0 = time.perf_counter()
+                _, grads = step(branches)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        counts = read_counts()
+        expect_counts(what, counts,
+                      sharded_train_launches(n, slabs, TRAIN_STEPS))
+        want = sharded_train_collectives(schedule, slabs, n)
+        collectives = check_collectives(what, trace, want, 1, TRAIN_STEPS)
+        total = {k: total[k] + counts[k] for k in KERNELS}
+        kinds = {type(g).__name__ for g in grads}
+        if kinds != {"Tensor"}:
+            raise AssertionError(f"{what}: grads of kinds {sorted(kinds)}")
+        errs_det = rel_errs(layers, deterministic_grads(step), local_det)
+        errs = rel_errs(layers, grads, make_train_step(
+            inputs, "direct", torch.float64, taken=branches)()[1])
+        flips = flip_counts(branches, branches64)
+        worst_det = max(errs_det, key=errs_det.get)
+        worst = max(errs, key=errs.get)
+        if not errs_det[worst_det] <= SHARDED_GRAD_TOL:
+            raise AssertionError(
+                f"{what} {worst_det} vs the local fft-cuda step, cuDNN "
+                f"deterministic: {errs_det[worst_det]:.3e} > "
+                f"{SHARDED_GRAD_TOL}")
+        if not errs[worst] <= GRAD_TOL:
+            raise AssertionError(
+                f"{what} {worst} vs cuDNN float64 through the same "
+                f"branches: {errs[worst]:.3e} > {GRAD_TOL}")
+        if not sum(flips) <= FLIP_LIMIT:
+            raise AssertionError(f"{what}: {sum(flips)} ReLU and pool "
+                                 f"choices differ from cuDNN float64's "
+                                 f"{flips} > {FLIP_LIMIT}")
+        rows, busy, wall_us = device_profile(step)
+        step_ms = statistics.median(times) * 1e3
+        reports.append(dict(
+            schedule=schedule, overlap=overlap, slabs=slabs,
+            launches_per_step=sharded_train_launches(n, slabs, 1),
+            collectives_per_step={k: v // TRAIN_STEPS
+                                  for k, v in collectives.items()},
+            collective_bytes_per_step={
+                kind: trace[("collective_bytes", kind)] // TRAIN_STEPS
+                for kind in want},
+            max_rel_err_vs_local_deterministic=errs_det[worst_det],
+            tol_vs_local=SHARDED_GRAD_TOL,
+            max_rel_err_vs_local=max(
+                rel_errs(layers, grads, local["grads"]).values()),
+            max_rel_err_vs_cudnn_f64_same_branches=errs[worst],
+            tol=GRAD_TOL, branch_flips_vs_f64=flips,
+            flip_limit=FLIP_LIMIT,
+            step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+            device_busy_us=busy, nccl_device_ms=nccl_us(rows) / 1e3,
+            profiled_wall_us=wall_us,
+            idle_share_vs_median_step=1 - busy / (step_ms * 1e3),
+            kernels=[{"name": k[:90], "device_us": t, "calls": c}
+                     for t, k, c in rows[:12]]))
+    return reports, total
+
+
+def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
+                  checked_dft, local_train):
+    """Phases 11 and 12: the paper's schedules on a one-rank NCCL mesh,
+    serving and then training.  A process group that fails to start fails
+    the smoke: there is no fallback.  ``checked`` and ``checked_dft``
+    hold the CGEMM and compact tile DFT cases held already; ``local_train``
+    is phase 7's fft-cuda step.  Returns the launches of both phases and
+    the compact tile DFT rows, for ``device_times``."""
     tmesh.start_process_group("nccl", device_id=torch.device("cuda", 0))
     try:
         mesh = tmesh.make_mesh((1, 1), ("data", "model"))
         convs = network_convs(serve._vgg_scale(IMAGE), BATCH)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
         slab_rows = check_slab_cgemm(mesh, convs, gen, checked)
+        dft_rows = check_slab_dft(mesh, convs, gen, checked_dft)
         configs, total = [], dict.fromkeys(KERNELS, 0)
         for schedule, overlap in SHARDED:
             report, counts = sharded_trunk(schedule, overlap, mesh, convs,
@@ -1810,14 +2101,23 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked):
             total = {k: total[k] + counts[k] for k in KERNELS}
         one_shot, counts = sharded_one_shot(mesh, convs, res, gen)
         total = {k: total[k] + counts[k] for k in KERNELS}
+        train, train_counts = sharded_train(mesh, local_train)
     finally:
         tmesh.destroy_process_group()
     emit("sharded", mesh=[1, 1], backend="nccl", image=IMAGE, batch=BATCH,
          configs=configs, one_shot=one_shot, launches=total,
          slab_cgemm_cases=len(slab_rows),
+         slab_cgemm_dx_plan_cases=sum(r["dx_plan"] for r in slab_rows),
+         slab_dft_cases=dict(collections.Counter(
+             r["kernel"] for r in dft_rows)),
          local_slice_p50_ms=slice_p50_ms,
          local_profile_busy_us=profile_busy_us)
-    return total
+    emit("sharded_train", mesh=[1, 1], backend="nccl", image=IMAGE,
+         batch=BATCH, steps=TRAIN_STEPS, configs=train,
+         launches=train_counts, local_step_ms=local_train["step_ms"],
+         local_device_busy_us=local_train["device_busy_us"],
+         local_idle_share_vs_median_step=local_train["idle_share"])
+    return {k: total[k] + train_counts[k] for k in KERNELS}, dft_rows
 
 
 def main():
@@ -1891,20 +2191,21 @@ def main():
 
     profile_busy_us = profile_forward(res)
     rect_counts = rect_phase(res, layers, y_ref, slice_p50_ms)
-    train_counts = train_phase()
+    train_counts, local_train = train_phase()
     trainer_counts = trainer_phase()
     trace_counts = serve_trace_phase(slice_p50_ms, profile_busy_us)
     tune_counts = tune_phase(res, y_ref, slice_p50_ms, profile_busy_us)
     checked = {(*r["shape"], r["variant"]) for r in cg_rows
                if r["dtype"] == "float32" and r["three_m"]
                and r["spectrum"] == "real"}
-    sharded_counts = sharded_phase(res, y_ref, slice_p50_ms,
-                                   profile_busy_us, checked)
-    device_times(fwd_rows + rfwd_rows + inv_rows + binv_rows + rinv_rows
-                 + rinv_ep_rows)
+    sharded_counts, sdft_rows = sharded_phase(
+        res, y_ref, slice_p50_ms, profile_busy_us, checked,
+        {dft_key(r) for r in fwd_rows + inv_rows + binv_rows}, local_train)
+    device_times(fwd_rows + rfwd_rows + inv_rows + binv_rows + sdft_rows
+                 + rinv_rows + rinv_ep_rows)
 
-    # launches: the seven main paths together (slice, rect, train, trainer,
-    # serve_trace, tune, sharded)
+    # launches: the eight main paths together (slice, rect, train, trainer,
+    # serve_trace, tune, sharded, sharded_train)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
                 + trainer_counts[k] + trace_counts[k] + tune_counts[k]
                 + sharded_counts[k] for k in KERNELS}

@@ -44,18 +44,19 @@ is given, else ``local``.  ``backend="tuned"`` measures instead
 tile) points are timed on the device, the winner is cached per machine,
 and its tile rides the plan down into the CUDA CGEMM.
 
-Every stage-pipeline backend trains: when grad mode is on and an operand
-requires grad, ``plan(x, k, ...)`` and ``prepared(x, ...)`` run through the
-plan-level VJP (``repro_torch.conv.autodiff``); otherwise they run the
-pipeline straight, and record nothing for autograd.  ``overlap`` is
+Every stage-pipeline backend trains, on every schedule: when grad mode is
+on and an operand (a tensor or a ``DTensor``) requires grad,
+``plan(x, k, ...)`` and ``prepared(x, ...)`` run through the plan-level
+VJP (``repro_torch.conv.autodiff``); otherwise they run the pipeline
+straight, and record nothing for autograd.  ``overlap`` is
 ``"off"`` on every local plan (``"auto"`` resolves to it, as in the
 reference); ``"slab:<k>"`` overlaps the sharded schedules' collectives
 with compute.  ``bm``/``bn``/``bk`` pin a row of the CUDA CGEMM's compiled
 tile table (``kernels.cgemm.ops.SHAPES``) on ``fft-cuda`` plans; the
 reference honours any positive block, the port takes only the rows its
 kernel was compiled with.  Not ported yet (they raise): ``dft_bt`` (the
-tile DFT kernels take a compile-time number of tiles per block), grads
-through the sharded schedules and the tuner over them.
+tile DFT kernels take a compile-time number of tiles per block) and the
+tuner over the sharded schedules.
 
 ``backend="fft-cuda"`` runs tiles up to ``kernels.dft_tile.ops.MAX_DELTA``
 (32); a larger ``delta`` is refused when the plan is made.

@@ -13,10 +13,9 @@ A backend is registered in one of two forms:
   * **stage-pipeline** — ``pipeline_factory(plan) -> StagePipeline`` (see
     ``repro_torch.conv.stages``).  Execution composes the stage graph and
     the plan gets ``prepare``/execute for free, and the backend is
-    differentiable on every mesh-free schedule it supports through the
-    plan-level VJP (``repro_torch.conv.autodiff``) — its
-    ``differentiable`` set is derived, not declared.  The VJP through the
-    sharded schedules is not ported yet (ROADMAP Queue 1 item 12).
+    differentiable on every schedule it supports, sharded or not, through
+    the plan-level VJP (``repro_torch.conv.autodiff``) — its
+    ``differentiable`` set is derived, not declared.
   * **opaque execute** — ``execute(plan, x, k) -> y``.  Third-party
     backends register this way:
 
@@ -51,16 +50,12 @@ class BackendInfo:
 
     @property
     def differentiable(self) -> tuple:
-        """Schedules with working reverse-mode grads: stage pipelines get
-        the plan-level VJP on the schedules that need no mesh (the
-        sharded VJP is not ported yet), native-autodiff backends
-        differentiate everywhere they execute; opaque backends fall back
-        to their declaration."""
-        if self.native_autodiff:
+        """Schedules with working reverse-mode grads — *derived*: every
+        stage-pipeline backend gets the plan-level VJP on all its
+        schedules, native-autodiff backends differentiate everywhere they
+        execute, and only opaque backends fall back to their declaration."""
+        if self.pipeline_factory is not None or self.native_autodiff:
             return self.schedules
-        if self.pipeline_factory is not None:
-            return tuple(s for s in self.schedules
-                         if not _SCHEDULES[s].requires_mesh)
         return self.declared_differentiable
 
     @property

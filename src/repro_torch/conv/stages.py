@@ -54,7 +54,12 @@ beside the plain string op counts.  Each nfft boundary all-to-all counts
 one ``boundary_a2a`` (the real and imaginary planes travel in one
 buffer), and every collective records its kind and the bytes this rank
 sends as ``("collective", kind)`` and ``("collective_bytes", kind)``,
-``kind`` being ``"all_to_all"`` or ``"all_reduce"``.
+``kind`` being ``"all_to_all"`` or ``"all_reduce"``.  The plan-level VJP
+of the sharded schedules counts the collectives of its dk and d_bias
+reductions under kinds of their own, ``"grad_all_reduce"`` and
+``"grad_all_gather"`` (``grad_kernel``, ``grad_bias``), and the gather
+of dx or d_residual into the global tensor for a plain operand as
+``"grad_full"`` (``grad_full``).
 """
 from __future__ import annotations
 
@@ -80,6 +85,7 @@ from repro_torch.conv.epilogue import Epilogue, apply_epilogue
 # --------------------------------------------------------------------------
 
 _tls = threading.local()                 # per-thread stack of active traces
+_open: set = set()                       # ids of the traces still active
 
 
 def _count(name, n: int = 1) -> None:
@@ -92,22 +98,58 @@ def stage_trace():
     """Scoped, thread-local stage-op counter.
 
     Counts only the stage ops run by *this* thread while the context is
-    active, so concurrent callers don't bleed into each other.  Nested
-    traces each observe the ops run inside them.
+    active, so concurrent callers don't bleed into each other, and those
+    of the backward pass of a plan whose forward ran inside it, in
+    whatever thread autograd runs it (``counted_in``).  Nested traces each
+    observe the ops run inside them.
     """
     counts: collections.Counter = collections.Counter()
-    stack = getattr(_tls, "stack", None)
-    if stack is None:
-        stack = _tls.stack = []
+    stack = _stack()
     stack.append(counts)
+    _open.add(id(counts))
     try:
         yield counts
     finally:
-        # remove by IDENTITY: two traces may hold equal contents
-        for i in range(len(stack) - 1, -1, -1):
-            if stack[i] is counts:
-                del stack[i]
-                break
+        _open.discard(id(counts))
+        _remove(stack, counts)
+
+
+def _stack() -> list:
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    return stack
+
+
+def _remove(stack, counts) -> None:
+    # remove by IDENTITY: two traces may hold equal contents
+    for i in range(len(stack) - 1, -1, -1):
+        if stack[i] is counts:
+            del stack[i]
+            break
+
+
+def active_traces() -> tuple:
+    """The traces this thread's stage ops count in now."""
+    return tuple(getattr(_tls, "stack", ()))
+
+
+@contextlib.contextmanager
+def counted_in(traces):
+    """Within the block this thread's stage ops count in ``traces`` too,
+    those of them still active and not counting here already.  Autograd
+    runs the backward pass of CUDA tensors in a thread of its own: the
+    plan-level VJP counts its ops in the traces that were active at the
+    forward (``active_traces()``) and still are."""
+    stack = _stack()
+    extra = [c for c in traces
+             if id(c) in _open and not any(c is t for t in stack)]
+    stack.extend(extra)
+    try:
+        yield
+    finally:
+        for c in extra:
+            _remove(stack, c)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -365,6 +407,12 @@ def _shard(plan) -> _Shard:
                   mesh.get_group(plan.model_axis))
 
 
+def _block_cuts(sh: _Shard) -> tuple:
+    """The ``_take`` cuts of this rank's (batch, channel) block of an
+    input- or output-shaped operand."""
+    return ((0, sh.n_data, sh.d), (1, sh.n_model, sh.m))
+
+
 def _placements(plan) -> tuple:
     """The output's placements: B over the data axis, C' over the model
     axis, replicated over any other mesh dim."""
@@ -416,8 +464,7 @@ def _epilogue_operands(plan, sh: _Shard, bias, residual):
     if bias is not None:
         bias = _take(bias, ((0, sh.n_model, sh.m),))
     if residual is not None:
-        residual = _local_block(plan, residual, ((0, sh.n_data, sh.d),
-                                                 (1, sh.n_model, sh.m)))
+        residual = _local_block(plan, residual, _block_cuts(sh))
     return bias, residual
 
 
@@ -435,6 +482,105 @@ def _global_output(plan, y, sh: _Shard, dtype):
         y.to(dtype).contiguous(), plan.mesh, _placements(plan),
         run_check=False, shape=torch.Size((B, Co, Ho, Wo)),
         stride=(Co * Ho * Wo, Ho * Wo, Wo, 1))
+
+
+# --------------------------------------------------------------------------
+# What the plan-level VJP of the sharded schedules needs: each rank's
+# blocks of the output-shaped cotangents, and the counted reductions that
+# turn each rank's share of dk and d_bias into one plain tensor, equal on
+# every rank.  The reductions are blocking: each one's result is the next
+# one's input.
+# --------------------------------------------------------------------------
+
+def output_block(plan, t, sh: _Shard):
+    """This rank's block of an output-shaped operand (B over the data
+    axis, C' over the model axis), zero-padded to the block size: a
+    ``DTensor`` placed any other way on the plan's mesh (a loss taken
+    after a ``redistribute`` hands back such a cotangent) is redistributed
+    to the output's placements first; a plain global tensor is cut."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor) and tuple(t.placements) != _placements(plan):
+        t = t.redistribute(plan.mesh, _placements(plan))
+    return _local_block(plan, t, _block_cuts(sh))
+
+
+def on_local(fn, t):
+    """``fn`` of a ``DTensor``'s local block, as a ``DTensor`` of the same
+    global shape and placements (``fn`` keeps the shape: an elementwise
+    op); ``fn(t)`` of a plain tensor."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return fn(t)
+    return DTensor.from_local(fn(t.to_local()), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _grad_all_reduce(t, group):
+    """Sum of ``t`` over ``group``, in place."""
+    _record("grad_all_reduce", t)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _grad_all_gather(t, group, n: int, dim: int):
+    """The ``n`` ranks' blocks ``t`` of ``group`` concatenated along
+    ``dim`` in rank order."""
+    t = t.contiguous()
+    out = [torch.empty_like(t) for _ in range(n)]
+    _record("grad_all_gather", t)
+    dist.all_gather(out, t, group=group)
+    return torch.cat(out, dim=dim)
+
+
+def grad_full(t):
+    """The global tensor of the ``DTensor`` grad ``t`` (``full_tensor()``:
+    an all-gather over the mesh), the grad of an operand that came in
+    plain; counted with the bytes of this rank's block."""
+    _record("grad_full", t.to_local())
+    return t.full_tensor()
+
+
+def grad_kernel(plan, x, dz, sh: _Shard, dtype):
+    """dk of a sharded plan as one plain (C', C, kh, kw) tensor, equal on
+    every rank, from this rank's padded block ``dz`` (B/n_data, C'/n_model)
+    of the conv-output cotangent; no rank gathers the whole ``x`` or
+    ``dz``.
+
+    A plain global ``x`` gives its batch block with every channel, so the
+    rank computes the rows of its C' block; a ``DTensor`` ``x`` gives its
+    (B/n_data, C/n_model) block, and whichever of it and ``dz`` is smaller
+    is gathered over ``model``: ``x`` for the rows of the rank's C' block,
+    ``dz`` for the columns of its C block.  The share is then summed over
+    ``data`` and gathered over ``model``.  Padded batch rows and channels
+    hold zeros, so they contribute nothing; the padding is cut off."""
+    from torch.distributed.tensor import DTensor
+    s = plan.spec
+    rows = True                          # the rank's C' rows of dk
+    if isinstance(x, DTensor):
+        xb = _local_block(plan, x, _block_cuts(sh))
+        if xb.numel() <= dz.numel():
+            xb = _grad_all_gather(xb, sh.group, sh.n_model, 1)[:, :s.C]
+        else:
+            dz = _grad_all_gather(dz, sh.group, sh.n_model, 1)
+            rows = False
+    else:
+        xb = _take(x, ((0, sh.n_data, sh.d),))
+    dk = torch.nn.grad.conv2d_weight(
+        xb, (dz.shape[1], xb.shape[1], s.kh, s.kw), dz.to(xb.dtype),
+        padding=plan.padding)
+    dk = _grad_all_reduce(dk, plan.mesh.get_group(plan.data_axis))
+    dk = _grad_all_gather(dk, sh.group, sh.n_model, 0 if rows else 1)
+    return dk[:s.Cout, :s.C].to(dtype)
+
+
+def grad_bias(plan, dz, sh: _Shard):
+    """d_bias of a sharded plan as one plain (C',) tensor, equal on every
+    rank: the rank's block ``dz`` summed over (B, H, W), then over
+    ``data``, gathered over ``model`` and cut to C'."""
+    db = _grad_all_reduce(dz.sum(dim=(0, 2, 3)),
+                          plan.mesh.get_group(plan.data_axis))
+    return _grad_all_gather(db, sh.group, sh.n_model, 0)[:plan.spec.Cout]
 
 
 class _ShardedPipeline:
@@ -458,8 +604,7 @@ class _ShardedPipeline:
 
     def _run(self, plan, x, bias, residual, G=None, k=None):
         sh, spec = _shard(plan), padded_sharded_spec(plan)
-        xb = _local_block(plan, x, ((0, sh.n_data, sh.d),
-                                    (1, sh.n_model, sh.m)))
+        xb = _local_block(plan, x, _block_cuts(sh))
         bias, residual = _epilogue_operands(plan, sh, bias, residual)
         if G is None:
             G = self._stage2(k, plan, spec, sh)

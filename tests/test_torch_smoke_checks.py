@@ -3,7 +3,8 @@ step through recorded branches (the float64 reference its grads are held
 to), the flip count, the forced generic forms, the launch counts that
 refuse a generic-form launch, forward or inverse, on a main path, and
 phase ``sharded``'s expected launches and collectives and its refusals
-(a rehearsal of its forward on a one-rank gloo mesh)."""
+(a rehearsal of its forward on a one-rank gloo mesh), and phase
+``sharded_train``'s (a rehearsal of its training step there)."""
 import collections
 import importlib.util
 import pathlib
@@ -406,13 +407,9 @@ def test_slab_cgemm_cases_are_the_sharded_forwards_cgemms(monkeypatch):
     monkeypatch.setattr(smoke, "cgemm_row", lambda name, P, M, C, N, dtype,
                         three_m, spectrum, gen, shape=None, **extra:
                         held.add(case(P, M, C, N, shape)))
-    kernels, biases, x, _ = _trunk(torch.float32)
-    x = torch.cat([x, x])                       # batch 4: slabs of 2
-    convs = [NetworkConv(l.name, (4, CHANNELS[i], 16 >> (i // 2),
-                                  16 >> (i // 2)),
-                         (CHANNELS[i + 1], CHANNELS[i], 3, 3), padding=1,
-                         epilogue=Epilogue(bias=True, activation="relu"))
-             for i, l in enumerate(LAYERS)]
+    kernels, biases, x, r = _trunk(torch.float32)
+    x, r = torch.cat([x, x]), torch.cat([r, r])  # batch 4: slabs of 2
+    convs = _convs(4)
     tmesh.start_process_group("gloo")
     try:
         clear_plan_cache()
@@ -423,7 +420,173 @@ def test_slab_cgemm_cases_are_the_sharded_forwards_cgemms(monkeypatch):
                 net = plan_network(convs, backend="fft-cuda", mesh=mesh,
                                    schedule=schedule, overlap=overlap)
                 smoke.sharded_forward(net.prepare(kernels), x, biases)
+        forwards = set(launched)
+        for schedule, overlap in smoke.SHARDED:
+            _sharded_step(mesh, schedule, overlap, kernels, biases, x, r,
+                          convs)
         smoke.check_slab_cgemm(mesh, convs, None, set())
     finally:
         tmesh.destroy_process_group()
-    assert held == launched and len(held) == 2 * len(LAYERS)
+    # the forwards' CGEMMs and the dx plans' that the training steps add
+    assert held == launched and len(forwards) == 2 * len(LAYERS)
+    assert launched > forwards
+
+
+def _convs(batch):
+    """The narrow trunk's layers as a plan_network takes them."""
+    from repro_torch.conv import Epilogue, NetworkConv
+    return [NetworkConv(l.name, (batch, CHANNELS[i], 16 >> (i // 2),
+                                 16 >> (i // 2)),
+                        (CHANNELS[i + 1], CHANNELS[i], 3, 3), padding=1,
+                        epilogue=Epilogue(bias=True, activation="relu"))
+            for i, l in enumerate(LAYERS)]
+
+
+def _sharded_step(mesh, schedule, overlap, kernels, biases, x, r, convs,
+                  branches=None):
+    """One phase-12 training step of the narrow trunk on ``mesh``."""
+    plans = smoke.sharded_train_plans(mesh, convs, schedule, overlap)
+    return _step(smoke.vgg_train_loss, kernels, biases, torch.float32,
+                 backend=None, x=x, r=r, branches=branches, plans=plans)
+
+
+@pytest.mark.parametrize("kernel", ["tile_rfft", "tile_irfft_epilogue",
+                                    "tile_irfft"])
+def test_slab_dft_cases_are_the_sharded_plans_launches(monkeypatch, kernel):
+    """The compact tile DFT cases the phase holds against the plain
+    versions are, beside those held before it at the local trunk's shapes
+    (``check_forward``, ``check_inverse``, ``check_plain_inverse``), the
+    tile counts (and activations) that the sharded forwards and training
+    steps of ``SHARDED`` give each kernel, slab by slab; none is held
+    twice (a one-rank gloo mesh at narrow widths)."""
+    import repro_torch.kernels.dft_tile as dft_pkg
+    from repro_torch.conv import (
+        autodiff, clear_plan_cache, clear_prepared_cache, plan_network)
+    from repro_torch.launch import mesh as tmesh
+    launched = set()
+    real_rfft, real_irfft = dft_pkg.tile_rfft_cuda, dft_pkg.tile_irfft_cuda
+    real_epilogue = dft_pkg.tile_irfft_epilogue_cuda
+
+    def rfft(x, *, delta):
+        out = real_rfft(x, delta=delta)
+        launched.add(("tile_rfft", x.shape[0], out[0].shape[1], None))
+        return out
+
+    def irfft(Zr, Zi, *, delta):
+        launched.add(("tile_irfft", *Zr.shape, None))
+        return real_irfft(Zr, Zi, delta=delta)
+
+    def epilogue(Zr, Zi, bias, *, activation="none", delta=16):
+        launched.add(("tile_irfft_epilogue", *Zr.shape, activation))
+        return real_epilogue(Zr, Zi, bias, activation=activation,
+                             delta=delta)
+    monkeypatch.setattr(dft_pkg, "tile_rfft_cuda", rfft)
+    monkeypatch.setattr(dft_pkg, "tile_irfft_cuda", irfft)
+    monkeypatch.setattr(dft_pkg, "tile_irfft_epilogue_cuda", epilogue)
+    P = dft_ops.num_freq_real(16)
+    monkeypatch.setattr(smoke, "forward_row", lambda name, n, gen, **extra:
+                        dict(kernel="tile_rfft", shape=[n, 16, P]))
+    monkeypatch.setattr(smoke, "epilogue_row",
+                        lambda name, n, P, act, gen, **extra:
+                        dict(kernel="tile_irfft_epilogue", shape=[n, P, 16],
+                             activation=act))
+    monkeypatch.setattr(smoke, "plain_inverse_row",
+                        lambda name, n, P, gen, **extra:
+                        dict(kernel="tile_irfft", shape=[n, P, 16]))
+    kernels, biases, x, r = _trunk(torch.float32)
+    x, r = torch.cat([x, x]), torch.cat([r, r])  # batch 4: slabs of 2
+    convs = _convs(4)
+    net = plan_network(convs, backend="fft-cuda")
+    layers = [(name, plan.spec) for name, plan in net.items()]
+    dx_layers = [(name, autodiff._transposed_plan(plan).spec)
+                 for name, plan in list(net.items())[1:]]
+    before = {smoke.dft_key(row) for row in
+              smoke.check_forward(layers, None)
+              + smoke.check_inverse(layers, None)
+              + smoke.check_plain_inverse(dx_layers, None)}
+    tmesh.start_process_group("gloo")
+    try:
+        clear_plan_cache()
+        clear_prepared_cache()
+        mesh = tmesh.make_host_mesh(1, 1)
+        for schedule, overlap in smoke.SHARDED:
+            with torch.inference_mode():
+                trunk = plan_network(convs, backend="fft-cuda", mesh=mesh,
+                                     schedule=schedule, overlap=overlap)
+                smoke.sharded_forward(trunk.prepare(kernels), x, biases)
+            _sharded_step(mesh, schedule, overlap, kernels, biases, x, r,
+                          convs)
+        rows = smoke.check_slab_dft(mesh, convs, None, set(before))
+    finally:
+        tmesh.destroy_process_group()
+    held = [smoke.dft_key(row) for row in rows if row["kernel"] == kernel]
+    launched = {c for c in launched if c[0] == kernel}
+    before = {c for c in before if c[0] == kernel}
+    assert len(held) == len(set(held)) and before.isdisjoint(held)
+    assert launched <= before | set(held)
+    assert held and set(held) <= launched
+
+
+def test_sharded_train_launch_and_collective_arithmetic():
+    # per step 9 forward plans and 8 dx plans, each stage 2 once and
+    # stage 1 a slab
+    assert smoke.sharded_train_launches(9, 1, 1) == {
+        "tile_rfft": 34, "cgemm": 17, "tile_irfft_epilogue": 9,
+        "tile_irfft": 8}
+    assert smoke.sharded_train_launches(9, 2, 5) == {
+        "tile_rfft": 255, "cgemm": 170, "tile_irfft_epilogue": 90,
+        "tile_irfft": 80}
+    assert smoke.sharded_train_collectives("nfft", 2, 9) == {
+        "all_to_all": 85, "all_reduce": 0, "grad_all_reduce": 18,
+        "grad_all_gather": 26, "grad_full": 0}
+    assert smoke.sharded_train_collectives("wfft", 1, 9) == {
+        "all_to_all": 0, "all_reduce": 17, "grad_all_reduce": 18,
+        "grad_all_gather": 26, "grad_full": 0}
+
+
+@pytest.mark.parametrize("schedule,overlap", [("nfft", "slab:2"),
+                                              ("wfft", "off")])
+def test_sharded_train_step_rehearsal_on_a_host_mesh(schedule, overlap):
+    """Phase 12's step on a one-rank gloo mesh at narrow widths: plain
+    grads equal to the local fft-cuda step's within SHARDED_GRAD_TOL and
+    within GRAD_TOL of float64 direct through the same branches, the
+    same branches as the local step, and exactly the collectives the
+    phase expects."""
+    from repro_torch.conv import clear_plan_cache, stages
+    from repro_torch.launch import mesh as tmesh
+    kernels, biases, x, r = _trunk(torch.float32)
+    x, r = torch.cat([x, x]), torch.cat([r, r])
+    convs = _convs(4)
+    branches, branches_local = [], []
+    _, local = _step(smoke.vgg_train_loss, kernels, biases, torch.float32,
+                     backend="fft-cuda", x=x, r=r, branches=branches_local)
+    tmesh.start_process_group("gloo")
+    try:
+        clear_plan_cache()
+        mesh = tmesh.make_host_mesh(1, 1)
+        with stages.stage_trace() as trace:
+            _, grads = _sharded_step(mesh, schedule, overlap, kernels,
+                                     biases, x, r, convs, branches)
+        slabs = 2 if overlap == "slab:2" else 1
+        got = smoke.check_collectives(
+            "rehearsal", trace,
+            smoke.sharded_train_collectives(schedule, slabs, len(LAYERS)),
+            1, 1)
+        with pytest.raises(AssertionError, match="collectives"):
+            smoke.check_collectives(
+                "rehearsal", trace,
+                smoke.sharded_train_collectives(schedule, 3 - slabs,
+                                                len(LAYERS)), 1, 1)
+    finally:
+        tmesh.destroy_process_group()
+    assert got["grad_all_gather"] == 3 * len(LAYERS) - 1
+    assert all(type(g) is torch.Tensor for g in grads)
+    assert max(smoke.rel_errs(LAYERS, grads, local).values()) \
+        <= smoke.SHARDED_GRAD_TOL
+    assert smoke.flip_counts(branches, branches_local) == \
+        [0] * len(branches)
+    _, grads64 = _step(smoke.vgg_branch_loss, kernels, biases,
+                       torch.float64, x=x.double(), r=r.double(),
+                       branches=branches)
+    assert max(smoke.rel_errs(LAYERS, grads, grads64).values()) \
+        <= smoke.GRAD_TOL
