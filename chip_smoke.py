@@ -18,8 +18,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               must be the specialised one at these shapes) and give the
               achieved TB/s and the device time of the kernel and of the
               library call (``device_ms``, ``library_device_ms``: taken
-              after every other timing, so these rows come out last); and
-              the training step's dk (cuDNN) in both formulations
+              after every other timing, so these rows come out last); each
+              inverse (kernels 2, 4, 6, 7) again at every other compiled
+              tiles a block (``dft_bt``: 4 and 16 beside the default 8)
+              over its main-path pass, its launch counted under that
+              value, held to its plain version and timed (``tiles`` rows,
+              the ``inverse_tiles`` line), and its generic form at delta 8
+              at 4, 8 and 16 (``inverse_generic``); and the training
+              step's dk (cuDNN) in both formulations
   4. slice    ``repro_torch.launch.serve`` serves the VGG trunk on backend
               ``fft-cuda`` (plan_network -> prepare -> request batches ->
               weight-update sweep); launch counters show every forward ran
@@ -80,8 +86,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               prepared forward launches exactly its ``fft-cuda`` layers'
               kernels, each pinned CGEMM row among them, and is held to
               cuDNN (``SLICE_TOL``); so is the trunk on ``fft-cuda`` with
-              each layer pinned to its fastest measured CGEMM tile (a
-              pinned row on the main path, whatever won); after
+              each layer pinned to its fastest measured CGEMM tile and
+              ``dft_bt`` (a pinned row on the main path, whatever won);
+              every layer's ``fft-cuda`` default point timed at ``dft_bt``
+              None and ``DFT_BT_ALT``, and the fused inverse launched at
+              each plan's ``dft_bt`` (by value) in the sweep and the
+              forwards; after
               ``autotune.reset()`` a fresh plan hits the cache on all 9
               layers, measures nothing and launches nothing, with the same
               winners, from a file of this ``CACHE_VERSION``.  Reported,
@@ -137,11 +147,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               Reported, not gated: the median step, one step's device busy
               time, NCCL device time, idle share and collective bytes,
               beside the local step's
+ 13. sharded_tune  inside phase 11's process group, before it ends: the
+              tuner over the sharded schedules on the trunk, on a fresh
+              temporary cache at the default budget: ``plan_network(...,
+              mesh=, backend="tuned", overlap="auto")`` misses and
+              measures all 9 layers (nfft/wfft x fft-torch/fft-cuda x
+              off/slab:2/slab:4); the launches during the sweep are
+              exactly those of the ``fft-cuda`` candidates it measured
+              (``autotune.sweeps()``: a warm-up and ``reps`` one-shot
+              calls each, per slab); every winner is a sharded schedule;
+              the tuned trunk, prepared, launches exactly its ``fft-cuda``
+              layers' kernels and is within ``GRAPH_TOL`` of the local
+              trunk and ``SLICE_TOL`` of cuDNN; after ``autotune.reset()``
+              a second planning hits the file on all 9 layers, measures
+              and launches nothing.  Reported, not gated: each layer's
+              measured candidates and how many of them the budget let it
+              reach, the sweep's time, the tuned trunk's p50 and busy time
+              beside phase 11's configurations
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9, 10, 11, 12) and read right after it; each path must
+(4, 6, 7, 8, 9, 10, 11, 12, 13) and read right after it; each path must
 launch its own kernels and none of the others, and every tile DFT,
 forward and inverse, only in its specialised form.
 
@@ -172,7 +199,7 @@ from repro_torch.conv import (  # noqa: E402
     Epilogue, autodiff, autotune, autotune_info, plan_conv, plan_network,
     stages)
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
-from repro_torch.core.dft import compact_layout  # noqa: E402
+from repro_torch.core.dft import compact_layout, num_freq_real  # noqa: E402
 from repro_torch.core.fftconv import freq_count  # noqa: E402
 from repro_torch.examples import train_cnn_fftconv  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -239,6 +266,19 @@ TUNE_ENV = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_CACHE",
             "REPRO_TORCH_AUTOTUNE_BUDGET_MS", "REPRO_TORCH_AUTOTUNE_REPS")
 
 
+# the inverse kernels: (wrapper, plain version, compact layout, fused tail)
+INVERSES = {
+    "tile_irfft_epilogue": (tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref,
+                            True, True),
+    "tile_irfft": (tile_irfft_cuda, tile_irfft_ref, True, False),
+    "tile_ifft": (tile_ifft_cuda, tile_ifft_ref, False, False),
+    "tile_ifft_epilogue": (tile_ifft_epilogue_cuda, tile_ifft_epilogue_ref,
+                           False, True),
+}
+# the inverse's tiles a block other than its default, timed in phase 3
+OTHER_TILES = tuple(t for t in dft_ops.INVERSE_TILES
+                    if t != dft_ops.DEFAULT_TILES)
+
 # wrappers whose kernel has forms (``dft_ops.choose_form``,
 # ``dft_ops.choose_inverse_form``)
 FORMS = {"tile_rfft": tile_rfft_cuda, "tile_fft": tile_fft_cuda,
@@ -252,6 +292,8 @@ def zero_counts():
         wrapper.launches = 0
     for wrapper in FORMS.values():
         wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
+    for wrapper, *_ in INVERSES.values():
+        wrapper.tiles_launches = dict.fromkeys(wrapper.tiles_launches, 0)
     cgemm_cuda.variant_launches = dict.fromkeys(
         cgemm_cuda.variant_launches, 0)
 
@@ -438,7 +480,8 @@ def check_inverse(layers, gen):
 def epilogue_row(name, n, P, act, gen, d=16, **extra):
     """The fused compact inverse on ``n`` tiles of ``P`` points (NaN past
     point 130, which must never be read) under ``act`` against its plain
-    version, timed beside it.  The row is emitted by ``device_times``."""
+    version, timed beside it, at the kernel's default tiles a block.  The
+    row is emitted by ``device_times``."""
     Zr, Zi = (torch.randn((n, P), generator=gen, device="cuda")
               for _ in range(2))
     if P > 130:                      # trailing points must never be read
@@ -465,7 +508,8 @@ def epilogue_row(name, n, P, act, gen, d=16, **extra):
     flops = n * (8 * d * dh * d + 4 * d * d * dh)
     bd = bound(nbytes, flops, torch.float32)
     return dict(kernel="tile_irfft_epilogue", layer=name, shape=[n, P, d],
-                activation=act, max_abs_err=err, scaled_err=err / scale,
+                activation=act, tiles=dft_ops.DEFAULT_TILES,
+                max_abs_err=err, scaled_err=err / scale,
                 ms=ms, plain_ms=plain_ms, library_ms=None,
                 **form_fields(ms, form, bd), **extra, **bd)
 
@@ -481,13 +525,22 @@ def device_ms(fn, reps=20):
 def form_launch(wrapper, *args, **kw):
     """One launch of a tile DFT wrapper at a main path's shape, which must
     take the specialised form there: the wrapper's per-form count names
-    the form it launched."""
+    the form it launched, and an inverse's per-value count the tiles a
+    block it launched at (``tiles=``, else the default)."""
     before = dict(wrapper.form_launches)
+    tiles_before = dict(getattr(wrapper, "tiles_launches", {}))
     out = wrapper(*args, **kw)
     form = [f for f, c in wrapper.form_launches.items() if c != before[f]]
     if form != ["specialised"]:
         raise AssertionError(f"{wrapper.__name__} launched form {form} on "
                              f"{tuple(args[0].shape)}, not the specialised")
+    if tiles_before:
+        moved = [t for t, c in wrapper.tiles_launches.items()
+                 if c != tiles_before[t]]
+        want = dft_ops.resolve_tiles(kw.get("tiles"))
+        if moved != [want]:
+            raise AssertionError(f"{wrapper.__name__} launched at tiles "
+                                 f"{moved}, not {want}")
     return out, form[0]
 
 
@@ -499,10 +552,12 @@ def form_fields(ms, form, b):
 
 
 def device_calls(row, d=16):
-    """The kernel call and the library call (None where there is none) of
-    a tile DFT row, on fresh inputs of the row's shape."""
+    """The kernel call (an inverse at the row's ``tiles``) and the library
+    call (None where there is none, or where the row timed none) of a tile
+    DFT row, on fresh inputs of the row's shape."""
     kernel, n = row["kernel"], row["shape"][0]
     dh = d // 2 + 1
+    tiles = row.get("tiles")
     if kernel in ("tile_rfft", "tile_fft"):
         x = torch.randn((n, d, d), device="cuda")
         if kernel == "tile_rfft":
@@ -515,25 +570,27 @@ def device_calls(row, d=16):
     if kernel == "tile_ifft":
         Z = torch.fft.rfft2(torch.randn((n, d, d), device="cuda"))
         Zr, Zi = Z.real.contiguous(), Z.imag.contiguous()
-        return (lambda: tile_ifft_cuda(Zr, Zi, delta=d),
+        return (lambda: tile_ifft_cuda(Zr, Zi, delta=d, tiles=tiles),
                 lambda: torch.fft.irfft2(Z, s=(d, d)))
     if kernel == "tile_ifft_epilogue":
         Zr, Zi = (torch.randn((n, d, dh), device="cuda") for _ in range(2))
         b = torch.randn((n,), device="cuda")
         return (lambda: tile_ifft_epilogue_cuda(
-            Zr, Zi, b, activation=row["activation"], delta=d), None)
+            Zr, Zi, b, activation=row["activation"], delta=d, tiles=tiles),
+            None)
     P = row["shape"][1]
     Zr, Zi = (torch.randn((n, P), device="cuda") for _ in range(2))
     if kernel == "tile_irfft":
         _, src, sgn = compact_layout(d, "cuda")
         src = src.long()
-        return (lambda: tile_irfft_cuda(Zr, Zi, delta=d),
+        return (lambda: tile_irfft_cuda(Zr, Zi, delta=d, tiles=tiles),
                 lambda: torch.fft.irfft2(torch.complex(
                     Zr.index_select(1, src), Zi.index_select(1, src) * sgn)
                     .view(n, d, dh), s=(d, d)))
     b = torch.randn((n,), device="cuda")
     return (lambda: tile_irfft_epilogue_cuda(
-        Zr, Zi, b, activation=row["activation"], delta=d), None)
+        Zr, Zi, b, activation=row["activation"], delta=d, tiles=tiles),
+        None)
 
 
 def device_times(rows):
@@ -544,6 +601,8 @@ def device_times(rows):
     the script, so that no profiler session runs among timed calls."""
     for row in rows:
         kernel, library = device_calls(row)
+        if row.get("library_ms") is None:
+            library = None
         row.update(device_ms=device_ms(kernel),
                    library_device_ms=(device_ms(library) if library
                                       else None))
@@ -632,7 +691,8 @@ def plain_inverse_row(name, n, P, gen, d=16, **extra):
     flops = n * (8 * d * dh * d + 4 * d * d * dh)
     b = bound(nbytes, flops, torch.float32)
     return dict(kernel="tile_irfft", layer=name, stage="dx plan",
-                shape=[n, P, d], max_abs_err=err, scaled_err=err / scale,
+                shape=[n, P, d], tiles=dft_ops.DEFAULT_TILES,
+                max_abs_err=err, scaled_err=err / scale,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 library="scatter + torch.fft.irfft2 (two steps)",
                 **form_fields(ms, form, b), **extra, **b)
@@ -725,6 +785,7 @@ def check_rect_inverse(layers, gen):
             ms = time_ms(lambda: tile_ifft_cuda(Zr, Zi, delta=d))
             bd = bound(*rect_bytes_flops(n, d), torch.float32)
             row = dict(kernel="tile_ifft", layer=name, shape=[n, d, dh],
+                       tiles=dft_ops.DEFAULT_TILES,
                        max_abs_err=err, scaled_err=err / scale,
                        library_abs_diff=(y - y_lib).abs().max().item(),
                        ms=ms,
@@ -752,12 +813,134 @@ def check_rect_inverse(layers, gen):
             Zr, Zi, b, activation=act, delta=d))
         bd = bound(*rect_bytes_flops(n, d, tail=True), torch.float32)
         row = dict(kernel="tile_ifft_epilogue", layer=name, shape=[n, d, dh],
-                   activation=act, max_abs_err=err, scaled_err=err / scale,
+                   activation=act, tiles=dft_ops.DEFAULT_TILES,
+                   max_abs_err=err, scaled_err=err / scale,
                    ms=ms, plain_ms=time_ms(lambda: tile_ifft_epilogue_ref(
                        Zr, Zi, b, activation=act, delta=d)),
                    library_ms=None, **form_fields(ms, form, bd), **bd)
         rows7.append(row)
     return rows6, rows7
+
+
+def inverse_operands(kernel, n, gen, d=16):
+    """Random operands of inverse ``kernel`` on ``n`` tiles: compact
+    (n, P) or rect (n, d, d//2 + 1) planes, and a bias with the tail (then
+    ReLU); (args, keywords)."""
+    _, _, compact, tail = INVERSES[kernel]
+    shape = (n, num_freq_real(d)) if compact else (n, d, d // 2 + 1)
+    args = tuple(torch.randn(shape, generator=gen, device="cuda")
+                 for _ in range(2))
+    if tail:
+        args += (torch.randn((n,), generator=gen, device="cuda"),)
+    return args, (dict(activation="relu") if tail else {})
+
+
+def inverse_bytes_flops(kernel, n, d=16):
+    """One inverse over n tiles: its planes (and bias) read once and its
+    tiles written once, and its operations, as each kernel's own rows
+    count them."""
+    _, _, compact, tail = INVERSES[kernel]
+    if not compact:
+        return rect_bytes_flops(n, d, tail)
+    dh = d // 2 + 1
+    return (4 * (2 * n * num_freq_real(d) + n * d * d + (n if tail else 0)),
+            n * (8 * d * dh * d + 4 * d * d * dh))
+
+
+def tiles_row(kernel, name, n, tiles, gen, d=16):
+    """Inverse ``kernel`` on ``n`` tiles (a main path's count) at
+    ``tiles`` tiles a block: the specialised form, the launch counted
+    under ``tiles``, held to its plain version within ``INVERSE_TOL`` and
+    timed.  The row is emitted by ``device_times``."""
+    wrapper, ref, _, _ = INVERSES[kernel]
+    args, kw = inverse_operands(kernel, n, gen, d)
+    y, form = form_launch(wrapper, *args, delta=d, tiles=tiles, **kw)
+    y0 = ref(*args, delta=d, **kw)
+    torch.cuda.synchronize()
+    err = (y - y0).abs().max().item()
+    scale = y0.abs().max().item() + 1e-9
+    if not err / scale <= INVERSE_TOL:
+        raise AssertionError(f"{kernel} {name} tiles={tiles}: scaled error "
+                             f"{err / scale:.3e} > {INVERSE_TOL}")
+    ms = time_ms(lambda: wrapper(*args, delta=d, tiles=tiles, **kw))
+    b = bound(*inverse_bytes_flops(kernel, n, d), torch.float32)
+    shape = list(args[0].shape) if len(args[0].shape) == 3 \
+        else [n, args[0].shape[1], d]
+    return dict(kernel=kernel, layer=name, shape=shape, tiles=tiles,
+                activation=kw.get("activation"), max_abs_err=err,
+                scaled_err=err / scale, ms=ms, plain_ms=None,
+                library_ms=None, **form_fields(ms, form, b), **b)
+
+
+def inverse_passes(layers, dx_layers):
+    """(kernel, layer, tile count) of each inverse's pass on its main
+    path: kernels 2, 6 and 7 over a served forward's output tiles, kernel
+    4 over a training step's dx plans."""
+    served = [(name, spec.B * spec.Cout * spec.X * spec.D)
+              for name, spec in layers]
+    dx = [(name, spec.B * spec.Cout * spec.X * spec.D)
+          for name, spec in dx_layers]
+    return [(kernel, name, n) for kernel in INVERSES
+            for name, n in (dx if kernel == "tile_irfft" else served)]
+
+
+def check_inverse_tiles(layers, dx_layers, gen):
+    """Every inverse at every compiled tiles a block but the default (its
+    rows are ``check_inverse``'s and the others') over its main-path
+    pass.  The rows are emitted by ``device_times``."""
+    return [tiles_row(kernel, name, n, tiles, gen)
+            for tiles in OTHER_TILES
+            for kernel, name, n in inverse_passes(layers, dx_layers)]
+
+
+def check_generic_tiles(gen, n=1001, d=8):
+    """The generic form of each inverse (delta 8: no plan runs it) at
+    every compiled tiles a block, against its plain version: the pin is
+    honoured at every delta, as the reference honours ``bt``."""
+    rows = []
+    for kernel, (wrapper, ref, _, _) in INVERSES.items():
+        for tiles in dft_ops.INVERSE_TILES:
+            args, kw = inverse_operands(kernel, n, gen, d)
+            forms = dict(wrapper.form_launches)
+            counts = dict(wrapper.tiles_launches)
+            y = wrapper(*args, delta=d, tiles=tiles, **kw)
+            y0 = ref(*args, delta=d, **kw)
+            torch.cuda.synchronize()
+            forms["generic"] += 1
+            counts[tiles] += 1
+            err = (y - y0).abs().max().item() / (y0.abs().max().item()
+                                                 + 1e-9)
+            if wrapper.form_launches != forms \
+                    or wrapper.tiles_launches != counts \
+                    or not err <= INVERSE_TOL:
+                raise AssertionError(
+                    f"{kernel} generic delta {d} tiles={tiles}: forms "
+                    f"{wrapper.form_launches}, tiles "
+                    f"{wrapper.tiles_launches}, scaled error {err:.3e}")
+            rows.append(dict(kernel=kernel, tiles=tiles, scaled_err=err))
+    emit("inverse_generic", delta=d, tiles_count=n, tol=INVERSE_TOL,
+         rows=rows)
+
+
+def tiles_summary(default_rows, tiles_rows):
+    """Each inverse's main-path pass at each tiles a block: its summed
+    time, device time and bound, from the default rows (``tiles`` 8) and
+    ``check_inverse_tiles``' rows, after ``device_times``."""
+    out = {}
+    for kernel in INVERSES:
+        per = {}
+        for tiles in dft_ops.INVERSE_TILES:
+            rows = [r for r in (default_rows if tiles == dft_ops.DEFAULT_TILES
+                                else tiles_rows)
+                    if r["kernel"] == kernel and r["tiles"] == tiles]
+            per[tiles] = dict(rows=len(rows),
+                              ms=sum(r["ms"] for r in rows),
+                              device_ms=sum(r["device_ms"] for r in rows),
+                              bound_ms=sum(r["bound_ms"] for r in rows),
+                              max_scaled_err=max(r["scaled_err"]
+                                                 for r in rows))
+        out[kernel] = per
+    emit("inverse_tiles", passes=out)
 
 
 def check_dk(gen):
@@ -1436,6 +1619,41 @@ def tune_sweep_launches(specs, reps):
     return dict(counts), dict(tiles)
 
 
+def inverse_tiles_launches(configs, calls):
+    """The fused inverse's launches by tiles a block when each real
+    ``fft-cuda`` config (a tuned candidate, or a plan: its ``dft_bt``)
+    makes ``calls`` calls, one a slab of an overlapped plan."""
+    out = dict.fromkeys(dft_ops.INVERSE_TILES, 0)
+    for c in configs:
+        if c.backend == "fft-cuda" and c.spectrum == "real":
+            out[dft_ops.resolve_tiles(c.dft_bt)] += calls * getattr(
+                c, "num_slabs", 1)
+    return out
+
+
+def check_inverse_tiles_launched(what, want):
+    """The fused inverse launched exactly ``want`` by tiles a block: each
+    pinned ``dft_bt`` reached the kernel."""
+    got = dict(tile_irfft_epilogue_cuda.tiles_launches)
+    if got != want:
+        raise AssertionError(f"{what}: fused inverse launches by tiles a "
+                             f"block {got}, want {want}")
+
+
+def check_dft_bt_axis(sweeps):
+    """Every sweep timed its layer's ``fft-cuda`` default point (real, the
+    chooser's tile) at ``dft_bt`` None and at ``DFT_BT_ALT``."""
+    for sw in sweeps:
+        timed = {c.dft_bt for c in sw["measured"]
+                 if (c.backend, c.spectrum, c.bm) == ("fft-cuda", "real",
+                                                      None)}
+        if timed != {None, autotune.DFT_BT_ALT}:
+            raise AssertionError(
+                f"tune sweep {sw['x_shape']}: the fft-cuda default point "
+                f"timed at dft_bt {timed}, want None and "
+                f"{autotune.DFT_BT_ALT}")
+
+
 def tuned_forward_launches(plans, forwards, prepares):
     """The launches of ``prepares`` prepares and ``forwards`` prepared
     forwards of these plans: a real ``fft-cuda`` layer launches the
@@ -1493,7 +1711,8 @@ def check_tune_round_trip(info, n_layers, winners, again, version):
 
 
 def winners_of(net):
-    return {name: (p.backend, p.spectrum, p.bm, p.bn, p.bk)
+    return {name: (p.backend, p.schedule, p.spectrum, p.overlap, p.bm, p.bn,
+                   p.bk, p.dft_bt)
             for name, p in net.items()}
 
 
@@ -1519,6 +1738,7 @@ def trunk_phase(what, net, res, y_ref):
     want, want_tiles = tuned_forward_launches(plans, GEN, 1)
     expect_counts(what, counts, want)
     check_pinned_rows(plans, tiles, want_tiles)
+    check_inverse_tiles_launched(what, inverse_tiles_launches(plans, GEN))
     rel = rel_err(y, y_ref)
     if tuple(y.shape) != tuple(y_ref.shape) \
             or not bool(torch.isfinite(y).all()) or not rel <= SLICE_TOL:
@@ -1566,6 +1786,11 @@ def tune_phase(res, y_ref, slice_p50_ms, profile_busy_us):
                                                    reps)
             check_tune_sweep(info, n_layers, sweep_counts, want,
                              sweep_tiles, want_tiles)
+            check_inverse_tiles_launched("tune sweep", inverse_tiles_launches(
+                [c for p in plans for c in autotune.candidates(p.spec)],
+                1 + reps))
+            sweeps = autotune.sweeps()
+            check_dft_bt_axis(sweeps)
             report = net.tuning_report()
 
             # every candidate again, through the tuner's own measuring
@@ -1580,27 +1805,38 @@ def tune_phase(res, y_ref, slice_p50_ms, profile_busy_us):
                         reps=reps, device=cuda)
                     cands.append(dict(
                         backend=c.backend, spectrum=c.spectrum, bm=c.bm,
-                        bn=c.bn, bk=c.bk, us=us,
+                        bn=c.bn, bk=c.bk, dft_bt=c.dft_bt, us=us,
                         tile=(cgemm_tile(spec, c)
                               if c.backend == "fft-cuda" else None)))
                 win = report[name]
-                point = (win["backend"], win["spectrum"], win["bm"])
-                again = next(c["us"] for c in cands if (
-                    c["backend"], c["spectrum"], c["bm"]) == point)
-                default = next(c["us"] for c in cands if (
-                    c["backend"], c["spectrum"], c["bm"]) == (
-                        "fft-cuda", "real", None))
+                point = (win["backend"], win["spectrum"], win["bm"],
+                         win["dft_bt"])
+
+                def us_at(*at):
+                    return next(c["us"] for c in cands if (
+                        c["backend"], c["spectrum"], c["bm"],
+                        c["dft_bt"]) == at)
+                again = us_at(*point)
+                default = us_at("fft-cuda", "real", None, None)
+                default_alt = us_at("fft-cuda", "real", None,
+                                    autotune.DFT_BT_ALT)
                 pinned = [c for c in cands if c["backend"] == "fft-cuda"
                           and c["spectrum"] == "real" and c["bm"]]
                 table[name] = dict(winner=point, winner_us=win[
                     "us_per_call"], fft_cuda_default_us=default,
-                    candidates=cands)
+                    fft_cuda_default_alt_us=default_alt, candidates=cands)
                 emit("tune_layer", layer=name,
                      shape=[spec.B, spec.C, spec.Cout, spec.H, spec.W],
                      M=spec.M, candidates=cands, winner=win,
                      winner_us_in_sweep=win["us_per_call"],
                      winner_us_again=again,
                      fft_cuda_default_us=default,
+                     fft_cuda_default_alt_us=default_alt,
+                     dft_bt_alt=autotune.DFT_BT_ALT,
+                     measured_in_sweep=len(next(
+                         sw for sw in sweeps
+                         if (sw["x_shape"], sw["k_shape"])
+                         == (plan.x_shape, plan.k_shape))["measured"]),
                      fft_cuda_default_tile=cgemm_tile(
                          spec, autotune.TunedConfig("fft-cuda", "local")),
                      best_pinned_over_default=(
@@ -1618,12 +1854,15 @@ def tune_phase(res, y_ref, slice_p50_ms, profile_busy_us):
                           key=lambda c: c["us"]) for name in table}
             pinned_net = plan_network(
                 [dataclasses.replace(l, overrides=tuple(
-                    (k, rows_at[l.name][k]) for k in ("bm", "bn", "bk")))
+                    (k, rows_at[l.name][k])
+                    for k in ("bm", "bn", "bk", "dft_bt")))
                  for l in convs], backend="fft-cuda")
             pinned = trunk_phase("fft-cuda trunk at the fastest tiles",
                                  pinned_net, res, y_ref)
             pinned["tiles"] = {name: cgemm_tile(p.spec, p)
                                for name, p in pinned_net.items()}
+            pinned["dft_bt"] = {name: p.dft_bt
+                                for name, p in pinned_net.items()}
 
             # the cache's round trip: a fresh process's view of the file
             autotune.reset()
@@ -1650,6 +1889,11 @@ def tune_phase(res, y_ref, slice_p50_ms, profile_busy_us):
          winner_us={n: t["winner_us"] for n, t in table.items()},
          fft_cuda_default_us={n: t["fft_cuda_default_us"]
                               for n, t in table.items()},
+         fft_cuda_default_alt_us={n: t["fft_cuda_default_alt_us"]
+                                  for n, t in table.items()},
+         sweep_reached={str(sw["x_shape"]): [sw["reached"],
+                                             sw["candidates"]]
+                        for sw in sweeps},
          tuned=tuned, fft_cuda_fastest_tiles=pinned,
          eager_slice_p50_ms=slice_p50_ms,
          eager_profile_busy_us=profile_busy_us,
@@ -2078,6 +2322,160 @@ def sharded_train(mesh, local):
     return reports, total
 
 
+def sharded_tune_launches(plans, calls, prepares=0, one_shot=True):
+    """Launches of ``calls`` calls of each of these sharded ``fft-cuda``
+    configurations (``plans``; direct-free): per call and slab the forward
+    tile DFT, the CGEMM and the fused inverse (real) or the CGEMM alone
+    (complex), and stage 2's forward tile DFT once a call one-shot, once a
+    prepare otherwise."""
+    counts = dict.fromkeys(KERNELS, 0)
+    for plan in plans:
+        if plan.backend != "fft-cuda":
+            continue
+        counts["cgemm"] += calls * plan.num_slabs
+        if plan.spectrum == "real":
+            counts["tile_rfft"] += calls * plan.num_slabs + (
+                calls if one_shot else prepares)
+            counts["tile_irfft_epilogue"] += calls * plan.num_slabs
+    return {k: n for k, n in counts.items() if n}
+
+
+def sweep_plans(mesh, sweeps):
+    """The plan of every ``fft-cuda`` candidate each sweep measured, as
+    the tuner planned it (no launch)."""
+    return [autotune._candidate_plan(c, sw["x_shape"], sw["k_shape"],
+                                     padding=sw["padding"],
+                                     delta=sw["delta"], three_m=True,
+                                     compute_dtype=None, mesh=mesh)
+            for sw in sweeps for c in sw["measured"]
+            if c.backend == "fft-cuda"]
+
+
+def sharded_tune(mesh, convs, res, y_local, y_ref, configs):
+    """Phase 13: the tuner over the sharded schedules on the trunk, on the
+    one-rank NCCL mesh and a fresh temporary cache at the default budget:
+    ``plan_network(convs, mesh=, backend="tuned", overlap="auto")``
+    misses and measures every layer; its launches are exactly those of
+    the ``fft-cuda`` candidates it measured (a warm-up and ``reps`` timed
+    one-shot calls each); every winner is a sharded schedule; the tuned
+    trunk, prepared, within ``GRAPH_TOL`` of the local trunk and
+    ``SLICE_TOL`` of cuDNN; after ``autotune.reset()`` a second planning
+    hits the file on every layer, measures and launches nothing and finds
+    the same winners.  Reported: each layer's measured candidates, how
+    many of its candidates the budget let it reach, the sweep's time, the
+    tuned trunk's p50 and busy time beside phase 11's configurations."""
+    n_layers = len(convs)
+    saved = {k: os.environ.pop(k) for k in TUNE_ENV if k in os.environ}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_tune_")
+    cache = os.path.join(tmp.name, "tune.json")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
+    kw = dict(mesh=mesh, backend="tuned", overlap="auto")
+    try:
+        autotune.reset()
+        reps = autotune._env_reps()
+        with autotune.measure_on(torch.device("cuda")):
+            zero_counts()
+            t0 = time.perf_counter()
+            net = plan_network(convs, **kw)
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+            counts, info = read_counts(), autotune_info()
+            sweeps = autotune.sweeps()
+            measured = sweep_plans(mesh, sweeps)
+            if tuple(info) != (0, n_layers, 0, n_layers):
+                raise AssertionError(f"sharded tune: tuner counters {info}, "
+                                     f"want {n_layers} misses, all measured")
+            expect_counts("sharded tune sweep", counts,
+                          sharded_tune_launches(measured, 1 + reps))
+            check_inverse_tiles_launched(
+                "sharded tune sweep",
+                inverse_tiles_launches(measured, 1 + reps))
+            plans = list(net.plans.values())
+            off_mesh = [n for n, p in net.items()
+                        if p.schedule not in ("nfft", "wfft")
+                        or p.mesh is not mesh]
+            if off_mesh:
+                raise AssertionError(f"sharded tune: layers {off_mesh} "
+                                     "won off the sharded schedules")
+            report = net.tuning_report()
+
+            with torch.inference_mode():
+                zero_counts()
+                prepared = net.prepare(res.kernels)
+                y = sharded_forward(prepared, res.x, res.biases)
+                torch.cuda.synchronize()
+                counts_fwd = read_counts()
+                expect_counts("sharded tuned trunk", counts_fwd,
+                              sharded_tune_launches(plans, 1, 1, False))
+                check_inverse_tiles_launched(
+                    "sharded tuned trunk", inverse_tiles_launches(plans, 1))
+                full = y.full_tensor()
+                rel_local = rel_err(full, y_local)
+                rel_ref = rel_err(full, y_ref)
+                if tuple(full.shape) != tuple(y_ref.shape) \
+                        or not bool(torch.isfinite(full).all()) \
+                        or not (rel_local <= GRAPH_TOL
+                                and rel_ref <= SLICE_TOL):
+                    raise AssertionError(
+                        f"sharded tuned trunk: shape {tuple(full.shape)}, "
+                        f"{rel_local:.3e} from the local trunk (<= "
+                        f"{GRAPH_TOL}), {rel_ref:.3e} from cuDNN (<= "
+                        f"{SLICE_TOL})")
+                lats = []
+                for _ in range(GEN):
+                    t1 = time.perf_counter()
+                    sharded_forward(prepared, res.x, res.biases)
+                    torch.cuda.synchronize()
+                    lats.append(time.perf_counter() - t1)
+                rows, busy, wall_us = device_profile(
+                    lambda: sharded_forward(prepared, res.x, res.biases))
+
+            autotune.reset()
+            zero_counts()
+            net2 = plan_network(convs, **kw)
+            rt_counts = read_counts()
+            expect_counts("sharded tune round trip", rt_counts, {})
+            with open(cache) as fh:
+                version = json.load(fh)["version"]
+            rt_info = autotune_info()
+            check_tune_round_trip(rt_info, n_layers, winners_of(net),
+                                  winners_of(net2), version)
+    finally:
+        for k in TUNE_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        autotune.reset()
+        tmp.cleanup()
+    p50_ms = serve._percentile(lats, 50) * 1e3
+    layers = []
+    for name, plan in net.items():
+        sw = next(sw for sw in sweeps if (sw["x_shape"], sw["k_shape"])
+                  == (plan.x_shape, plan.k_shape))
+        layers.append(dict(
+            layer=name, winner=report[name], reached=sw["reached"],
+            candidates=sw["candidates"],
+            measured=[dict(backend=c.backend, schedule=c.schedule,
+                           spectrum=c.spectrum, overlap=c.overlap, bm=c.bm,
+                           us=c.us_per_call) for c in sw["measured"]]))
+    emit("sharded_tune", mesh=[1, 1], backend="nccl", image=IMAGE,
+         batch=BATCH, budget_ms=autotune.budget_ms(), reps=reps,
+         sweep_s=sweep_s, sweep_info=info._asdict(), sweep_launches=counts,
+         layers=layers,
+         winners={n: list(w) for n, w in winners_of(net).items()},
+         launches_per_forward=sharded_tune_launches(plans, 1),
+         rel_err_vs_local=rel_local, rel_err_vs_cudnn=rel_ref,
+         p50_ms=p50_ms, max_ms=max(lats) * 1e3, device_busy_us=busy,
+         nccl_device_us=nccl_us(rows), profiled_wall_us=wall_us,
+         idle_share_vs_p50=1 - busy / (p50_ms * 1e3),
+         phase11_p50_ms={f"{c['schedule']} {c['overlap']}": c["p50_ms"]
+                         for c in configs},
+         phase11_busy_us={f"{c['schedule']} {c['overlap']}":
+                          c["device_busy_us"] for c in configs},
+         round_trip=dict(info=rt_info._asdict(), launches=rt_counts,
+                         cache_version=version))
+    return {k: counts[k] + counts_fwd[k] for k in KERNELS}
+
+
 def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
                   checked_dft, local_train):
     """Phases 11 and 12: the paper's schedules on a one-rank NCCL mesh,
@@ -2102,6 +2500,7 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
         one_shot, counts = sharded_one_shot(mesh, convs, res, gen)
         total = {k: total[k] + counts[k] for k in KERNELS}
         train, train_counts = sharded_train(mesh, local_train)
+        tune_counts = sharded_tune(mesh, convs, res, res.y, y_ref, configs)
     finally:
         tmesh.destroy_process_group()
     emit("sharded", mesh=[1, 1], backend="nccl", image=IMAGE, batch=BATCH,
@@ -2117,7 +2516,8 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
          launches=train_counts, local_step_ms=local_train["step_ms"],
          local_device_busy_us=local_train["device_busy_us"],
          local_idle_share_vs_median_step=local_train["idle_share"])
-    return {k: total[k] + train_counts[k] for k in KERNELS}, dft_rows
+    return {k: total[k] + train_counts[k] + tune_counts[k]
+            for k in KERNELS}, dft_rows
 
 
 def main():
@@ -2145,6 +2545,8 @@ def main():
     binv_rows = check_plain_inverse(dx_layers, gen)
     rfwd_rows = check_rect_forward(layers, gen)
     rinv_rows, rinv_ep_rows = check_rect_inverse(layers, gen)
+    tiles_rows = check_inverse_tiles(layers, dx_layers, gen)
+    check_generic_tiles(gen)
     check_dk(gen)
 
     # the slice: counters at 0 right before the served run, read right after
@@ -2202,7 +2604,7 @@ def main():
         res, y_ref, slice_p50_ms, profile_busy_us, checked,
         {dft_key(r) for r in fwd_rows + inv_rows + binv_rows}, local_train)
     device_times(fwd_rows + rfwd_rows + inv_rows + binv_rows + sdft_rows
-                 + rinv_rows + rinv_ep_rows)
+                 + rinv_rows + rinv_ep_rows + tiles_rows)
 
     # launches: the eight main paths together (slice, rect, train, trainer,
     # serve_trace, tune, sharded, sharded_train)
@@ -2215,6 +2617,7 @@ def main():
     main_fwd = [r for r in fwd_rows if r["stage"] == "stage1"]
     rect_fwd = [r for r in rfwd_rows if r["stage"] == "stage1"]
     rect_ep = [r for r in rinv_ep_rows if r["activation"] == "relu"]
+    tiles_summary(main_inv + binv_rows + rinv_rows + rect_ep, tiles_rows)
     print(json.dumps({"kernels": [
         summarize("cgemm", main_cg, launches["cgemm"], True),
         summarize("tile_irfft_epilogue", main_inv,

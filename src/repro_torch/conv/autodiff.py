@@ -82,8 +82,8 @@ def _pre_activation_plan(plan):
 def _transposed_plan(plan):
     """The plan computing dx: conv of dy (B, C', Ho, Wo) with the flipped,
     transposed kernel (C, C', kh, kw) at full-correlation padding, on the
-    same backend x schedule (and mesh, precision, tile and overlap knobs)
-    as the forward.
+    same backend x schedule (and mesh, precision, tile, ``dft_bt`` and
+    overlap knobs) as the forward.
     No epilogue — cotangents propagate through the raw conv."""
     from repro_torch.conv.plan import plan_conv
     s = plan.spec
@@ -91,7 +91,7 @@ def _transposed_plan(plan):
         (s.B, s.Cout, s.Ho, s.Wo), (s.C, s.Cout, s.kh, s.kw),
         padding=(s.kh - 1, s.kw - 1), delta=s.delta, backend=plan.backend,
         schedule=plan.schedule, mesh=plan.mesh, three_m=plan.three_m,
-        bm=plan.bm, bn=plan.bn, bk=plan.bk,
+        bm=plan.bm, bn=plan.bn, bk=plan.bk, dft_bt=plan.dft_bt,
         compute_dtype=plan.compute_dtype, data_axis=plan.data_axis,
         model_axis=plan.model_axis,
         replicate_kernel_transform=plan.replicate_kernel_transform,

@@ -26,8 +26,10 @@ Backends:
              is no bias or activation to fuse or a residual; on
              ``nfft``/``wfft`` each on the rank's C'/N stage-4 slab (the
              reference's sharded bodies fuse the epilogue at the stage
-             level instead: the same function).  On CPU tensors every
-             kernel runs its plain PyTorch version.
+             level instead: the same function).  Every inverse it launches
+             runs at the plan's ``dft_bt`` tiles a block (``None``: the
+             kernel's default).  On CPU tensors every kernel runs its plain
+             PyTorch version.
 
 ``_cuda_fused_inverse`` is the fused stage-4 tail of the ``rect`` layout,
 which no plan uses: direct callers of the raw stage ops pass it to
@@ -67,22 +69,24 @@ def _tile_bias(bias, spec, like):
         B, Co, X, Dl).reshape(-1).contiguous()
 
 
-def _cuda_fused_inverse(Zr, Zi, spec, epilogue, bias):
+def _cuda_fused_inverse(Zr, Zi, spec, epilogue, bias, *, tiles=None):
     """The ``spectrum="rect"`` fused stage-4 tail: inverse DFT + bias +
     activation in one ``dft_tile`` kernel pass (the twin of the JAX
     package's ``_pallas_fused_inverse``), on the CGEMM's (P, M, C')
-    output made contiguous (n, delta, dh) planes."""
+    output made contiguous (n, delta, dh) planes, at ``tiles`` tiles a
+    block."""
     from repro_torch.kernels.dft_tile import tile_ifft_epilogue_cuda
     d = spec.delta
     y = tile_ifft_epilogue_cuda(F.z_to_rect_planes(Zr, spec),
                                 F.z_to_rect_planes(Zi, spec),
                                 _tile_bias(bias, spec, Zr),
-                                activation=epilogue.activation, delta=d)
+                                activation=epilogue.activation, delta=d,
+                                tiles=tiles)
     return F.assemble_output_tiles(
         y.reshape(spec.B, spec.Cout, spec.X, spec.D, d, d), spec)
 
 
-def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias):
+def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias, *, tiles=None):
     """The ``spectrum="real"`` fused stage-4 tail: compact-layout scatter +
     inverse DFT + bias + activation in one ``dft_tile`` kernel pass.
 
@@ -90,7 +94,7 @@ def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias):
     crop only *selects* elements, so elementwise-before-crop equals
     crop-then-elementwise on everything kept.  The kernel reads one tile's
     spectrum per row, so the CGEMM's (P, M, C') output is transposed to
-    (tiles, P) first.
+    (tiles, P) first.  ``tiles``: the kernel's tiles a block.
     """
     from repro_torch.kernels.dft_tile import tile_irfft_epilogue_cuda
     from repro_torch.core.dft import num_freq_real
@@ -99,7 +103,8 @@ def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias):
     y = tile_irfft_epilogue_cuda(F.z_to_tile_planes(Zr, spec, P),
                                  F.z_to_tile_planes(Zi, spec, P),
                                  _tile_bias(bias, spec, Zr),
-                                 activation=epilogue.activation, delta=d)
+                                 activation=epilogue.activation, delta=d,
+                                 tiles=tiles)
     return F.assemble_output_tiles(
         y.reshape(spec.B, spec.Cout, spec.X, spec.D, d, d), spec)
 
@@ -117,16 +122,21 @@ def _fft_torch_pipeline(plan):
 
 
 def _fft_cuda_pipeline(plan):
-    tiles = {}
+    hooks = {}
     if plan.spectrum == "real":
         # the dft_tile kernels read and write the compact layout; the
-        # full-spectrum twin takes the composed stage ops
+        # full-spectrum twin takes the composed stage ops.  Both inverses
+        # run at the plan's dft_bt tiles a block.
         from repro_torch.kernels.dft_tile import (
             tile_irfft_cuda, tile_rfft_cuda)
-        tiles = dict(inverse_fn=_cuda_fused_inverse_real,
-                     tile_rfft=tile_rfft_cuda, tile_irfft=tile_irfft_cuda)
+        hooks = dict(
+            inverse_fn=functools.partial(_cuda_fused_inverse_real,
+                                         tiles=plan.dft_bt),
+            tile_rfft=tile_rfft_cuda,
+            tile_irfft=functools.partial(tile_irfft_cuda,
+                                         tiles=plan.dft_bt))
     return stages.pipeline_for(plan.schedule,
-                               cgemm_fn=_cuda_cgemm_fn(plan), **tiles)
+                               cgemm_fn=_cuda_cgemm_fn(plan), **hooks)
 
 
 def register_builtin() -> None:

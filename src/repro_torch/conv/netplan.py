@@ -89,6 +89,16 @@ class PreparedNetwork:
         return self.layers.items()
 
 
+def _same_tile(cfg, plan) -> bool:
+    """Whether a tuned config's CGEMM tile is the plan's: the same row,
+    or none where the planner pinned one (an overlapped ``fft-cuda`` plan
+    pins the row of its smallest sub-slab when no tile is named)."""
+    if (cfg.bm, cfg.bn, cfg.bk) == (plan.bm, plan.bn, plan.bk):
+        return True
+    return (cfg.bm, cfg.bn, cfg.bk) == (None, None, None) \
+        and plan.backend == "fft-cuda" and plan.num_slabs > 1
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class NetworkPlan:
     """Every conv layer of a model resolved to a ``ConvPlan`` in one pass.
@@ -148,36 +158,45 @@ class NetworkPlan:
 
     def tuning_report(self) -> dict:
         """Per-layer autotune winners after a ``backend="tuned"`` planning
-        sweep: the resolved (backend, schedule, tile) of every layer, plus
-        the measured timing and provenance when the tuning cache has an
-        entry for the layer's geometry that describes this plan's config
-        (``us_per_call`` is ``None`` for layers resolved by the cost model
-        or planned with a non-tuned backend).  The cache is read for the
-        measuring device (``autotune.measure_on``, else the GPU)."""
+        sweep: the resolved (backend, schedule, spectrum, tile, ``dft_bt``,
+        overlap) of every layer, plus the measured timing and provenance
+        when the tuning cache has an entry for the layer's geometry (and
+        mesh) that describes this plan's config (``us_per_call`` is
+        ``None`` for layers resolved by the cost model or planned with a
+        non-tuned backend).  The cache is read for the measuring device
+        (``autotune.measure_on``, else the GPU)."""
         from repro_torch.conv import autotune
         out = {}
         for name, plan in self.plans.items():
             cfg = None
             for sched_req in (plan.schedule, "auto"):
-                c = autotune.lookup(
-                    plan.x_shape, plan.k_shape, padding=plan.padding,
-                    delta=plan.spec.delta, schedule=sched_req,
-                    three_m=plan.three_m, compute_dtype=plan.compute_dtype)
-                # only attribute a timing that describes THIS plan's
-                # resolved config: the cache may hold a different
-                # request's winner for the same geometry
-                if c is not None and (
-                        c.backend, c.schedule, c.bm, c.bn, c.bk, c.dft_bt,
-                        c.overlap
-                ) == (plan.backend, plan.schedule, plan.bm, plan.bn,
-                      plan.bk, plan.dft_bt, "off"):
-                    cfg = c
+                for ov_req in (plan.overlap, "auto"):
+                    c = autotune.lookup(
+                        plan.x_shape, plan.k_shape, padding=plan.padding,
+                        delta=plan.spec.delta, schedule=sched_req,
+                        mesh=plan.mesh, three_m=plan.three_m,
+                        compute_dtype=plan.compute_dtype,
+                        data_axis=plan.data_axis,
+                        model_axis=plan.model_axis,
+                        replicate_kernel_transform=(
+                            plan.replicate_kernel_transform),
+                        overlap=ov_req)
+                    # only attribute a timing that describes THIS plan's
+                    # resolved config: the cache may hold a different
+                    # request's winner for the same geometry
+                    if c is not None and (
+                            c.backend, c.schedule, c.dft_bt, c.overlap
+                    ) == (plan.backend, plan.schedule, plan.dft_bt,
+                          plan.overlap) and _same_tile(c, plan):
+                        cfg = c
+                        break
+                if cfg is not None:
                     break
             out[name] = {
                 "backend": plan.backend, "schedule": plan.schedule,
                 "spectrum": plan.spectrum,
                 "bm": plan.bm, "bn": plan.bn, "bk": plan.bk,
-                "dft_bt": plan.dft_bt, "overlap": "off",
+                "dft_bt": plan.dft_bt, "overlap": plan.overlap,
                 "us_per_call": cfg.us_per_call if cfg else None,
                 "source": cfg.source if cfg else "unmeasured",
             }

@@ -40,9 +40,11 @@ layer's output feeds the next sharded layer as it is.
 ``backend="auto"`` picks direct vs FFT from the ``ConvSpec`` cost model
 (``fft-torch`` on a mesh); ``schedule="auto"`` picks ``nfft`` when a mesh
 is given, else ``local``.  ``backend="tuned"`` measures instead
-(``repro_torch.conv.autotune``): the candidate (backend, spectrum, CGEMM
-tile) points are timed on the device, the winner is cached per machine,
-and its tile rides the plan down into the CUDA CGEMM.
+(``repro_torch.conv.autotune``): the candidate (backend, schedule,
+spectrum, overlap, CGEMM tile, ``dft_bt``) points are timed on the
+device, on a mesh by every rank with rank 0 deciding, the winner is
+cached per machine, and its tile and ``dft_bt`` ride the plan down into
+the CUDA kernels.
 
 Every stage-pipeline backend trains, on every schedule: when grad mode is
 on and an operand (a tensor or a ``DTensor``) requires grad,
@@ -52,11 +54,10 @@ straight, and record nothing for autograd.  ``overlap`` is
 ``"off"`` on every local plan (``"auto"`` resolves to it, as in the
 reference); ``"slab:<k>"`` overlaps the sharded schedules' collectives
 with compute.  ``bm``/``bn``/``bk`` pin a row of the CUDA CGEMM's compiled
-tile table (``kernels.cgemm.ops.SHAPES``) on ``fft-cuda`` plans; the
-reference honours any positive block, the port takes only the rows its
-kernel was compiled with.  Not ported yet (they raise): ``dft_bt`` (the
-tile DFT kernels take a compile-time number of tiles per block) and the
-tuner over the sharded schedules.
+tile table (``kernels.cgemm.ops.SHAPES``) on ``fft-cuda`` plans, and
+``dft_bt`` one of the inverse tile DFT kernel's compiled tiles a block
+(``kernels.dft_tile.ops.INVERSE_TILES``); the reference honours any
+positive value, the port takes only what its kernels were compiled with.
 
 ``backend="fft-cuda"`` runs tiles up to ``kernels.dft_tile.ops.MAX_DELTA``
 (32); a larger ``delta`` is refused when the plan is made.
@@ -76,10 +77,6 @@ from repro_torch.conv import autodiff, registry
 from repro_torch.conv.epilogue import Epilogue
 from repro_torch.conv.stages import axis_size, round_up
 from repro_torch.core.fftconv import SPECTRA
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
 
 def _wants_grad(*tensors) -> bool:
@@ -105,7 +102,7 @@ class ConvPlan:
     bm: Optional[int] = None           # CUDA CGEMM tile row (fft-cuda)
     bn: Optional[int] = None
     bk: Optional[int] = None
-    dft_bt: Optional[int] = None       # always None: not ported
+    dft_bt: Optional[int] = None       # inverse tile DFT tiles a block
     compute_dtype: Any = None          # CGEMM operand dtype (e.g. bf16)
     mesh: Any = None                   # DeviceMesh of the sharded schedules
     data_axis: str = "data"
@@ -493,6 +490,19 @@ def _resolve_overlap(overlap, spec, sched, be, backend, schedule, mesh,
     return f"slab:{num_slabs}" if num_slabs > 1 else "off"
 
 
+def _check_schedule_mesh(schedule, mesh):
+    """The registered schedule ``schedule``, which must have a mesh if and
+    only if it is sharded."""
+    sched = registry.get_schedule(schedule)
+    if sched.requires_mesh and mesh is None:
+        raise ValueError(f"schedule {schedule!r} requires a mesh")
+    if not sched.requires_mesh and mesh is not None:
+        raise ValueError(
+            f"schedule {schedule!r} ignores the mesh; pass schedule='nfft' "
+            "or 'wfft' (or drop the mesh)")
+    return sched
+
+
 def _check_cuda_delta(delta):
     """``fft-cuda`` plans only what its tile DFT kernels run."""
     # imported here: the kernel package imports repro_torch.conv
@@ -502,6 +512,15 @@ def _check_cuda_delta(delta):
             f"backend 'fft-cuda' runs tiles of delta <= {MAX_DELTA} (the "
             f"limit of its tile DFT kernels), got delta={delta}; use "
             "backend 'fft-torch' or a smaller delta")
+
+
+def _check_dft_bt(dft_bt):
+    """A ``dft_bt`` pin names a compiled tiles-a-block value of the
+    inverse tile DFT kernel (``None``: its default)."""
+    # imported here: the kernel package imports repro_torch.conv
+    from repro_torch.kernels.dft_tile.ops import resolve_tiles
+    if dft_bt is not None:
+        resolve_tiles(dft_bt)
 
 
 def _cuda_blocks(bm, bn, bk) -> tuple:
@@ -514,8 +533,8 @@ def _cuda_blocks(bm, bn, bk) -> tuple:
 
 
 def _resolve(x_shape, k_shape, padding, delta, backend, schedule, mesh,
-             three_m, bm, bn, bk, compute_dtype, data_axis, model_axis,
-             replicate_kernel_transform, epilogue, spectrum,
+             three_m, bm, bn, bk, dft_bt, compute_dtype, data_axis,
+             model_axis, replicate_kernel_transform, epilogue, spectrum,
              overlap) -> ConvPlan:
     _, _, kh, kw = k_shape
     if spectrum not in SPECTRA:
@@ -535,13 +554,7 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, mesh,
 
     if schedule == "auto":
         schedule = "nfft" if mesh is not None else "local"
-    sched = registry.get_schedule(schedule)
-    if sched.requires_mesh and mesh is None:
-        raise ValueError(f"schedule {schedule!r} requires a mesh")
-    if not sched.requires_mesh and mesh is not None:
-        raise ValueError(
-            f"schedule {schedule!r} ignores the mesh; pass schedule='nfft' "
-            "or 'wfft' (or drop the mesh)")
+    sched = _check_schedule_mesh(schedule, mesh)
     # Channel axes are zero-padded up to model-axis multiples inside the
     # pipelines, and the frequency (P) axis is padded once before the nfft
     # boundary all-to-alls: no divisibility precondition.
@@ -584,7 +597,7 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, mesh,
         bm, bn, bk = SHAPES[default_shape(m_min)][:3]
     return ConvPlan(spec=spec, backend=backend, schedule=schedule,
                     padding=padding, three_m=three_m, bm=bm, bn=bn, bk=bk,
-                    compute_dtype=compute_dtype, mesh=mesh,
+                    dft_bt=dft_bt, compute_dtype=compute_dtype, mesh=mesh,
                     data_axis=data_axis, model_axis=model_axis,
                     replicate_kernel_transform=replicate_kernel_transform,
                     epilogue=epilogue, spectrum=spectrum, overlap=overlap)
@@ -612,11 +625,14 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
       backend: ``"direct"`` | ``"fft-torch"`` | ``"fft-cuda"`` | ``"auto"``
         (cost-model crossover between direct and ``fft-torch``, or
         ``fft-torch`` on a mesh; never auto-selects the CUDA kernels) |
-        ``"tuned"`` (local plans only: measured selection
-        through ``repro_torch.conv.autotune``: warm persistent cache, or a
-        sweep timed on the device of ``autotune.measure_on`` (default the
-        GPU), or the cost model when measurement is disabled; the tuner
-        also picks the spectrum and the CGEMM tile unless pinned here).
+        ``"tuned"`` (measured selection through
+        ``repro_torch.conv.autotune``: warm persistent cache, or a sweep
+        timed on the device of ``autotune.measure_on`` (default the GPU),
+        or the cost model when measurement is disabled; the tuner also
+        picks the spectrum, the CGEMM tile and ``dft_bt`` unless pinned
+        here, and, on a mesh, the schedule (nfft/wfft) and, with
+        ``overlap="auto"``, the overlap; every rank of the mesh must
+        plan it, and they agree through rank 0).
       schedule: ``"local"`` | ``"nfft"`` | ``"wfft"`` | ``"auto"``
         (``nfft`` when a mesh is given, else ``local``).
       mesh: a ``torch.distributed`` ``DeviceMesh`` with ``data_axis`` and
@@ -630,9 +646,13 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
         kernel's compiled table ``kernels.cgemm.ops.SHAPES`` (``bm``
         alone does); the plan stores that row's full triple.  With
         ``backend="tuned"`` an explicit pin replaces the tuned tile.
-      dft_bt: the reference's tiles per grid step of the fused inverse;
-        not ported (``NotImplementedError``): the CUDA tile DFT kernels
-        take a compile-time number of tiles per block.
+      dft_bt: tiles a block of the inverse tile DFT kernel, the
+        reference's tiles per grid step of the fused inverse: one of
+        ``kernels.dft_tile.ops.INVERSE_TILES`` (anything else is a
+        ``ValueError``), or ``None`` for the kernel's default.
+        ``fft-cuda`` launches every inverse at it; stored and unused on the
+        other backends.  With ``backend="tuned"`` a pin replaces the tuned
+        value.
       compute_dtype: CGEMM operand dtype (e.g. ``torch.bfloat16``; float32
         accumulation).  On the sharded schedules the cast happens before
         the hot-path collective (nfft boundary all-to-all / wfft
@@ -653,30 +673,24 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
         CGEMM; slab counts are clamped to the per-rank batch.  ``"auto"``
         resolves (before the plan-cache key, so both share one plan) to
         ``"slab:2"`` on a mesh with a per-rank batch of at least 4, else
-        to ``"off"``.  ``"slab:<k>"`` on a local plan, or a malformed
-        value, is a ``ValueError``, with the reference's message.
+        to ``"off"``; with ``backend="tuned"`` the tuner measures the
+        overlap axis instead.  ``"slab:<k>"`` on a local plan, or a
+        malformed value, is a ``ValueError``, with the reference's
+        message.
       cache: memoize the plan under its argument key (bounded LRU, see
         ``plan_cache_capacity``).
 
     ``backend="fft-cuda"`` with ``delta > 32`` is a ``ValueError``: its
     tile DFT kernels run up to delta 32 (``fft-torch`` runs any delta);
-    so is a ``bm``/``bn``/``bk`` triple that names no row of its CGEMM.
-
-    Not ported yet, and rejected with ``NotImplementedError``: ``dft_bt``
-    (ROADMAP Queue 1 item 10) and ``backend="tuned"`` with a mesh or a
-    sharded schedule (item 13).
+    so is a ``bm``/``bn``/``bk`` triple that names no row of its CGEMM,
+    and, on any backend, a ``dft_bt`` its inverse was not compiled at.
 
     Returns:
       A frozen ``ConvPlan``; call it as ``plan(x, k)`` or split with
       ``plan.prepare(k)``.
     """
     global _cache_hits, _cache_misses
-    if dft_bt is not None:
-        raise _not_ported(
-            "dft_bt (the CUDA tile DFT kernels take a compile-time number "
-            "of tiles per block, dft_tile.cu kTiles16 and kWarps; pinning "
-            "it needs a template parameter of the kernels, ROADMAP Queue 1 "
-            "item 10)")
+    _check_dft_bt(dft_bt)
     if isinstance(spec, ConvSpec):
         if k_shape is not None or padding is not None or delta is not None:
             raise TypeError(
@@ -697,15 +711,8 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
     x_shape, k_shape = tuple(map(int, x_shape)), tuple(map(int, k_shape))
     padding = _normalize_padding(padding)
     epilogue = Epilogue() if epilogue is None else epilogue
-    if backend == "tuned" and (mesh is not None
-                               or schedule in ("nfft", "wfft")):
-        raise _not_ported(
-            "the tuner over the sharded schedules (nfft/wfft x overlap; "
-            "ROADMAP Queue 1 item 13)")
     if mesh is not None:
         _check_mesh(mesh, data_axis, model_axis)
-    overlap = _auto_overlap(overlap, x_shape, k_shape, delta, backend,
-                            schedule, mesh, data_axis)
     if backend == "tuned":
         # Measured selection resolves BEFORE the plan cache, so the plan
         # is memoized under the *resolved* config: a cost-model fallback
@@ -715,26 +722,39 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
             backend = "direct"      # oversize kernel: only direct fits
         else:
             from repro_torch.conv import autotune
+            if schedule != "auto":
+                # refused here, not after a sweep that refuses them all
+                _check_schedule_mesh(schedule, mesh)
             # tune unpinned: pins constrain the *plan*, not the machine's
             # measured winner (pinned tune() calls get their own key)
             tuned = autotune.tune(
                 x_shape, k_shape, padding=padding, delta=delta,
-                schedule=schedule, three_m=three_m,
-                compute_dtype=compute_dtype, spectrum=spectrum,
-                overlap=overlap)
+                schedule=schedule, mesh=mesh, three_m=three_m,
+                compute_dtype=compute_dtype, data_axis=data_axis,
+                model_axis=model_axis,
+                replicate_kernel_transform=replicate_kernel_transform,
+                spectrum=spectrum, overlap=overlap)
             backend = tuned.backend
             if schedule == "auto":
                 schedule = tuned.schedule
             if spectrum == "auto":
                 spectrum = tuned.spectrum
+            if overlap == "auto":
+                overlap = tuned.overlap
             # an explicit pin beats the tuned tile; the knobs name one
             # row together, so the pin replaces the whole triple
             if bm is None and bn is None and bk is None:
                 bm, bn, bk = tuned.bm, tuned.bn, tuned.bk
+            if dft_bt is None:
+                dft_bt = tuned.dft_bt
+    # "auto" is left only where the tuner did not run (another backend,
+    # or an oversize kernel that went direct)
+    overlap = _auto_overlap(overlap, x_shape, k_shape, delta, backend,
+                            schedule, mesh, data_axis)
     if spectrum == "auto":
         spectrum = "real"    # deterministic default — share the cache entry
     key = (x_shape, k_shape, padding, delta, backend, schedule,
-           _mesh_cache_key(mesh), three_m, bm, bn, bk, compute_dtype,
+           _mesh_cache_key(mesh), three_m, bm, bn, bk, dft_bt, compute_dtype,
            data_axis, model_axis, replicate_kernel_transform, epilogue,
            spectrum, overlap)
     if cache:
@@ -745,9 +765,9 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
                 _plan_cache.move_to_end(key)
                 return plan
     plan = _resolve(x_shape, k_shape, padding, delta, backend, schedule,
-                    mesh, three_m, bm, bn, bk, compute_dtype, data_axis,
-                    model_axis, replicate_kernel_transform, epilogue,
-                    spectrum, overlap)
+                    mesh, three_m, bm, bn, bk, dft_bt, compute_dtype,
+                    data_axis, model_axis, replicate_kernel_transform,
+                    epilogue, spectrum, overlap)
     if cache:
         with _cache_lock:
             _cache_misses += 1

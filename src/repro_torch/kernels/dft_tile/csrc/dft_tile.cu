@@ -68,7 +68,10 @@
 // code.  Each form is one template, the tail (kTail) and the scatter
 // (kScatter) compiled in or out.
 //
-// Two kernel forms, the code ops.choose_inverse_form passes (kForm*):
+// Two kernel forms, the code ops.choose_inverse_form passes (kForm*), each
+// compiled at 4, 8 and 16 tiles a block (the ``tiles`` argument of the
+// entry points, ops.INVERSE_TILES; 8 by default): the port's form of the
+// reference's ``bt``, the tiles of one grid step of the inverse:
 //   specialised (rinv16_kernel): delta 16, the tile of every plan path, on
 //     16-byte-aligned planes and output with an even row stride ld.
 //     Columns, then rows, in registers; the tables (Finv and W, rows 0-8)
@@ -76,8 +79,9 @@
 //     (no src/sgn); shared memory only for the block's spectrum rows and one
 //     transpose.  Its design is set out above the kernel.
 //   generic (rinv_kernel): every delta <= 32, odd included, and planes off
-//     16 bytes.  The launcher refuses a form it cannot run: no silent
-//     fallback.
+//     16 bytes; one warp a tile, as many warps a block as tiles.  The
+//     launcher refuses a form, or a number of tiles, it cannot run: no
+//     silent fallback.
 //
 // Replaces: src/repro/kernels/dft_tile/kernel.py:_rinv_kernel (compact,
 // wrapped by tile_irfft_pallas), :_rinv_epilogue_kernel (compact, fused
@@ -113,7 +117,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;        // warps a block, generic forward form
 constexpr int kMaxDelta = 32;
 constexpr int kMaxDevices = 64;
 
@@ -247,7 +251,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 // 16-byte shared stores and 16 8-byte loads for the transpose.
 constexpr int kD16 = 16;
 constexpr int kDh16 = kD16 / 2 + 1;
-constexpr int kTiles16 = 8;                       // tiles per block
+constexpr int kTiles16 = 8;                       // tiles per block,
+                                                  // forward form
 constexpr int kThreads16 = kTiles16 * kD16;       // one thread per row
 constexpr int kRow16 = 20;     // floats per B row in shared (16 + 4: the
                                // 16-byte stores of 8 rows hit 8 bank quads)
@@ -419,8 +424,8 @@ __global__ void __launch_bounds__(kThreads16)
   }
 }
 
-template <bool kTail, bool kScatter>
-__global__ void __launch_bounds__(kWarps * 32)
+template <int kInvWarps, bool kTail, bool kScatter>
+__global__ void __launch_bounds__(kInvWarps * 32)
     rinv_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                 const float* __restrict__ bias, float* __restrict__ y,
                 const float* __restrict__ fvr_g,
@@ -463,8 +468,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* yr = ai + R;                  // Y = Finv @ Z, real / imag
   float* yi = yr + R;
 
-  for (long long t = (long long)blockIdx.x * kWarps + warp; t < n;
-       t += (long long)gridDim.x * kWarps) {
+  for (long long t = (long long)blockIdx.x * kInvWarps + warp; t < n;
+       t += (long long)gridDim.x * kInvWarps) {
     const float* zr_t = zr + t * ld;
     const float* zi_t = zi + t * ld;
     for (int r = lane; r < R; r += 32) {
@@ -512,10 +517,13 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // ---- the inverse tile DFT at delta = 16 ("specialised" form) -------------
-// The forward form run backwards.  A block of 128 threads takes 8 tiles,
-// one block per 8 tiles (no loop over tiles, so ptxas keeps no table in
-// registers across one).
-//  Load: the block copies its 8 spectrum rows, both planes, into shared
+// The forward form run backwards.  A block of 16 threads a tile takes
+// kTiles tiles (4, 8 or 16; 128 threads at the default 8), one block per
+// kTiles tiles (no loop over tiles, so ptxas keeps no table in registers
+// across one).  Every stage below works on 4-tile groups, so kTiles is a
+// multiple of 4; at 16 tiles the static shared memory is 40 KB, under the
+// 48 KB a kernel may hold without the dynamic opt-in.
+//  Load: the block copies its kTiles spectrum rows, both planes, into shared
 //    memory with vector loads: 16-byte in the rect form (144 floats a row),
 //    8-byte in the compact form (a row of 130 floats starts only 8 bytes
 //    aligned), each row to its own padded slot (kZCompact16, kZRect16), so
@@ -546,8 +554,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 //    y[h][16-w]; the tail (bias, activation) follows in registers.
 //  Store: each thread puts its row in the spectrum buffer, dead since
 //    stage A (its four 16-byte chunks swizzled by row so that 8 rows miss
-//    each other's banks); the block's 8 tiles are 8 KB contiguous in y,
-//    and it writes them in 16-byte stores, a warp's 512 bytes contiguous.
+//    each other's banks); the block's kTiles tiles are contiguous in y
+//    (1 KB a tile), and it writes them in 16-byte stores, a warp's 512
+//    bytes contiguous.
 //    (Storing each row from its own thread puts a warp's 16-byte stores 64
 //    bytes apart, half a sector each, and measured slower on the card.)
 // About 6.1k FMAs a tile (4.1k in stage A, 2.1k in stage B), 3 barriers a
@@ -609,34 +618,36 @@ __device__ __forceinline__ void iunit16(const InvTables16& tab,
   }
 }
 
-template <bool kTail, bool kScatter>
-__global__ void __launch_bounds__(kThreads16)
+template <int kTiles, bool kTail, bool kScatter>
+__global__ void __launch_bounds__(kTiles * kD16)
     rinv16_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                   const float* __restrict__ bias, float* __restrict__ y,
                   const __grid_constant__ InvTables16 tab, long long n,
                   int ld, int act) {
+  static_assert(kTiles % 4 == 0, "stage A works on 4-tile groups");
+  constexpr int kThreads = kTiles * kD16;        // one thread per row
   constexpr int P = kScatter ? 130 : kD16 * kDh16;
   constexpr int V = kScatter ? 2 : 4;            // floats per vector load
   constexpr int S = kScatter ? kZCompact16 : kZRect16;
   constexpr int kVecs = P / V;                   // vectors a row
-  constexpr int kIters = (kTiles16 * kVecs + kThreads16 - 1) / kThreads16;
+  constexpr int kIters = (kTiles * kVecs + kThreads - 1) / kThreads;
   using Vec = typename VecOf<V>::type;
   // the spectrum rows, real then imaginary; then the output tiles
-  // (2 * 8 * S >= 8 * 256 floats)
-  __shared__ __align__(16) float sz[2 * kTiles16 * S];
-  __shared__ __align__(16) float sy[kTiles16 * kTile16];
+  // (2 * kTiles * S >= kTiles * 256 floats)
+  __shared__ __align__(16) float sz[2 * kTiles * S];
+  __shared__ __align__(16) float sy[kTiles * kTile16];
   float* szr = sz;
-  float* szi = sz + kTiles16 * S;
+  float* szi = sz + kTiles * S;
 
-  const long long t0 = (long long)blockIdx.x * kTiles16;
+  const long long t0 = (long long)blockIdx.x * kTiles;
   const long long left = n - t0;
-  const int tiles = left < kTiles16 ? (int)left : kTiles16;
+  const int tiles = left < kTiles ? (int)left : kTiles;
 
   // load: every vector of the block's rows in flight before the first store
   Vec lr[kIters], li[kIters];
 #pragma unroll
   for (int j = 0; j < kIters; ++j) {
-    const int e = threadIdx.x + j * kThreads16;
+    const int e = threadIdx.x + j * kThreads;
     if (e < tiles * kVecs) {
       const int q = e / kVecs;
       const long long off = (t0 + q) * ld + (e - q * kVecs) * V;
@@ -646,7 +657,7 @@ __global__ void __launch_bounds__(kThreads16)
   }
 #pragma unroll
   for (int j = 0; j < kIters; ++j) {
-    const int e = threadIdx.x + j * kThreads16;
+    const int e = threadIdx.x + j * kThreads;
     if (e < tiles * kVecs) {
       const int q = e / kVecs;
       const int off = q * S + (e - q * kVecs) * V;
@@ -753,7 +764,7 @@ __global__ void __launch_bounds__(kThreads16)
   const int vecs = tiles * kD16 * 4;          // float4s of the block's tiles
   float4* dst = reinterpret_cast<float4*>(y + t0 * (kD16 * kD16));
   const float4* src = reinterpret_cast<const float4*>(sz);
-  for (int e = threadIdx.x; e < vecs; e += kThreads16)
+  for (int e = threadIdx.x; e < vecs; e += kThreads)
     dst[e] = src[(e & ~3) | ((e & 3) ^ ((e >> 3) & 3))];
 }
 
@@ -767,13 +778,14 @@ int multiprocessors() {
   return cache[dev];
 }
 
-// Blocks for n tiles: one warp per tile up to the resident limit (8 blocks
-// of 256 threads fill an SM's 2,048 threads); past it the warps loop.
-long long grid_for(long long n) {
+// Blocks of ``warps`` warps for n tiles: one warp per tile up to the
+// resident limit (64 warps fill an SM's 2,048 threads: 8 blocks of 8
+// warps); past it the warps loop.
+long long grid_for(long long n, int warps = kWarps) {
   const int sms = multiprocessors();
   if (sms <= 0) return 0;
-  long long blocks = (n + kWarps - 1) / kWarps;
-  const long long cap = (long long)sms * 8;
+  long long blocks = (n + warps - 1) / warps;
+  const long long cap = (long long)sms * (64 / warps);
   return blocks > cap ? cap : blocks;
 }
 
@@ -855,7 +867,7 @@ int launch_forward(const void* x, void* tr, void* ti, const void* fr,
                               delta, stream);
 }
 
-template <bool kTail, bool kScatter>
+template <int kInvWarps, bool kTail, bool kScatter>
 int launch_rinv(const void* zr, const void* zi, const void* bias, void* y,
                 const void* fvr, const void* fvi, const void* wr,
                 const void* wi, const void* src, const void* sgn, long long n,
@@ -867,17 +879,18 @@ int launch_rinv(const void* zr, const void* zi, const void* bias, void* y,
   cudaGetLastError();  // start from a clean error state
   const int R = delta * dh;
   const int tables = kScatter ? R : 0;  // src and sgn
-  const size_t smem =
-      sizeof(float) * (2 * delta * delta + 2 * R + tables + kWarps * 4 * R) +
-      sizeof(int) * tables;
+  const size_t smem = sizeof(float) * (2 * delta * delta + 2 * R + tables +
+                                       kInvWarps * 4 * R) +
+                      sizeof(int) * tables;
   cudaError_t err = cudaFuncSetAttribute(
-      rinv_kernel<kTail, kScatter>,
+      rinv_kernel<kInvWarps, kTail, kScatter>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = grid_for(n);
+  const long long blocks = grid_for(n, kInvWarps);
   if (blocks <= 0) return (int)cudaGetLastError();
-  rinv_kernel<kTail, kScatter><<<(unsigned)blocks, kWarps * 32, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  rinv_kernel<kInvWarps, kTail, kScatter>
+      <<<(unsigned)blocks, kInvWarps * 32, smem,
+         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(zr), static_cast<const float*>(zi),
       static_cast<const float*>(bias), static_cast<float*>(y),
       static_cast<const float*>(fvr), static_cast<const float*>(fvi),
@@ -887,7 +900,7 @@ int launch_rinv(const void* zr, const void* zi, const void* bias, void* y,
   return (int)cudaGetLastError();
 }
 
-template <bool kTail, bool kScatter>
+template <int kTiles, bool kTail, bool kScatter>
 int launch_rinv16(const void* zr, const void* zi, const void* bias, void* y,
                   const void* tables, long long n, int ld, int act,
                   cudaStream_t stream) {
@@ -901,40 +914,69 @@ int launch_rinv16(const void* zr, const void* zi, const void* bias, void* y,
   if (!aligned16(zr) || !aligned16(zi) || !aligned16(y) ||
       ld % (kScatter ? 2 : 4) != 0)
     return (int)cudaErrorMisalignedAddress;
-  // one block per 8 tiles, no loop (as the forward form)
-  const long long blocks = (n + kTiles16 - 1) / kTiles16;
+  // one block per kTiles tiles, no loop (as the forward form)
+  const long long blocks = (n + kTiles - 1) / kTiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // start from a clean error state
   InvTables16 tab;
   memcpy(&tab, tables, sizeof tab);
-  rinv16_kernel<kTail, kScatter><<<(unsigned)blocks, kThreads16, 0, stream>>>(
+  rinv16_kernel<kTiles, kTail, kScatter>
+      <<<(unsigned)blocks, kTiles * kD16, 0, stream>>>(
       static_cast<const float*>(zr), static_cast<const float*>(zi),
       static_cast<const float*>(bias), static_cast<float*>(y), tab, n, ld,
       act);
   return (int)cudaGetLastError();
 }
 
-// The inverse tile DFT in form ``form``: the specialised form (delta 16
+// The inverse in form ``form`` at ``kTiles`` tiles a block.
+template <int kTiles, bool kTail, bool kScatter>
+int launch_inverse_at(const void* zr, const void* zi, const void* bias,
+                      void* y, const void* fvr, const void* fvi,
+                      const void* wr, const void* wi, const void* src,
+                      const void* sgn, long long n, int ld, int delta,
+                      int act, int form, const void* tables, void* stream) {
+  if (form == kFormSpecialised) {
+    if (delta != kD16) return (int)cudaErrorInvalidValue;
+    return launch_rinv16<kTiles, kTail, kScatter>(
+        zr, zi, bias, y, tables, n, ld, act,
+        static_cast<cudaStream_t>(stream));
+  }
+  if (form != kFormGeneric) return (int)cudaErrorInvalidValue;
+  return launch_rinv<kTiles, kTail, kScatter>(zr, zi, bias, y, fvr, fvi, wr,
+                                              wi, src, sgn, n, ld, delta, act,
+                                              stream);
+}
+
+// The inverse tile DFT in form ``form`` with ``tiles`` tiles a block (4, 8
+// or 16: tiles a block of the specialised form, warps a block of the
+// generic one, which runs a tile a warp): the specialised form (delta 16
 // only, aligned planes and output, Finv and W rows 0-8 from the host table
 // ``tables``, 2 x 9 x 16 + 2 x 9 x 9 floats) or the generic one (any delta
-// <= 32, tables in device memory); a form that cannot run these operands is
-// refused.
+// <= 32, tables in device memory); a form that cannot run these operands,
+// or a number of tiles not compiled, is refused.
 template <bool kTail, bool kScatter>
 int launch_inverse(const void* zr, const void* zi, const void* bias, void* y,
                    const void* fvr, const void* fvi, const void* wr,
                    const void* wi, const void* src, const void* sgn,
                    long long n, int ld, int delta, int act, int form,
-                   const void* tables, void* stream) {
+                   int tiles, const void* tables, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  if (form == kFormSpecialised) {
-    if (delta != kD16) return (int)cudaErrorInvalidValue;
-    return launch_rinv16<kTail, kScatter>(zr, zi, bias, y, tables, n, ld,
-                                          act,
-                                          static_cast<cudaStream_t>(stream));
+  switch (tiles) {
+    case 4:
+      return launch_inverse_at<4, kTail, kScatter>(
+          zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act,
+          form, tables, stream);
+    case 8:
+      return launch_inverse_at<8, kTail, kScatter>(
+          zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act,
+          form, tables, stream);
+    case 16:
+      return launch_inverse_at<16, kTail, kScatter>(
+          zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act,
+          form, tables, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  if (form != kFormGeneric) return (int)cudaErrorInvalidValue;
-  return launch_rinv<kTail, kScatter>(zr, zi, bias, y, fvr, fvi, wr, wi, src,
-                                      sgn, n, ld, delta, act, stream);
 }
 
 }  // namespace
@@ -952,10 +994,11 @@ extern "C" int tile_irfft_f32(const void* zr, const void* zi, void* y,
                               const void* fvr, const void* fvi,
                               const void* wr, const void* wi, const void* src,
                               const void* sgn, long long n, int ld, int delta,
-                              int form, const void* tables, void* stream) {
+                              int form, int tiles, const void* tables,
+                              void* stream) {
   return launch_inverse<false, true>(zr, zi, nullptr, y, fvr, fvi, wr, wi,
-                                     src, sgn, n, ld, delta, 0, form, tables,
-                                     stream);
+                                     src, sgn, n, ld, delta, 0, form, tiles,
+                                     tables, stream);
 }
 
 extern "C" int tile_irfft_epilogue_f32(const void* zr, const void* zi,
@@ -964,11 +1007,11 @@ extern "C" int tile_irfft_epilogue_f32(const void* zr, const void* zi,
                                        const void* wr, const void* wi,
                                        const void* src, const void* sgn,
                                        long long n, int ld, int delta,
-                                       int act, int form, const void* tables,
-                                       void* stream) {
+                                       int act, int form, int tiles,
+                                       const void* tables, void* stream) {
   return launch_inverse<true, true>(zr, zi, bias, y, fvr, fvi, wr, wi, src,
-                                    sgn, n, ld, delta, act, form, tables,
-                                    stream);
+                                    sgn, n, ld, delta, act, form, tiles,
+                                    tables, stream);
 }
 
 extern "C" int tile_fft_f32(const void* x, void* tr, void* ti, const void* fr,
@@ -983,11 +1026,11 @@ extern "C" int tile_fft_f32(const void* x, void* tr, void* ti, const void* fr,
 extern "C" int tile_ifft_f32(const void* zr, const void* zi, void* y,
                              const void* fvr, const void* fvi, const void* wr,
                              const void* wi, long long n, int delta, int form,
-                             const void* tables, void* stream) {
+                             int tiles, const void* tables, void* stream) {
   return launch_inverse<false, false>(zr, zi, nullptr, y, fvr, fvi, wr, wi,
                                       nullptr, nullptr, n,
                                       delta * (delta / 2 + 1), delta, 0, form,
-                                      tables, stream);
+                                      tiles, tables, stream);
 }
 
 extern "C" int tile_ifft_epilogue_f32(const void* zr, const void* zi,
@@ -995,12 +1038,12 @@ extern "C" int tile_ifft_epilogue_f32(const void* zr, const void* zi,
                                       const void* fvr, const void* fvi,
                                       const void* wr, const void* wi,
                                       long long n, int delta, int act,
-                                      int form, const void* tables,
-                                      void* stream) {
+                                      int form, int tiles,
+                                      const void* tables, void* stream) {
   return launch_inverse<true, false>(zr, zi, bias, y, fvr, fvi, wr, wi,
                                      nullptr, nullptr, n,
                                      delta * (delta / 2 + 1), delta, act,
-                                     form, tables, stream);
+                                     form, tiles, tables, stream);
 }
 
 extern "C" const char* dft_tile_error_string(int code) {

@@ -33,6 +33,14 @@ the tile size, the planes' and the output's alignment and the row stride:
 by value, the compact scatter compiled in) and ``generic``.  The form only
 changes the kernel: a CUDA tensor never falls back to the plain version.
 Each wrapper counts its launches by form in ``<wrapper>.form_launches``.
+
+The four inverse wrappers take ``tiles=``, the tiles one block of the
+inverse kernel takes (warps a block in the generic form, a tile a warp):
+one of ``INVERSE_TILES``, the values the kernel is compiled at, or ``None``
+for ``DEFAULT_TILES``.  It is the port's ``dft_bt`` (the reference's
+``bt``, its tiles per grid step of the inverse): ``resolve_tiles`` checks
+a pin, and ``<wrapper>.tiles_launches`` counts launches by value.  The
+function computed does not depend on it.
 """
 from __future__ import annotations
 
@@ -52,29 +60,33 @@ from repro_torch.kernels.dft_tile.ref import (
 
 MAX_DELTA = 32                          # per-warp buffers in shared memory
 ACTIVATION_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
+# tiles a block of the inverse kernel, as compiled (csrc: launch_inverse)
+INVERSE_TILES = (4, 8, 16)
+DEFAULT_TILES = 8
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     # x, tr, ti, fr, fi, fhr, fhi, store, n, P, delta, form, tables, stream
     "tile_rfft_f32": [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3
     + [_P, _P],
-    # zr, zi, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, form, tables,
-    # stream
-    "tile_irfft_f32": [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+    # zr, zi, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, form, tiles,
+    # tables, stream
+    "tile_irfft_f32": [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4
     + [_P, _P],
     # zr, zi, bias, y, fvr, fvi, wr, wi, src, sgn, n, ld, delta, act, form,
-    # tables, stream
+    # tiles, tables, stream
     "tile_irfft_epilogue_f32": [_P] * 10 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 4 + [_P, _P],
+    + [ctypes.c_int] * 5 + [_P, _P],
     # x, tr, ti, fr, fi, fhr, fhi, n, delta, form, tables, stream
     "tile_fft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int, _P, _P],
-    # zr, zi, y, fvr, fvi, wr, wi, n, delta, form, tables, stream
-    "tile_ifft_f32": [_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+    # zr, zi, y, fvr, fvi, wr, wi, n, delta, form, tiles, tables, stream
+    "tile_ifft_f32": [_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
     + [_P, _P],
-    # zr, zi, bias, y, fvr, fvi, wr, wi, n, delta, act, form, tables, stream
+    # zr, zi, bias, y, fvr, fvi, wr, wi, n, delta, act, form, tiles, tables,
+    # stream
     "tile_ifft_epilogue_f32": [_P] * 8 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 3 + [_P, _P],
+    + [ctypes.c_int] * 4 + [_P, _P],
 }
 
 
@@ -115,6 +127,25 @@ def choose_inverse_form(delta: int, ptrs, ld: int) -> Form:
 def _inverse_form(delta: int, aligned: bool, even: bool) -> Form:
     return (SPECIALISED if delta == SPECIALISED_DELTA and aligned and even
             else GENERIC)
+
+
+def resolve_tiles(tiles=None) -> int:
+    """The tiles a block of the inverse kernel for the pin ``tiles``
+    (``dft_bt``): ``None`` is ``DEFAULT_TILES``; a pin must be a positive
+    int (the reference's ``resolve_bt`` check and message) and one of the
+    compiled ``INVERSE_TILES``."""
+    if tiles is None:
+        return DEFAULT_TILES
+    if isinstance(tiles, bool) or not isinstance(tiles, int) or tiles <= 0:
+        raise ValueError(
+            f"dft_tile block override bt must be a positive int or None, "
+            f"got {tiles!r}")
+    if tiles not in INVERSE_TILES:
+        raise ValueError(
+            f"dft_bt={tiles} is not compiled: the inverse tile DFT kernel "
+            f"takes {INVERSE_TILES} tiles a block (or None for "
+            f"{DEFAULT_TILES})")
+    return tiles
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,10 +269,13 @@ def _launch(entry, device, *args):
                            f"({rc})")
 
 
-def _count(wrapper, form):
-    """One launch of ``wrapper``'s kernel in form ``form``."""
+def _count(wrapper, form, tiles=None):
+    """One launch of ``wrapper``'s kernel in form ``form`` (an inverse's
+    at ``tiles`` tiles a block)."""
     wrapper.launches += 1
     wrapper.form_launches[form.name] += 1
+    if tiles is not None:
+        wrapper.tiles_launches[tiles] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,12 +340,14 @@ def _inverse_output(Zr, Zi, delta, ld):
     return y, ptrs, choose_inverse_form(delta, ptrs, ld)
 
 
-def tile_irfft_cuda(Zr, Zi, *, delta: int = 16):
+def tile_irfft_cuda(Zr, Zi, *, delta: int = 16, tiles=None):
     """Compact-layout inverse tile DFT with no tail: two (n, P) planes ->
     (n, delta, delta) float32.  Accepts ``P >= num_freq_real(delta)``
     (trailing points are never read) and any ``delta <= 32``.  The planes
-    are read row by row, so they must be contiguous (n, P)."""
+    are read row by row, so they must be contiguous (n, P).  ``tiles``:
+    tiles a block (``resolve_tiles``)."""
     name = "tile_irfft"
+    tiles = resolve_tiles(tiles)
     _check_delta(name, delta)
     _check_planes(name, Zr, Zi, delta)
     _check_layout(name, (Zr, Zi))
@@ -325,20 +361,22 @@ def tile_irfft_cuda(Zr, Zi, *, delta: int = 16):
         return y
     mats, layout, table = _inverse_consts(delta, device)
     _launch("tile_irfft_f32", device, zr, zi, out, *mats, *layout, n, P,
-            delta, form.code, table)
-    _count(tile_irfft_cuda, form)
+            delta, form.code, tiles, table)
+    _count(tile_irfft_cuda, form, tiles)
     return y
 
 
 def tile_irfft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
-                             delta: int = 16):
+                             delta: int = 16, tiles=None):
     """Compact-layout inverse tile DFT with the conv epilogue fused into the
     tail: 2x (n, P) + (n,) bias -> (n, delta, delta) float32, bias-shifted
     and activated.  Accepts ``P >= num_freq_real(delta)`` (trailing points
     are never read) and any ``delta <= 32``.  The planes are read row by
     row, so they must be contiguous (n, P): callers holding the CGEMM's
-    (P, M, C') layout transpose it first."""
+    (P, M, C') layout transpose it first.  ``tiles``: tiles a block
+    (``resolve_tiles``)."""
     name = "tile_irfft_epilogue"
+    tiles = resolve_tiles(tiles)
     _check_activation(activation)
     _check_delta(name, delta)
     _check_planes(name, Zr, Zi, delta)
@@ -356,8 +394,8 @@ def tile_irfft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
     mats, layout, table = _inverse_consts(delta, device)
     _launch("tile_irfft_epilogue_f32", device, zr, zi, bias.data_ptr(), out,
             *mats, *layout, n, P, delta, ACTIVATION_CODES[activation],
-            form.code, table)
-    _count(tile_irfft_epilogue_cuda, form)
+            form.code, tiles, table)
+    _count(tile_irfft_epilogue_cuda, form, tiles)
     return y
 
 
@@ -388,11 +426,13 @@ def tile_fft_cuda(x, *, delta: int = 16):
     return Tr, Ti
 
 
-def tile_ifft_cuda(Zr, Zi, *, delta: int = 16):
+def tile_ifft_cuda(Zr, Zi, *, delta: int = 16, tiles=None):
     """Inverse tile DFT from the rect grid with no tail: two contiguous
     (n, delta, delta//2 + 1) planes -> (n, delta, delta) float32, the
-    irfft2 of each tile; any ``delta <= 32``."""
+    irfft2 of each tile; any ``delta <= 32``.  ``tiles``: tiles a block
+    (``resolve_tiles``)."""
     name = "tile_ifft"
+    tiles = resolve_tiles(tiles)
     _check_delta(name, delta)
     _check_rect_planes(name, Zr, Zi, delta)
     _check_layout(name, (Zr, Zi))
@@ -407,18 +447,19 @@ def tile_ifft_cuda(Zr, Zi, *, delta: int = 16):
         return y
     mats, _, table = _inverse_consts(delta, device)
     _launch("tile_ifft_f32", device, zr, zi, out, *mats, n, delta, form.code,
-            table)
-    _count(tile_ifft_cuda, form)
+            tiles, table)
+    _count(tile_ifft_cuda, form, tiles)
     return y
 
 
 def tile_ifft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
-                            delta: int = 16):
+                            delta: int = 16, tiles=None):
     """Inverse tile DFT from the rect grid with the conv epilogue fused
     into the tail: two contiguous (n, delta, delta//2 + 1) planes + (n,)
     bias -> (n, delta, delta) float32, bias-shifted and activated; any
-    ``delta <= 32``."""
+    ``delta <= 32``.  ``tiles``: tiles a block (``resolve_tiles``)."""
     name = "tile_ifft_epilogue"
+    tiles = resolve_tiles(tiles)
     _check_activation(activation)
     _check_delta(name, delta)
     _check_rect_planes(name, Zr, Zi, delta)
@@ -436,15 +477,19 @@ def tile_ifft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
         return y
     mats, _, table = _inverse_consts(delta, device)
     _launch("tile_ifft_epilogue_f32", device, zr, zi, bias.data_ptr(), out,
-            *mats, n, delta, ACTIVATION_CODES[activation], form.code, table)
-    _count(tile_ifft_epilogue_cuda, form)
+            *mats, n, delta, ACTIVATION_CODES[activation], form.code, tiles,
+            table)
+    _count(tile_ifft_epilogue_cuda, form, tiles)
     return y
 
 
-# launches of each kernel, and by form (``choose_form``,
-# ``choose_inverse_form``)
+# launches of each kernel, by form (``choose_form``,
+# ``choose_inverse_form``), and the inverses' by tiles a block
 for _wrapper in (tile_rfft_cuda, tile_irfft_cuda, tile_irfft_epilogue_cuda,
                  tile_fft_cuda, tile_ifft_cuda, tile_ifft_epilogue_cuda):
     _wrapper.launches = 0
     _wrapper.form_launches = {GENERIC.name: 0, SPECIALISED.name: 0}
+for _wrapper in (tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_ifft_cuda,
+                 tile_ifft_epilogue_cuda):
+    _wrapper.tiles_launches = dict.fromkeys(INVERSE_TILES, 0)
 del _wrapper

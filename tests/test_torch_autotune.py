@@ -8,6 +8,7 @@ same numpy inputs: the cost-model fallback names the same backend on all
 (rtol and atol) of the JAX package's tuned plan.  On the CPU the
 ``fft-cuda`` kernels run their plain versions; the tuner measures there
 only when asked (``device="cpu"`` / ``autotune.measure_on("cpu")``)."""
+import contextlib
 import json
 import os
 
@@ -73,6 +74,17 @@ def jax_tune_env(tmp_path, monkeypatch):
     yield
     jautotune.reset()
     jconv.clear_plan_cache()
+
+
+@contextlib.contextmanager
+def _host_mesh():
+    """A (1, 1) mesh on a one-rank gloo group, for the block."""
+    from repro_torch.launch import mesh as tmesh
+    tmesh.start_process_group("gloo")
+    try:
+        yield tmesh.make_host_mesh(1, 1)
+    finally:
+        tmesh.destroy_process_group()
 
 
 # --------------------------------------------------------------------------
@@ -155,6 +167,22 @@ def test_spec_signature_separates_geometry_and_constraints(tune_env):
     # a spectrum-pinned sweep must never answer for an unconstrained one
     assert s1 != autotune.spec_signature(X_SHAPE, K_SHAPE, padding=1,
                                          spectrum="complex")
+    assert s1 != autotune.spec_signature(X_SHAPE, K_SHAPE, padding=1,
+                                         dft_bt=16)
+    # the mesh (by value), its axes and the kernel-transform placement
+    for kw in (dict(data_axis="dp"), dict(model_axis="tp"),
+               dict(replicate_kernel_transform=True),
+               dict(overlap="auto")):
+        assert s1 != autotune.spec_signature(X_SHAPE, K_SHAPE, padding=1,
+                                             **kw)
+    with _host_mesh() as mesh:
+        s_mesh = autotune.spec_signature(X_SHAPE, K_SHAPE, padding=1,
+                                         mesh=mesh)
+        assert s_mesh != s1 and "|mesh=data:1,model:1;ranks[0];cpu|" \
+            in s_mesh
+        from repro_torch.launch import mesh as tmesh
+        assert s_mesh == autotune.spec_signature(
+            X_SHAPE, K_SHAPE, padding=1, mesh=tmesh.make_host_mesh(1, 1))
 
 
 def test_corrupt_cache_file_is_tolerated(tune_env):
@@ -338,11 +366,105 @@ def test_explicit_blocks_beat_tuned_blocks(tune_env):
     assert (plan.bm, plan.bn, plan.bk) == (32, 128, 16)
 
 
-def test_tuned_plan_refuses_dft_bt(tune_env):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        plan_conv(X_SHAPE, K_SHAPE, padding=1, backend="tuned", dft_bt=64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        autotune.tune(X_SHAPE, K_SHAPE, padding=1, dft_bt=64)
+def test_tuned_plan_takes_a_dft_bt_pin(tune_env):
+    """A seeded winner's dft_bt rides the tuned plan; an explicit pin
+    beats it (field by field: the tuned tile stays); a pinned sweep times
+    every candidate at the pin, under a key of its own; a value the
+    inverse was not compiled at is the resolver's ValueError."""
+    autotune.seed(X_SHAPE, K_SHAPE,
+                  TunedConfig("fft-cuda", "local", *SHAPES[4][:3],
+                              dft_bt=4, source="seeded"), padding=(1, 1))
+    plan = plan_conv(X_SHAPE, K_SHAPE, padding=1, backend="tuned")
+    assert (plan.backend, plan.dft_bt) == ("fft-cuda", 4)
+    pinned = plan_conv(X_SHAPE, K_SHAPE, padding=1, backend="tuned",
+                       dft_bt=16)
+    assert (pinned.dft_bt, pinned.bm) == (16, SHAPES[4][0])
+    w = autotune.tune(X_SHAPE, K_SHAPE, padding=1, dft_bt=16, budget=1e9)
+    assert w.source == "measured" and w.dft_bt == 16
+    (sweep,) = autotune.sweeps()
+    assert {c.dft_bt for c in sweep["measured"]} == {16}
+    for bad, match in ((64, r"\(4, 8, 16\)"), (0, "positive int")):
+        with pytest.raises(ValueError, match=match):
+            plan_conv(X_SHAPE, K_SHAPE, padding=1, backend="tuned",
+                      dft_bt=bad)
+        with pytest.raises(ValueError, match=match):
+            autotune.tune(X_SHAPE, K_SHAPE, padding=1, dft_bt=bad)
+
+
+# --------------------------------------------------------------------------
+# dft_bt: the inverse tile DFT's tiles a block, pinned into the kernel
+# --------------------------------------------------------------------------
+
+def test_resolve_tiles_defaults_and_validation():
+    """Twin of the reference's resolve_bt test: None is the kernel's
+    default, a compiled value is taken verbatim, and a bool, a non-int or
+    a value <= 0 is the reference's "positive int" ValueError; a positive
+    int the kernel was not compiled at lists the compiled values."""
+    from repro.kernels.dft_tile import resolve_bt
+    from repro_torch.kernels.dft_tile import (
+        DEFAULT_TILES, INVERSE_TILES, resolve_tiles)
+    assert INVERSE_TILES == (4, 8, 16) and DEFAULT_TILES == 8
+    assert resolve_tiles(None) == resolve_tiles() == DEFAULT_TILES
+    for t in INVERSE_TILES:
+        assert resolve_tiles(t) == t
+    for bad in (0, -1, True, 1.5):
+        with pytest.raises(ValueError, match="positive int") as ours:
+            resolve_tiles(bad)
+        with pytest.raises(ValueError) as theirs:
+            resolve_bt(100, bad)
+        assert str(ours.value) == str(theirs.value)
+    for bad in (2, 32, 64):
+        with pytest.raises(ValueError, match=r"\(4, 8, 16\)"):
+            resolve_tiles(bad)
+
+
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["fused", "residual"])
+def test_plan_dft_bt_reaches_fused_inverse(tune_env, monkeypatch, residual):
+    """A plan's dft_bt reaches the inverse it launches: the fused tail
+    (tile_irfft_epilogue) and, with a residual, the plain inverse
+    (tile_irfft) before the stage-level epilogue.  On the CPU the
+    wrappers run their plain versions, which take the value and ignore
+    it."""
+    from repro_torch.kernels import dft_tile as dft_pkg
+    seen = []
+
+    def spy(name):
+        real = getattr(dft_pkg, name)
+
+        def call(*args, **kw):
+            seen.append((name, kw.get("tiles")))
+            return real(*args, **kw)
+        monkeypatch.setattr(dft_pkg, name, call)
+    spy("tile_irfft_epilogue_cuda")
+    spy("tile_irfft_cuda")
+    ep = Epilogue(bias=True, activation="relu", residual=residual)
+    plan = plan_conv(X_SHAPE, K_SHAPE, padding=1, backend="fft-cuda",
+                     dft_bt=16, cache=False, epilogue=ep)
+    kw = dict(bias=_t(_rand((K_SHAPE[0],), 2)))
+    if residual:
+        kw["residual"] = _t(_rand(plan.out_shape, 3))
+    plan(_t(_rand(X_SHAPE)), _t(_rand(K_SHAPE, 1)), **kw)
+    want = "tile_irfft_cuda" if residual else "tile_irfft_epilogue_cuda"
+    assert seen == [(want, 16)]
+
+
+def test_block_overrides_keep_numerics(jax_tune_env):
+    """A pinned tile row and dft_bt change how the kernels run, not what
+    they compute: the plan matches the unpinned one, and the JAX
+    package's fft-pallas plan with the same pins."""
+    clear_plan_cache()
+    x, k = _rand(X_SHAPE), _rand(K_SHAPE, 1)
+    base = plan_conv(X_SHAPE, K_SHAPE, padding=1, backend="fft-cuda",
+                     cache=False)(_t(x), _t(k))
+    odd = plan_conv(X_SHAPE, K_SHAPE, padding=1, backend="fft-cuda",
+                    bm=8, dft_bt=16, cache=False)(_t(x), _t(k))
+    np.testing.assert_allclose(base.numpy(), odd.numpy(), atol=1e-4)
+    jodd = jconv.plan_conv(X_SHAPE, K_SHAPE, padding=1,
+                           backend="fft-pallas", bm=8, bn=8, bk=8,
+                           dft_bt=16, cache=False)(jnp.asarray(x),
+                                                   jnp.asarray(k))
+    np.testing.assert_allclose(odd.numpy(), np.asarray(jodd), atol=1e-4)
 
 
 # --------------------------------------------------------------------------
@@ -358,12 +480,46 @@ def test_candidates_cover_the_space_and_order_cheap_first(tune_env):
     kinds = [c.backend == "fft-cuda" for c in local]
     assert kinds == sorted(kinds)              # fft-cuda last
     assert any(c.bm for c in local)            # the CGEMM tile is an axis
+    assert any(c.dft_bt for c in local)        # dft_tile tile is an axis
+    assert {c.dft_bt for c in local} == {None, autotune.DFT_BT_ALT}
 
     pinned = autotune.candidates(spec, bm=8)
     assert all((c.bm, c.bn, c.bk) == SHAPES[2][:3] for c in pinned)
-    assert len([c for c in pinned if c.backend == "fft-cuda"]) == 2
+    # real at dft_bt None and the alternative, complex at None
+    assert len([c for c in pinned if c.backend == "fft-cuda"]) == 3
     with pytest.raises(ValueError, match="tile table"):
         autotune.candidates(spec, bm=12)
+    # a dft_bt pin merges field by field: every tile variant stays
+    bt = autotune.candidates(spec, dft_bt=4)
+    assert {c.dft_bt for c in bt} == {4}
+    assert [c.bm for c in bt if (c.backend, c.spectrum)
+            == ("fft-cuda", "real")] == [c.bm for c in local if (
+                c.backend, c.spectrum, c.dft_bt) == ("fft-cuda", "real",
+                                                     None)]
+    with pytest.raises(ValueError, match=r"\(4, 8, 16\)"):
+        autotune.candidates(spec, dft_bt=64)
+
+    # the sharded half: on a (1, 1) gloo mesh, nfft and wfft, no direct,
+    # fft-torch on nfft first (the cost model's pick), fft-cuda last
+    with _host_mesh() as mesh:
+        sharded = autotune.candidates(spec, mesh=mesh)
+        assert {c.schedule for c in sharded} == {"nfft", "wfft"}
+        assert "direct" not in {c.backend for c in sharded}
+        assert (sharded[0].backend, sharded[0].schedule) \
+            == ("fft-torch", "nfft")
+        kinds = [c.backend == "fft-cuda" for c in sharded]
+        assert kinds == sorted(kinds)
+        assert {c.dft_bt for c in sharded} == {None}
+        assert {c.overlap for c in sharded} == {"off"}
+        overlapped = autotune.candidates(spec, mesh=mesh, overlap="auto")
+        assert {c.overlap for c in overlapped} \
+            == {"off", "slab:2", "slab:4"}
+        # overlapped fft-cuda is timed at its unpinned tile only
+        assert {c.bm for c in overlapped if c.backend == "fft-cuda"
+                and c.overlap != "off"} == {None}
+        wfft = autotune.candidates(spec, schedule="wfft", mesh=mesh)
+        assert {c.schedule for c in wfft} == {"wfft"}
+        assert 2 * len(wfft) == len(sharded)
 
 
 def test_candidates_spectrum_axis(tune_env):
@@ -393,8 +549,11 @@ def test_candidate_rows_neighbour_the_chooser(tune_env, M, rows):
     assert spec.M == M                         # one tile per image
     cands = [c for c in autotune.candidates(spec)
              if (c.backend, c.spectrum) == ("fft-cuda", "real")]
-    assert [c.bm for c in cands] == rows
-    for c in cands[1:]:
+    # each row at dft_bt None, then at the alternative
+    assert [c.bm for c in cands] == [bm for bm in rows for _ in range(2)]
+    assert [c.dft_bt for c in cands] \
+        == [None, autotune.DFT_BT_ALT] * len(rows)
+    for c in cands[2:]:
         assert (c.bm, c.bn, c.bk) in [tuple(r[:3]) for r in SHAPES]
 
 

@@ -374,12 +374,58 @@ def test_specialised_inverse_refuses_a_misaligned_view(cuda):
         with pytest.raises(RuntimeError, match="launch failed"):
             dft_ops._launch("tile_irfft_f32", y.device,
                             *_ptrs(Zr, Zi, y), *mats, *layout, 8, P,
-                            16, SPECIALISED.code, table)
+                            16, SPECIALISED.code, dft_ops.DEFAULT_TILES,
+                            table)
     Zr, Zi = _inverse_planes(8, False, cuda, 5, offset=True)
     with pytest.raises(RuntimeError, match="launch failed"):
         dft_ops._launch("tile_ifft_f32", y.device,
                         *_ptrs(Zr, Zi, y), *mats, 8, 16,
-                        SPECIALISED.code, table)
+                        SPECIALISED.code, dft_ops.DEFAULT_TILES, table)
+
+
+@pytest.mark.parametrize("tiles", dft_ops.INVERSE_TILES)
+@pytest.mark.parametrize("wrapper,ref,compact,tail", INVERSES,
+                         ids=INVERSE_IDS)
+def test_inverse_at_every_tiles_value(cuda, wrapper, ref, compact, tail,
+                                      tiles):
+    """Every inverse wrapper at every compiled number of tiles a block
+    (``dft_bt``): the specialised form at delta 16 on tile counts that end
+    in a part block of every size, the generic form on offset planes,
+    each held to its plain version within 1e-4; the wrapper counts the
+    launch under its ``tiles``."""
+    for n, offset in ((1, False), (5, False), (13, False), (1001, False),
+                      (7, True), (1001, True)):
+        Zr, Zi = _inverse_planes(n, compact, cuda, 500 + n, offset=offset)
+        b = _rand((n,), 78).to(cuda)
+        args = (Zr, Zi, b) if tail else (Zr, Zi)
+        kw = dict(activation="relu") if tail else {}
+        before = dict(wrapper.tiles_launches)
+        forms = dict(wrapper.form_launches)
+        y = wrapper(*args, delta=16, tiles=tiles, **kw)
+        y0 = ref(*args, delta=16, **kw)
+        torch.cuda.synchronize()
+        before[tiles] += 1
+        assert wrapper.tiles_launches == before
+        form = GENERIC if offset else SPECIALISED
+        forms[form.name] += 1
+        assert wrapper.form_launches == forms
+        assert (y - y0).abs().max().item() <= 1e-4
+
+
+def test_inverse_refuses_an_uncompiled_tiles_value(cuda):
+    """A number of tiles a block the kernel was not compiled at is
+    refused by the wrapper (a ValueError listing the compiled values) and,
+    forced past it, by the launch."""
+    Zr, Zi = _inverse_planes(8, True, cuda, 6)
+    with pytest.raises(ValueError, match=r"\(4, 8, 16\)"):
+        tile_irfft_cuda(Zr, Zi, delta=16, tiles=32)
+    y = torch.empty((8, 16, 16), device=cuda)
+    mats, layout, table = dft_ops._inverse_consts(16, y.device)
+    for form in (SPECIALISED, GENERIC):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            dft_ops._launch("tile_irfft_f32", y.device,
+                            *_ptrs(Zr, Zi, y), *mats, *layout, 8, 130, 16,
+                            form.code, 12, table)
 
 
 @pytest.mark.parametrize("delta", [5, 8, 15, 16, 32])

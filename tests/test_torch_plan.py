@@ -178,7 +178,19 @@ def test_stage_counts_one_shot_and_prepared():
     dict(backend="fft-cuda", dft_bt=128),
 ])
 def test_not_ported_knobs_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """The knobs that were not ported before the tuner over the sharded
+    schedules and ``dft_bt`` are now taken; each case here is their
+    invalid form, refused as the reference refuses it: a mesh that is not
+    a ``DeviceMesh``, a sharded schedule without a mesh (refused before a
+    sweep), a ``dft_bt`` the inverse kernel was not compiled at."""
+    if "mesh" in kwargs:
+        error, match = TypeError, "DeviceMesh"
+    elif "schedule" in kwargs:
+        error, match = ValueError, f"schedule '{kwargs['schedule']}' " \
+                                   "requires a mesh"
+    else:
+        error, match = ValueError, r"not compiled.*\(4, 8, 16\)"
+    with pytest.raises(error, match=match):
         tconv.plan_conv((1, 3, 16, 16), (4, 3, 3, 3), padding=1, **kwargs)
 
 
@@ -218,12 +230,30 @@ def test_slab_overlap_on_a_local_plan_raises_the_reference_error(backend):
         "'fft-xla'", f"'{backend}'")
 
 
-def test_dft_bt_refusal_names_why():
-    with pytest.raises(NotImplementedError,
-                       match="compile-time number of tiles per block.*"
-                             "item 10"):
-        tconv.plan_conv((1, 3, 16, 16), (4, 3, 3, 3), padding=1,
-                        backend="fft-cuda", dft_bt=64)
+@pytest.mark.parametrize("backend", ["direct", "fft-torch", "fft-cuda"])
+def test_dft_bt_pin_is_checked_stored_and_keyed(backend):
+    """``plan_conv(dft_bt=)`` takes a value the inverse kernel was
+    compiled at, stores it (on ``direct`` and ``fft-torch`` stored and
+    unused, as in the reference), shows it in ``describe()`` as the
+    reference does, and keys the plan cache with it; a value not compiled
+    is a ValueError naming the compiled ones."""
+    shp = ((1, 3, 16, 16), (4, 3, 3, 3))
+    jbackend = {"direct": "direct", "fft-torch": "fft-xla",
+                "fft-cuda": "fft-pallas"}[backend]
+    p16 = tconv.plan_conv(*shp, padding=1, backend=backend, dft_bt=16)
+    jp16 = jconv.plan_conv(*shp, padding=1, backend=jbackend, dft_bt=16)
+    assert p16.dft_bt == jp16.dft_bt == 16
+    assert "dft_bt=16" in p16.describe() and "dft_bt=16" in jp16.describe()
+    assert tconv.plan_conv(*shp, padding=1, backend=backend,
+                           dft_bt=16) is p16
+    assert tconv.plan_conv(*shp, padding=1, backend=backend,
+                           dft_bt=4) is not p16
+    assert tconv.plan_conv(*shp, padding=1, backend=backend).dft_bt is None
+    # the dx plan of training launches its inverse at the forward's pin
+    from repro_torch.conv import autodiff
+    assert autodiff._transposed_plan(p16).dft_bt == 16
+    with pytest.raises(ValueError, match=r"not compiled.*\(4, 8, 16\)"):
+        tconv.plan_conv(*shp, padding=1, backend=backend, dft_bt=64)
 
 
 def _spy_cgemm(monkeypatch):

@@ -387,14 +387,38 @@ def test_what_waits_for_later_slices_raises(mesh):
     assert type(xg.grad) is torch.Tensor and xg.grad.shape == x.shape
     with torch.no_grad():
         plan(xg, _t(k))                  # no grad asked: runs
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tconv.plan_conv(x.shape, k.shape, padding=1, backend="tuned",
-                        mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tconv.autotune.candidates(plan.spec, schedule="nfft")
     with pytest.raises(NotImplementedError, match="item 14"):
         ServeEngine(lambda b: [], {}, policy=BucketPolicy(max_batch=1),
                     device="cpu", mesh=mesh)
+
+
+def test_tuned_plan_on_a_mesh_runs(mesh, tmp_path, monkeypatch):
+    """The tuner over the sharded schedules: ``plan_conv(backend="tuned",
+    mesh=)`` measures nfft and wfft (on the CPU when asked) and plans the
+    winner, which matches the fft-torch plan of the same schedule; the
+    schedule alone (``candidates(schedule="nfft")``) is a space of its
+    own."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_REPS", "1")
+    tconv.autotune.reset()
+    x, k = _rand((2, 3, 12, 12), 15), _rand((4, 3, 3, 3), 16)
+    try:
+        with tconv.autotune.measure_on("cpu"):
+            plan = tconv.plan_conv(x.shape, k.shape, padding=1,
+                                   backend="tuned", mesh=mesh)
+        assert plan.schedule in SCHEDULES and plan.backend in BACKENDS
+        assert tconv.autotune_info().measured == 1
+        ref = tconv.plan_conv(x.shape, k.shape, padding=1,
+                              backend="fft-torch", schedule=plan.schedule,
+                              mesh=mesh)
+        np.testing.assert_allclose(
+            plan(_t(x), _t(k)).full_tensor().numpy(),
+            ref(_t(x), _t(k)).full_tensor().numpy(), rtol=1e-5, atol=1e-5)
+        nfft = tconv.autotune.candidates(plan.spec, schedule="nfft",
+                                         mesh=mesh)
+        assert {c.schedule for c in nfft} == {"nfft"}
+    finally:
+        tconv.autotune.reset()
 
 
 def test_make_mesh_checks_ranks_and_device(mesh, monkeypatch):

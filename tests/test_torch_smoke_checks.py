@@ -195,23 +195,31 @@ def _served_specs():
 
 
 def test_tune_sweep_launches_count_every_fft_cuda_candidate():
-    """On the served trunk the sweep times 4 fft-cuda candidates a layer
-    (unpinned real, one or two neighbouring rows, complex), except the
-    layers whose chooser row has one neighbour: 3 (M = 1024, 256, 64, 4)
-    or 4 (M = 16).  Each is a warm-up and ``reps`` calls."""
+    """On the served trunk the sweep times 5 fft-cuda candidates a layer
+    (unpinned real and one or two neighbouring rows, each at dft_bt None
+    and the alternative; complex), except the layers whose chooser row has
+    one neighbour: 5 (M = 1024, 256, 64, 4) or 7 (M = 16).  Each is a
+    warm-up and ``reps`` calls; the fused inverse runs half the real
+    ones' calls at each dft_bt."""
     specs = _served_specs()
     counts, tiles = smoke.tune_sweep_launches(specs, 3)
-    n_cands = [3, 3, 3, 3, 3, 3, 4, 4, 3]
+    n_cands = [5, 5, 5, 5, 5, 5, 7, 7, 5]
     assert [s.M for s in specs] == [1024, 1024, 256, 256, 64, 64, 16, 16, 4]
     assert counts["cgemm"] == 4 * sum(n_cands)
     assert counts["tile_irfft_epilogue"] == 4 * (sum(n_cands) - 9)
     assert counts["tile_rfft"] == 2 * counts["tile_irfft_epilogue"]
     assert sum(tiles.values()) == counts["cgemm"]
     # the pinned rows: small-32 next to the large tile, 8 and 32 next to
-    # small-16, 8 next to small-4
-    assert tiles["small-32x128"] == 4 * (6 + 2)
-    assert tiles["small-8x128"] == 4 * (2 + 1)
-    assert tiles["large-64x64"] == 4 * 2 * 6   # unpinned real + complex
+    # small-16, 8 next to small-4; each at two dft_bt values
+    assert tiles["small-32x128"] == 4 * 2 * (6 + 2)
+    assert tiles["small-8x128"] == 4 * 2 * (2 + 1)
+    assert tiles["large-64x64"] == 4 * 3 * 6   # unpinned real x 2, complex
+    from repro_torch.conv import autotune
+    bts = smoke.inverse_tiles_launches(
+        [c for spec in specs for c in autotune.candidates(spec)], 4)
+    want = {4: 0, 8: 0, 16: 0}
+    want[8] = want[autotune.DFT_BT_ALT] = counts["tile_irfft_epilogue"] // 2
+    assert bts == want
 
 
 def _info(hits, misses, fallbacks, measured):
@@ -472,14 +480,14 @@ def test_slab_dft_cases_are_the_sharded_plans_launches(monkeypatch, kernel):
         launched.add(("tile_rfft", x.shape[0], out[0].shape[1], None))
         return out
 
-    def irfft(Zr, Zi, *, delta):
+    def irfft(Zr, Zi, *, delta, tiles=None):
         launched.add(("tile_irfft", *Zr.shape, None))
-        return real_irfft(Zr, Zi, delta=delta)
+        return real_irfft(Zr, Zi, delta=delta, tiles=tiles)
 
-    def epilogue(Zr, Zi, bias, *, activation="none", delta=16):
+    def epilogue(Zr, Zi, bias, *, activation="none", delta=16, tiles=None):
         launched.add(("tile_irfft_epilogue", *Zr.shape, activation))
         return real_epilogue(Zr, Zi, bias, activation=activation,
-                             delta=delta)
+                             delta=delta, tiles=tiles)
     monkeypatch.setattr(dft_pkg, "tile_rfft_cuda", rfft)
     monkeypatch.setattr(dft_pkg, "tile_irfft_cuda", irfft)
     monkeypatch.setattr(dft_pkg, "tile_irfft_epilogue_cuda", epilogue)
@@ -590,3 +598,102 @@ def test_sharded_train_step_rehearsal_on_a_host_mesh(schedule, overlap):
                        branches=branches)
     assert max(smoke.rel_errs(LAYERS, grads, grads64).values()) \
         <= smoke.GRAD_TOL
+
+
+# --------------------------------------------------------------------------
+# Phase sharded_tune: the sweep's launches, rehearsed on a host mesh
+# --------------------------------------------------------------------------
+
+def test_sharded_tune_launches_are_the_measured_candidates(monkeypatch,
+                                                           tmp_path):
+    """The tuner over the sharded schedules on a one-rank gloo mesh at
+    narrow widths, measuring on the CPU with spies on the kernels'
+    wrappers: the calls each kernel gets during the sweep are exactly
+    ``sharded_tune_launches`` of the ``fft-cuda`` candidates it measured
+    (``sweep_plans``: slabbed and not, real and complex), and the fused
+    inverse's by tiles a block ``inverse_tiles_launches``'; then the
+    prepared tuned trunk's, per prepare and forward."""
+    import repro_torch.kernels.cgemm as cgemm_pkg
+    import repro_torch.kernels.dft_tile as dft_pkg
+    from repro_torch.conv import autotune, clear_plan_cache, plan_network
+    from repro_torch.launch import mesh as tmesh
+    calls = collections.Counter()
+    bts = collections.Counter()
+
+    def spy(pkg, attr, kernel):
+        real = getattr(pkg, attr)
+
+        def call(*args, **kw):
+            calls[kernel] += 1
+            if kernel == "tile_irfft_epilogue":
+                bts[dft_ops.resolve_tiles(kw.get("tiles"))] += 1
+            return real(*args, **kw)
+        monkeypatch.setattr(pkg, attr, call)
+    spy(cgemm_pkg, "cgemm_cuda", "cgemm")
+    spy(dft_pkg, "tile_rfft_cuda", "tile_rfft")
+    spy(dft_pkg, "tile_irfft_epilogue_cuda", "tile_irfft_epilogue")
+    spy(dft_pkg, "tile_irfft_cuda", "tile_irfft")
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_REPS", "1")
+    # every candidate measured, however loaded the host
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_BUDGET_MS", "1e9")
+    convs = _convs(4)[:2]
+    kernels, biases, x, _ = _trunk(torch.float32)
+    x = torch.cat([x, x])
+    autotune.reset()
+    tmesh.start_process_group("gloo")
+    try:
+        clear_plan_cache()
+        mesh = tmesh.make_host_mesh(1, 1)
+        with autotune.measure_on("cpu"):
+            net = plan_network(convs, mesh=mesh, backend="tuned",
+                               overlap="auto")
+        sweeps = autotune.sweeps()
+        measured = smoke.sweep_plans(mesh, sweeps)
+        assert len(sweeps) == 2 and measured
+        assert {p.num_slabs for p in measured} >= {1, 2}
+        assert {p.spectrum for p in measured} == {"real", "complex"}
+        assert dict(calls) == smoke.sharded_tune_launches(measured, 2)
+        want_bt = smoke.inverse_tiles_launches(measured, 2)
+        assert {t: bts[t] for t in want_bt} == want_bt
+        calls.clear()
+        with torch.inference_mode():
+            prepared = net.prepare({c.name: kernels[c.name] for c in convs})
+            h = x
+            for c in convs:
+                h = prepared[c.name](h, bias=biases[c.name])
+        assert dict(calls) == smoke.sharded_tune_launches(
+            list(net.plans.values()), 1, 1, False)
+    finally:
+        autotune.reset()
+        tmesh.destroy_process_group()
+
+
+def test_inverse_tiles_rows_cover_every_pass():
+    """Phase 3 times each inverse at the tiles a block other than the
+    default over its main-path pass: kernels 2, 6 and 7 at the served
+    forward's nine output tile counts, kernel 4 at the eight dx plans';
+    each row's bound counts what the kernel's default row counts."""
+    from repro_torch.configs.paper_convs import network_convs
+    from repro_torch.conv import autodiff, plan_network
+    from repro_torch.launch import serve
+    net = plan_network(network_convs(serve._vgg_scale(224), 4),
+                       backend="fft-cuda")
+    layers = [(n, p.spec) for n, p in net.items()]
+    dx = [(n, autodiff._transposed_plan(p).spec)
+          for n, p in list(net.items())[1:]]
+    passes = smoke.inverse_passes(layers, dx)
+    assert smoke.OTHER_TILES == (4, 16)
+    assert collections.Counter(k for k, _, _ in passes) == {
+        "tile_irfft_epilogue": 9, "tile_irfft": 8, "tile_ifft": 9,
+        "tile_ifft_epilogue": 9}
+    n = 1000
+    assert smoke.inverse_bytes_flops("tile_irfft_epilogue", n) == (
+        4 * (2 * n * 130 + n + n * 256), n * (8 * 16 * 9 * 16
+                                              + 4 * 16 * 16 * 9))
+    assert smoke.inverse_bytes_flops("tile_irfft", n)[0] \
+        == 4 * (2 * n * 130 + n * 256)
+    assert smoke.inverse_bytes_flops("tile_ifft_epilogue", n) \
+        == smoke.rect_bytes_flops(n, 16, tail=True)
+    assert smoke.inverse_bytes_flops("tile_ifft", n) \
+        == smoke.rect_bytes_flops(n, 16)
