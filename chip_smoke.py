@@ -164,12 +164,53 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               measured candidates and how many of them the budget let it
               reach, the sweep's time, the tuned trunk's p50 and busy time
               beside phase 11's configurations
+ 14. sharded_serve  inside phase 11's process group, before it ends: phase
+              9's engine (``ServeEngine``: the full-width trunk, buckets
+              (1, 2, 4, 8), the same weights, inputs and 64-request burst
+              trace) over the mesh, ``ServeEngine(..., mesh=, schedule=,
+              overlap=, backend="fft-cuda")``, for each (schedule,
+              overlap) of ``SERVE_SHARDED``: one CUDA graph per bucket
+              captured over every layer's NCCL collectives and the gather
+              of the output into a plain tensor.  Gates: a replay of the
+              batch-4 graph runs the device operations of one eager run
+              of the callable it captured, name by name and count by
+              count (NCCL's one-rank all-to-alls are copies there, named
+              by its ranges in the eager run; a one-rank all-reduce in
+              place enqueues nothing, so only more ranks can show it in a
+              graph), in one of up to ``READINGS`` profiler readings,
+              since a session now and then drops a run of device records
+              (none may hold an operation more); launches (each bucket
+              prepared afresh) and collectives (prepared nfft ``2k``
+              all-to-alls a layer, wfft ``k`` all-reduces, one
+              ``output_gather`` a forward) exact at start-up and again at
+              ``update_weights``, none during the trace or a replay; graph
+              replays equal the batches; zero plan-cache misses after
+              warm-up; phase 9's placements; the first and last requests
+              and one per bucket a plain tensor within ``GRAPH_TOL`` of the
+              eager sharded forward of its bucket and of phase 9's result
+              for the same request, and ``SLICE_TOL`` of cuDNN; the same
+              for a request after ``update_weights``.  Reported, not gated:
+              per-bucket p50/p99, throughput, start-up and capture seconds,
+              graph memory, rank broadcasts, and a lone batch-4 request's
+              p50, busy and NCCL device time beside phase 9's lone request
+              and phase 11's eager sharded forward
+ 15. entry_points  the deprecated ``fft_conv2d_pallas`` on ``ONE_SHOT_LAYER``
+              (batch 4): exactly the launches of that layer's one-shot
+              ``fft-cuda`` plan (kernel 3 twice, the CGEMM, kernel 4: no
+              epilogue, so the plain inverse), its ``DeprecationWarning``,
+              within ``GRAPH_TOL`` of the plan and ``SLICE_TOL`` of cuDNN;
+              then the example twins at their defaults on the card, their
+              own asserts included: ``examples.quickstart`` (``auto`` plans
+              ``fft-torch``/``direct``: none of the kernels) and
+              ``examples.serve_batcher`` (``fft-cuda`` behind CUDA graphs:
+              exact launches at start-up and at the weight update, one
+              replay a batch)
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9, 10, 11, 12, 13) and read right after it; each path must
-launch its own kernels and none of the others, and every tile DFT,
+(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) and read right after it; each path
+must launch its own kernels and none of the others, and every tile DFT,
 forward and inverse, only in its specialised form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
@@ -184,6 +225,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -196,12 +238,14 @@ from repro_torch.configs.paper_convs import network_convs  # noqa: E402
 import torch.nn.functional as TF  # noqa: E402
 
 from repro_torch.conv import (  # noqa: E402
-    Epilogue, autodiff, autotune, autotune_info, plan_conv, plan_network,
-    stages)
+    Epilogue, autodiff, autotune, autotune_info, clear_prepared_cache,
+    plan_conv, plan_network, stages)
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
+from repro_torch.core import fft_conv2d_pallas  # noqa: E402
 from repro_torch.core.dft import compact_layout, num_freq_real  # noqa: E402
 from repro_torch.core.fftconv import freq_count  # noqa: E402
-from repro_torch.examples import train_cnn_fftconv  # noqa: E402
+from repro_torch.examples import (  # noqa: E402
+    quickstart, serve_batcher, train_cnn_fftconv)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cgemm import (  # noqa: E402
     cgemm_cuda, cgemm_ref, choose_variant, operand_variant,
@@ -262,6 +306,10 @@ SHARDED = [("nfft", "off"), ("nfft", "slab:2"), ("wfft", "off"),
 SHARDED_GRAD_TOL = 1e-6                 # sharded vs local step's grads,
 #                                         scaled by max|g|, on one rank
 ONE_SHOT_LAYER = "Vconv3.1"
+# (schedule, overlap) of phase 14, the engine over the mesh
+SERVE_SHARDED = [("nfft", "off"), ("wfft", "off"), ("wfft", "slab:2")]
+READINGS = 5                            # profiler readings a side of the
+#                                         replay gate may take (PERF.md §7)
 TUNE_ENV = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_CACHE",
             "REPRO_TORCH_AUTOTUNE_BUDGET_MS", "REPRO_TORCH_AUTOTUNE_REPS")
 
@@ -995,8 +1043,12 @@ def summarize(name, rows, launches, has_library):
 
 
 def device_profile(fn):
-    """Run ``fn`` once more under torch.profiler: (kernel rows sorted by
-    device time as (us, name, calls), device busy us, wall us)."""
+    """Run ``fn`` once more under torch.profiler: (device operation rows
+    sorted by device time as (us, name, calls), device busy us, wall us,
+    range rows).  The range rows are the profiler's device spans of host
+    ranges (``nccl:all_to_all`` and the like, each the span of the device
+    work enqueued inside it): they are kept apart, since that work is
+    among the operation rows already."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1004,16 +1056,43 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
+    rows, ranges = [], []
     for ev in prof.key_averages():
         if "CUDA" not in str(getattr(ev, "device_type", "")):
             continue                    # host ops: their kernels are listed
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0)) or 0
         if t > 0:
-            rows.append((t, ev.key, ev.count))
+            (ranges if ev.is_user_annotation else rows).append(
+                (t, ev.key, ev.count))
     rows.sort(reverse=True)
-    return rows, sum(t for t, _, _ in rows), wall_us
+    return rows, sum(t for t, _, _ in rows), wall_us, ranges
+
+
+def device_activity(fn):
+    """Run ``fn`` once under torch.profiler: (its device operations as
+    {name: count}, NCCL's ranges as {name: count}, the device operations
+    inside those ranges as {name: count}).  A CUDA graph's replay runs no
+    host op, so it has no ranges: its operations are compared by name
+    and count."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, nccl = [], []
+    for ev in prof.events():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        if not ev.is_user_annotation:
+            ops.append(ev)
+        elif ev.name.startswith("nccl:"):
+            nccl.append(ev)
+    inside = [o for o in ops if any(
+        r.time_range.start <= o.time_range.start
+        and o.time_range.end <= r.time_range.end for r in nccl)]
+    return tuple(dict(collections.Counter(e.name for e in evs))
+                 for evs in (ops, nccl, inside))
 
 
 def profile_forward(res):
@@ -1024,7 +1103,7 @@ def profile_forward(res):
     with torch.inference_mode():
         forward(prepared, res.x)
         torch.cuda.synchronize()
-        rows, busy, wall_us = device_profile(
+        rows, busy, wall_us, _ = device_profile(
             lambda: forward(prepared, res.x))
     p50_us = serve._percentile(res.latencies_s, 50) * 1e6
     emit("profile", device_busy_us=busy,
@@ -1102,7 +1181,7 @@ def rect_phase(res, layers, y_ref, slice_p50_ms):
                               p50_ms=serve._percentile(lats, 50) * 1e3,
                               max_ms=max(lats) * 1e3,
                               latencies_ms=[t * 1e3 for t in lats])
-        rows, busy, wall_us = device_profile(
+        rows, busy, wall_us, _ = device_profile(
             lambda: rect_forward(layers, G, res.biases, res.x, True))
     emit("rect", image=IMAGE, batch=BATCH, forwards_per_route=GEN,
          launches_per_forward={"tile_fft": n_layers, "cgemm": n_layers,
@@ -1277,7 +1356,7 @@ def train_phase():
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         out[backend] = (loss, grads, times, read_counts(), branches)
-        rows, busy, wall_us = device_profile(step)
+        rows, busy, wall_us, _ = device_profile(step)
         idle = 1 - busy / (statistics.median(times) * 1e6)
         emit("train_profile", backend=backend, device_busy_us=busy,
              kernel_launches=sum(c for _, _, c in rows),
@@ -1412,31 +1491,41 @@ def rel_err(y, y0):
     return ((y - y0).abs().max() / y0.abs().max()).item()
 
 
-def serve_checks(eng, res, rid, x, kernels, version=0):
+def serve_checks(eng, res, rid, x, kernels, version=0, local=None):
     """Request ``rid`` (input ``x``) against the eager prepared forward of
-    the bucket it ran in, the request's rows at the same offset of a
-    zero-padded batch, and against cuDNN at its own batch size."""
+    the bucket it ran in (gathered whole on a mesh), the request's rows at
+    the same offset of a zero-padded batch, and against cuDNN at its own
+    batch size; with ``local``, against that result too (phase 9's local
+    engine's, for the same request), within ``GRAPH_TOL``.  The result
+    must be a plain tensor."""
     label, _, off = eng.placements[rid]
     bucket, rows = int(label[1:]), x.shape[0]
     y = eng.results[rid]
+    if type(y) is not torch.Tensor:
+        raise AssertionError(f"serve request {rid}: a {type(y).__name__}, "
+                             "not a plain tensor")
     prepared = eng.nets[(bucket, None)].prepare(   # the graph's spectra
         kernels, weights_version=version)
     xpad = torch.zeros((bucket,) + tuple(x.shape[1:]), device=x.device)
     xpad[off:off + rows] = x
     direct = plan_network(res.make_layers(rows), backend="direct")
     with torch.inference_mode():
-        y_eager = res.forward(prepared, xpad)[off:off + rows]
+        y_eager = full(res.forward(prepared, xpad))[off:off + rows]
         y_direct = res.forward(direct.prepare(kernels), x)
     batcher._sync(y.device)
     out = dict(rid=rid, bucket=label, rows=rows, offset=off,
                rel_err_vs_eager=rel_err(y, y_eager),
                rel_err_vs_cudnn=rel_err(y, y_direct))
-    if not (bool(torch.isfinite(y).all())
-            and out["rel_err_vs_eager"] <= GRAPH_TOL
-            and out["rel_err_vs_cudnn"] <= SLICE_TOL):
-        raise AssertionError(f"serve trace request {out}: not within "
-                             f"{GRAPH_TOL} of eager and {SLICE_TOL} of "
-                             f"cuDNN")
+    ok = (bool(torch.isfinite(y).all())
+          and out["rel_err_vs_eager"] <= GRAPH_TOL
+          and out["rel_err_vs_cudnn"] <= SLICE_TOL)
+    if local is not None:
+        out["rel_err_vs_local_engine"] = rel_err(y, local)
+        ok = ok and out["rel_err_vs_local_engine"] <= GRAPH_TOL
+    if not ok:
+        raise AssertionError(
+            f"serve request {out}: not within {GRAPH_TOL} of eager (and "
+            f"of the local engine) and {SLICE_TOL} of cuDNN")
     return out
 
 
@@ -1445,7 +1534,8 @@ def serve_trace_phase(slice_p50_ms, profile_busy_us):
     launches (prepare, warm-up and capture only), its graph replays and
     plan-cache misses, its results against eager and cuDNN, new inputs
     and new weights through the graphs, and the numbers of the trace,
-    beside the pad-max and replan engines on the same trace."""
+    beside the pad-max and replan engines on the same trace.  Returns the
+    launches and what phase 14 serves again (``Served``)."""
     n_layers = len(serve._vgg_scale(IMAGE))
     zero_counts()
     res = serve.main(["--serve-trace", "--conv-backend", "fft-cuda",
@@ -1456,14 +1546,8 @@ def serve_trace_phase(slice_p50_ms, profile_busy_us):
     torch.cuda.synchronize()
     counts = read_counts()
     eng, rep = res.engines["bucketed"], res.reports["bucketed"]
-    n_buckets = len(eng.policy.batch_buckets())
-    forwards = n_buckets * (batcher.WARMUP_PASSES + 1)
-    # per bucket: one prepare (a forward tile DFT a layer), the warm-up
-    # passes and the capture (a forward tile DFT, CGEMM and fused inverse a
-    # layer each); the trace itself only replays
-    at_capture = {"tile_rfft": n_layers * (n_buckets + forwards),
-                  "cgemm": n_layers * forwards,
-                  "tile_irfft_epilogue": n_layers * forwards}
+    # the trace itself only replays
+    at_capture = engine_launches(n_layers, len(eng.policy.batch_buckets()))
     expect_counts("serve trace", counts, at_capture)
     n_batches = sum(b["n_batches"] for b in rep["buckets"].values())
     replays = sum(map(sum, rep["graph_replays"].values()))
@@ -1507,7 +1591,7 @@ def serve_trace_phase(slice_p50_ms, profile_busy_us):
         eng.submit(xa)
         eng.drain(force=True)
         lats.append(time.perf_counter() - t0)
-    rows, busy, wall_us = device_profile(
+    rows, busy, wall_us, _ = device_profile(
         lambda: (eng.submit(xa), eng.drain(force=True)))
     lone_p50_ms = serve._percentile(lats, 50) * 1e3
 
@@ -1523,6 +1607,11 @@ def serve_trace_phase(slice_p50_ms, profile_busy_us):
     eng.drain(force=True)
     updated = serve_checks(eng, res, rid, xa, kernels2, version=1)
     launches = {k: counts[k] + update_counts[k] for k in KERNELS}
+    served = Served(
+        res=res, results={r: eng.results[r] for r in range(SERVE_REQUESTS)},
+        placements={r: eng.placements[r] for r in range(SERVE_REQUESTS)},
+        xa=xa, kernels2=kernels2, updated=eng.results[rid],
+        lone_b4_p50_ms=lone_p50_ms, lone_b4_busy_us=busy)
 
     # the baselines on the same trace and inputs
     reports = {"bucketed": rep}
@@ -1536,7 +1625,8 @@ def serve_trace_phase(slice_p50_ms, profile_busy_us):
             realtime=False)
         del base
     tput_x, p99_x, fails = serve.compare_modes(reports)
-    del eng, res
+    res.engines.clear()                 # their graphs' memory goes
+    del eng
     torch.cuda.empty_cache()
 
     def summary(r):
@@ -1578,7 +1668,24 @@ def serve_trace_phase(slice_p50_ms, profile_busy_us):
          replan=summary(reports["replan"]),
          tput_ratio_vs_pad_max=tput_x, p99_ratio_replan_over_bucketed=p99_x,
          serve_compare_gates_failed=fails)
-    return launches
+    return launches, served
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Served:
+    """What phase 9's local engine served, for phase 14 to serve again
+    over the mesh: the trace's set-up (``serve.TraceResult``, engines
+    dropped), each request's result and placement, the new input ``xa``
+    and weights ``kernels2`` with the result after ``update_weights``, and
+    the lone batch-4 request's p50 and busy time."""
+    res: object
+    results: dict
+    placements: dict
+    xa: torch.Tensor
+    kernels2: dict
+    updated: torch.Tensor
+    lone_b4_p50_ms: float
+    lone_b4_busy_us: float
+
 
 def cgemm_tile(spec, cfg):
     """The CGEMM tile (the variant's name without its load form) that a
@@ -1745,8 +1852,8 @@ def trunk_phase(what, net, res, y_ref):
         raise AssertionError(f"{what} vs cuDNN: shape {tuple(y.shape)}, "
                              f"{rel:.3e} > {SLICE_TOL}")
     with torch.inference_mode():
-        rows, busy, wall_us = device_profile(lambda: forward(prepared,
-                                                             res.x))
+        rows, busy, wall_us, _ = device_profile(
+            lambda: forward(prepared, res.x))
     p50_ms = serve._percentile(lats, 50) * 1e3
     return dict(backends={n: p.backend for n, p in net.items()},
                 forwards=GEN, launches=counts, cgemm_tiles=tiles,
@@ -1966,9 +2073,11 @@ def sharded_forward(prepared, x, biases, per_layer=None):
     return h
 
 
-def nccl_us(rows):
-    """Device us of the NCCL kernels among profiler rows."""
-    return sum(t for t, k, _ in rows if "nccl" in k.lower())
+def nccl_us(ranges):
+    """Device us of NCCL's ranges among ``device_profile``'s range rows:
+    the span of the device work NCCL enqueued (one-rank all-to-alls are
+    copies; a one-rank all-reduce in place enqueues none)."""
+    return sum(t for t, k, _ in ranges if k.startswith("nccl:"))
 
 
 def sharded_trunk(schedule, overlap, mesh, convs, res, y_local, y_ref):
@@ -2026,7 +2135,7 @@ def sharded_trunk(schedule, overlap, mesh, convs, res, y_local, y_ref):
         expect_counts(f"{what} timed forwards", counts,
                       sharded_launches(n_layers, slabs, GEN, 0))
         total = {k: total[k] + counts[k] for k in KERNELS}
-        rows, busy, wall_us = device_profile(
+        rows, busy, wall_us, ranges = device_profile(
             lambda: sharded_forward(prepared, res.x, res.biases))
     p50_ms = serve._percentile(lats, 50) * 1e3
     return dict(
@@ -2039,7 +2148,7 @@ def sharded_trunk(schedule, overlap, mesh, convs, res, y_local, y_ref):
             for kind in collectives},
         rel_err_vs_local=rel_local, rel_err_vs_cudnn=rel_ref,
         p50_ms=p50_ms, max_ms=max(lats) * 1e3, device_busy_us=busy,
-        nccl_device_us=nccl_us(rows), profiled_wall_us=wall_us,
+        nccl_device_us=nccl_us(ranges), profiled_wall_us=wall_us,
         idle_share_vs_p50=1 - busy / (p50_ms * 1e3),
         kernels=[{"name": k[:90], "device_us": t, "calls": c}
                  for t, k, c in rows[:12]]), total
@@ -2296,7 +2405,7 @@ def sharded_train(mesh, local):
             raise AssertionError(f"{what}: {sum(flips)} ReLU and pool "
                                  f"choices differ from cuDNN float64's "
                                  f"{flips} > {FLIP_LIMIT}")
-        rows, busy, wall_us = device_profile(step)
+        rows, busy, wall_us, ranges = device_profile(step)
         step_ms = statistics.median(times) * 1e3
         reports.append(dict(
             schedule=schedule, overlap=overlap, slabs=slabs,
@@ -2314,7 +2423,7 @@ def sharded_train(mesh, local):
             tol=GRAD_TOL, branch_flips_vs_f64=flips,
             flip_limit=FLIP_LIMIT,
             step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
-            device_busy_us=busy, nccl_device_ms=nccl_us(rows) / 1e3,
+            device_busy_us=busy, nccl_device_ms=nccl_us(ranges) / 1e3,
             profiled_wall_us=wall_us,
             idle_share_vs_median_step=1 - busy / (step_ms * 1e3),
             kernels=[{"name": k[:90], "device_us": t, "calls": c}
@@ -2427,7 +2536,7 @@ def sharded_tune(mesh, convs, res, y_local, y_ref, configs):
                     sharded_forward(prepared, res.x, res.biases)
                     torch.cuda.synchronize()
                     lats.append(time.perf_counter() - t1)
-                rows, busy, wall_us = device_profile(
+                rows, busy, wall_us, ranges = device_profile(
                     lambda: sharded_forward(prepared, res.x, res.biases))
 
             autotune.reset()
@@ -2465,7 +2574,7 @@ def sharded_tune(mesh, convs, res, y_local, y_ref, configs):
          launches_per_forward=sharded_tune_launches(plans, 1),
          rel_err_vs_local=rel_local, rel_err_vs_cudnn=rel_ref,
          p50_ms=p50_ms, max_ms=max(lats) * 1e3, device_busy_us=busy,
-         nccl_device_us=nccl_us(rows), profiled_wall_us=wall_us,
+         nccl_device_us=nccl_us(ranges), profiled_wall_us=wall_us,
          idle_share_vs_p50=1 - busy / (p50_ms * 1e3),
          phase11_p50_ms={f"{c['schedule']} {c['overlap']}": c["p50_ms"]
                          for c in configs},
@@ -2476,11 +2585,405 @@ def sharded_tune(mesh, convs, res, y_local, y_ref, configs):
     return {k: counts[k] + counts_fwd[k] for k in KERNELS}
 
 
+def serve_bucket_slabs(eng, what):
+    """Bucket key -> the slab count every layer of its network runs."""
+    slabs = {}
+    for key, net in eng.nets.items():
+        counts = {p.num_slabs for p in net.plans.values()}
+        if len(counts) != 1:
+            raise AssertionError(f"{what} b{key[0]}: slab counts {counts}")
+        slabs[key] = counts.pop()
+    return slabs
+
+
+def serve_capture_counts(eng, schedule, n_layers, what):
+    """The launches and collectives of an engine's start-up or weight
+    update on the mesh: per bucket a prepare (a forward tile DFT a layer,
+    no collective), then ``WARMUP_PASSES`` eager forwards and the capture,
+    each with its layers' per-slab kernels and collectives and one output
+    gather."""
+    launches, collectives = dict.fromkeys(KERNELS, 0), collections.Counter()
+    passes = batcher.WARMUP_PASSES + 1
+    for slabs in serve_bucket_slabs(eng, what).values():
+        for k, n in sharded_launches(n_layers, slabs, passes, 1).items():
+            launches[k] += n
+        for k, n in sharded_collectives(schedule, slabs).items():
+            collectives[k] += n * n_layers * passes
+        collectives["output_gather"] += passes
+    return launches, dict(collectives)
+
+
+def check_serve_collectives(what, trace, want):
+    """``trace`` holds exactly the collectives ``want`` (kind -> count),
+    one boundary all-to-all per all-to-all, and no other kind."""
+    got = {k[1]: n for k, n in trace.items()
+           if isinstance(k, tuple) and k[0] == "collective" and n}
+    want = {k: n for k, n in want.items() if n}
+    if got != want or trace["boundary_a2a"] != want.get("all_to_all", 0):
+        raise AssertionError(
+            f"{what}: collectives {got} ({trace['boundary_a2a']} boundary "
+            f"all-to-alls), expected {want}")
+    return got
+
+
+def check_replay_activity(what, eager, replays):
+    """A graph's replay ran the device operations of one eager run of the
+    callable it captured, name by name and count by count (``{name:
+    count}`` each).  ``replays`` are profiler readings of replays: a
+    profiler session now and then drops a run of device records, so one
+    complete reading suffices, while a reading that holds an operation
+    the eager run lacks, or more of one, fails at once (a dropped record
+    never adds one).  Returns the number of operations."""
+    for replay in replays:
+        extra = {k: (eager.get(k, 0), n) for k, n in sorted(replay.items())
+                 if n > eager.get(k, 0)}
+        if extra:
+            raise AssertionError(
+                f"{what}: a replay ran device operations that the eager "
+                f"callable did not, as (eager, replay): {extra}")
+    if eager not in replays:
+        fullest = max(replays, key=lambda r: sum(r.values()), default={})
+        diff = {k: (n, fullest.get(k, 0)) for k, n in sorted(eager.items())
+                if fullest.get(k, 0) != n}
+        raise AssertionError(
+            f"{what}: a replay's device operations differ from the eager "
+            f"callable's in each of {len(replays)} readings; the fullest, "
+            f"as (eager, replay): {diff}")
+    return sum(eager.values())
+
+
+def readings_until(read, done):
+    """Readings ``read()`` taken until ``done(readings)`` holds or
+    ``READINGS`` were taken."""
+    readings = []
+    while len(readings) < READINGS:
+        readings.append(read())
+        if done(readings):
+            break
+    return readings
+
+
+def agreed(readings):
+    """The first reading that an earlier one equals, or None: a reading
+    two profiler sessions agree on lost no record."""
+    return next((r for i, r in enumerate(readings) if r in readings[:i]),
+                None)
+
+
+def replay_activity(eng, what, batch=4):
+    """What one replay of bucket ``batch``'s graph runs on the device,
+    held to one eager run of the callable it captured (the sharded
+    forward and the output gather) on the same static input: the eager
+    run is read until two readings agree, the replay until a reading
+    equals theirs (``check_replay_activity``; at most ``READINGS`` each).
+    Returns the operations' count, the NCCL kernels among them, NCCL's
+    ranges in the eager run and the operations inside them (on one rank
+    NCCL makes an all-to-all a device-to-device copy and an all-reduce in
+    place nothing, and a replay has no ranges to name them), and how
+    many readings each side took."""
+    ex = eng._executor((batch, None), 0)
+    with torch.inference_mode():
+        eager_reads = readings_until(
+            lambda: device_activity(
+                lambda: ex._forward(ex._prepared, ex.static_x)),
+            lambda rs: agreed(rs) is not None)
+    eager = agreed(eager_reads)
+    if eager is None:
+        raise AssertionError(
+            f"{what} b{batch}: no two of {len(eager_reads)} profiler "
+            "readings of the eager callable agree")
+    replays = readings_until(lambda: device_activity(ex.graph.replay),
+                             lambda rs: rs[-1][0] == eager[0])
+    n_ops = check_replay_activity(f"{what} b{batch}", eager[0],
+                                  [r[0] for r in replays])
+    return dict(bucket=batch, device_ops=n_ops,
+                nccl_kernels=sum(n for k, n in eager[0].items()
+                                 if "nccl" in k.lower()),
+                eager_nccl_ranges=eager[1], eager_ops_in_nccl_ranges=eager[2],
+                readings={"eager": [sum(r[0].values()) for r in eager_reads],
+                          "replay": [sum(r[0].values()) for r in replays]})
+
+
+def sharded_serve(mesh, served, configs):
+    """Phase 14: phase 9's engine over the one-rank NCCL mesh, one CUDA
+    graph per bucket captured over every layer's collectives and the
+    output gather, for each (schedule, overlap) of ``SERVE_SHARDED``, on
+    phase 9's trace, weights and inputs.  Gates: a replay runs the eager
+    callable's device operations (``replay_activity``); launches and
+    collectives only at prepare, warm-up and capture, and exact; none on
+    a replay; replays equal the batches; zero plan-cache misses after
+    warm-up; each checked
+    result a plain tensor within ``GRAPH_TOL`` of the eager sharded
+    forward and of phase 9's result for the same request, and
+    ``SLICE_TOL`` of cuDNN; the same after ``update_weights``.  Reported:
+    per-bucket p50/p99, throughput, start-up, capture, graph memory, rank
+    broadcasts, and a lone batch-4 request's p50 and busy time beside
+    phase 9's and phase 11's.  ``configs`` are phase 11's reports.
+    Returns (reports, launches)."""
+    res = served.res
+    n_layers = len(serve._vgg_scale(IMAGE))
+    eager = {(c["schedule"], c["overlap"]): c for c in configs}
+    reports, total = [], dict.fromkeys(KERNELS, 0)
+    for schedule, overlap in SERVE_SHARDED:
+        what = f"sharded serve {schedule} {overlap}"
+        # every bucket prepares afresh, as in a new server: a bucket whose
+        # plan another configuration shares (slab:2 plans batch 1 as off)
+        # would otherwise find its spectra in the prepared cache
+        clear_prepared_cache()
+        zero_counts()
+        with stages.stage_trace() as trace:
+            eng = batcher.ServeEngine(
+                res.make_layers, res.kernels,
+                policy=batcher.BucketPolicy(max_batch=SERVE_MAX_BATCH),
+                forward=res.forward, window_s=SERVE_WINDOW_MS * 1e-3,
+                device="cuda", backend="fft-cuda", mesh=mesh,
+                schedule=schedule, overlap=overlap)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        slabs = {f"b{k[0]}": n
+                 for k, n in serve_bucket_slabs(eng, what).items()}
+        want_launches, want_coll = serve_capture_counts(
+            eng, schedule, n_layers, what)
+        expect_counts(f"{what} start-up", counts, want_launches)
+        at_capture = check_serve_collectives(f"{what} start-up", trace,
+                                             want_coll)
+        total = {k: total[k] + counts[k] for k in KERNELS}
+
+        zero_counts()
+        with stages.stage_trace() as trace:
+            rep = batcher.run_trace(
+                eng, res.trace, make_input=lambda b, _: res.inputs[b],
+                realtime=False)
+        expect_counts(f"{what} trace", read_counts(), {})
+        check_serve_collectives(f"{what} trace", trace, {})
+        n_batches = sum(b["n_batches"] for b in rep["buckets"].values())
+        replays = sum(map(sum, rep["graph_replays"].values()))
+        if (rep["executor"], replays, rep["n_requests"],
+                rep["plan_cache_misses_after_warmup"]) != (
+                "cuda-graph", n_batches, SERVE_REQUESTS, 0):
+            raise AssertionError(
+                f"{what}: executor {rep['executor']}, {replays} replays "
+                f"for {n_batches} batches, {rep['n_requests']} requests, "
+                f"{rep['plan_cache_misses_after_warmup']} plan-cache "
+                "misses after warm-up")
+        if eng.placements != served.placements:
+            raise AssertionError(f"{what}: placements differ from phase "
+                                 "9's local engine's")
+        rids = {0, SERVE_REQUESTS - 1}
+        for label in rep["buckets"]:
+            rids.add(min(r for r, p in eng.placements.items()
+                         if p[0] == label))
+        checked = [serve_checks(eng, res, rid,
+                                res.inputs[res.trace[rid].batch],
+                                res.kernels, local=served.results[rid])
+                   for rid in sorted(rids)]
+        activity = replay_activity(eng, what)
+
+        # a lone batch-4 request: host p50 and device busy time
+        lats = []
+        for _ in range(LONE_REQUESTS):
+            t0 = time.perf_counter()
+            eng.submit(served.xa)
+            eng.drain(force=True)
+            lats.append(time.perf_counter() - t0)
+        rows, busy, wall_us, ranges = device_profile(
+            lambda: (eng.submit(served.xa), eng.drain(force=True)))
+        lone_p50_ms = serve._percentile(lats, 50) * 1e3
+        # rank 0's word alone: a drain of the empty queue takes one (its
+        # broadcast and the all-reduce of the ranks' flags), as a lone
+        # request's drain does
+        words = []
+        for _ in range(LONE_REQUESTS):
+            t0 = time.perf_counter()
+            eng.drain()
+            words.append(time.perf_counter() - t0)
+
+        zero_counts()
+        t0 = time.perf_counter()
+        with stages.stage_trace() as trace:
+            eng.update_weights(served.kernels2, weights_version=1)
+            torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        update_counts = read_counts()
+        expect_counts(f"{what} update_weights", update_counts, want_launches)
+        check_serve_collectives(f"{what} update_weights", trace, want_coll)
+        total = {k: total[k] + update_counts[k] for k in KERNELS}
+        zero_counts()
+        rid = eng.submit(served.xa)
+        eng.drain(force=True)
+        expect_counts(f"{what} replay after update", read_counts(), {})
+        updated = serve_checks(eng, res, rid, served.xa, served.kernels2,
+                               version=1, local=served.updated)
+        report = eng.report()
+        del eng
+        torch.cuda.empty_cache()
+        base = eager[(schedule, overlap)]
+        reports.append(dict(
+            schedule=schedule, overlap=overlap,
+            slabs_by_bucket=slabs,
+            launches_at_capture=want_launches,
+            collectives_at_capture=at_capture,
+            batches=n_batches, graph_replays=rep["graph_replays"],
+            plan_cache_misses_after_warmup=rep[
+                "plan_cache_misses_after_warmup"],
+            mesh=rep["mesh"], rank_broadcasts=report["rank_broadcasts"],
+            buckets={label: dict(p50_ms=b["p50_us"] / 1e3,
+                                 p99_ms=b["p99_us"] / 1e3,
+                                 service_p50_ms=b["service_p50_us"] / 1e3,
+                                 occupancy=b["occupancy"],
+                                 n_requests=b["n_requests"],
+                                 n_batches=b["n_batches"])
+                     for label, b in rep["buckets"].items()},
+            throughput_rows_s=rep["throughput_rows_s"],
+            p50_ms=rep["p50_us"] / 1e3, p99_ms=rep["p99_us"] / 1e3,
+            wall_s=rep["wall_s"], startup_s=rep["startup_s"],
+            startup_plan_prepare_s=rep["startup_plan_prepare_s"],
+            startup_capture_s=rep["startup_capture_s"],
+            graph_pool_bytes=rep["graph_pool_bytes"],
+            graph_pool_bytes_by_bucket=rep["graph_pool_bytes_by_bucket"],
+            tol=GRAPH_TOL, tol_cudnn=SLICE_TOL, checked=checked,
+            replay_activity=activity,
+            update_weights=dict(seconds=update_s, launches=update_counts,
+                                **updated),
+            lone_b4=dict(
+                p50_ms=lone_p50_ms, max_ms=max(lats) * 1e3,
+                device_busy_us=busy, profiled_wall_us=wall_us,
+                nccl_device_us=nccl_us(ranges),
+                rank0_word_p50_us=serve._percentile(words, 50) * 1e6,
+                idle_share_vs_p50=1 - busy / (lone_p50_ms * 1e3),
+                local_engine_p50_ms=served.lone_b4_p50_ms,
+                local_engine_busy_us=served.lone_b4_busy_us,
+                eager_sharded_p50_ms=base["p50_ms"],
+                eager_sharded_busy_us=base["device_busy_us"],
+                kernels=[{"name": k[:90], "device_us": t, "calls": c}
+                         for t, k, c in rows[:8]])))
+    return reports, total
+
+
+def engine_launches(n_layers, n_buckets):
+    """Launches of a local ``fft-cuda`` engine's start-up on the card: per
+    bucket one prepare (a forward tile DFT a layer), and the
+    ``WARMUP_PASSES`` eager forwards and the capture (a forward tile DFT,
+    a CGEMM and a fused inverse a layer each)."""
+    forwards = n_buckets * (batcher.WARMUP_PASSES + 1)
+    return {"tile_rfft": n_layers * (n_buckets + forwards),
+            "cgemm": n_layers * forwards,
+            "tile_irfft_epilogue": n_layers * forwards}
+
+
+def check_quickstart(quick):
+    """The quickstart twin's own numbers: within ``SLICE_TOL`` of its
+    direct oracle, the prepared call equal to the one-shot."""
+    if not (quick.rel_err <= SLICE_TOL and quick.prepared_matches):
+        raise AssertionError(f"quickstart twin: rel err {quick.rel_err}, "
+                             f"prepared matches {quick.prepared_matches}")
+
+
+def check_serve_batcher(sb, executor):
+    """The serve_batcher twin served its 16 requests on ``executor``, each
+    batch one replay (none on the host), refused the oversize request and
+    kept a request's rows through the weight update.  Returns (batches,
+    replays)."""
+    rep = sb.report
+    n_batches = sum(b["n_batches"] for b in rep["buckets"].values())
+    replays = sum(map(sum, rep["graph_replays"].values()))
+    want_replays = n_batches if executor == "cuda-graph" else 0
+    if (rep["executor"], replays, rep["n_requests"], sb.rejected,
+            sb.updated_shape) != (executor, want_replays, 16, True,
+                                  (3, 16, 32, 32)):
+        raise AssertionError(
+            f"serve_batcher twin: executor {rep['executor']}, {replays} "
+            f"replays for {n_batches} batches, {rep['n_requests']} "
+            f"requests, rejected {sb.rejected}, {sb.updated_shape}")
+    return n_batches, replays
+
+
+def entry_points_phase():
+    """Phase 15: the deprecated ``fft_conv2d_pallas`` on one trunk layer
+    (``ONE_SHOT_LAYER``, batch 4) launches exactly what that layer's
+    one-shot ``fft-cuda`` plan launches (kernel 3 for stages 1 and 2, the
+    CGEMM, and kernel 4: no epilogue, so the plain inverse), warns, and is
+    held to cuDNN; then the two example twins at their defaults on the
+    card, their own asserts included: the quickstart (``auto`` plans
+    ``fft-torch`` or ``direct``, which launch none of the kernels) and
+    ``serve_batcher`` (``fft-cuda``, one CUDA graph per bucket, exact
+    launches at prepare, warm-up and capture, twice with the weight
+    update, none on a replay).  Returns the launches of the shim and the
+    twins."""
+    layer = next(l for l in network_convs(serve._vgg_scale(IMAGE), BATCH)
+                 if l.name == ONE_SHOT_LAYER)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x = torch.randn(layer.x_shape, generator=gen, device="cuda")
+    k = 0.05 * torch.randn(layer.k_shape, generator=gen, device="cuda")
+    plan = plan_conv(layer.x_shape, layer.k_shape, padding=layer.padding,
+                     backend="fft-cuda")
+    one_shot = {"tile_rfft": 2, "cgemm": 1, "tile_irfft": 1}
+    with torch.inference_mode():
+        zero_counts()
+        y_plan = plan(x, k)
+        torch.cuda.synchronize()
+        expect_counts("one-shot fft-cuda plan", read_counts(), one_shot)
+        zero_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            y = fft_conv2d_pallas(x, k, padding=layer.padding)
+        torch.cuda.synchronize()
+        shim_counts = read_counts()
+        y_ref = TF.conv2d(x, k, padding=layer.padding)
+    expect_counts("fft_conv2d_pallas", shim_counts, one_shot)
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, DeprecationWarning)]
+    shim = dict(layer=layer.name, x_shape=list(layer.x_shape),
+                k_shape=list(layer.k_shape), launches=shim_counts,
+                rel_err_vs_plan=rel_err(y, y_plan),
+                rel_err_vs_cudnn=rel_err(y, y_ref), warned=warned)
+    if not (warned and shim["rel_err_vs_plan"] <= GRAPH_TOL
+            and shim["rel_err_vs_cudnn"] <= SLICE_TOL):
+        raise AssertionError(f"fft_conv2d_pallas: {shim}")
+
+    zero_counts()
+    quick = quickstart.main([])
+    quick_counts = read_counts()
+    expect_counts("quickstart twin", quick_counts, {})
+    check_quickstart(quick)
+
+    zero_counts()
+    sb = serve_batcher.main([])
+    sb_counts = read_counts()
+    # start-up and the weight update: per bucket a prepare, the warm-up
+    # passes and the capture of its two layers
+    expect_counts("serve_batcher twin", sb_counts, {
+        k: 2 * n for k, n in engine_launches(2, 3).items()})
+    n_batches, replays = check_serve_batcher(sb, "cuda-graph")
+    rep = sb.report
+    emit("entry_points", fft_conv2d_pallas=shim,
+         quickstart=dict(backend=quick.backend,
+                         tiny_backend=quick.tiny_backend,
+                         rel_err=quick.rel_err, grad_norm=quick.grad_norm,
+                         prepared_matches=quick.prepared_matches,
+                         launches=quick_counts),
+         serve_batcher=dict(
+             launches=sb_counts, batches=n_batches, graph_replays=replays,
+             buckets={label: dict(n_requests=b["n_requests"],
+                                  n_batches=b["n_batches"],
+                                  occupancy=b["occupancy"])
+                      for label, b in rep["buckets"].items()},
+             p50_ms=rep["p50_us"] / 1e3, p99_ms=rep["p99_us"] / 1e3,
+             plan_cache_misses_after_warmup=rep[
+                 "plan_cache_misses_after_warmup"],
+             updated_shape=list(sb.updated_shape)))
+    del sb
+    torch.cuda.empty_cache()
+    return {k: shim_counts[k] + quick_counts[k] + sb_counts[k]
+            for k in KERNELS}
+
+
 def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
-                  checked_dft, local_train):
-    """Phases 11 and 12: the paper's schedules on a one-rank NCCL mesh,
-    serving and then training.  A process group that fails to start fails
-    the smoke: there is no fallback.  ``checked`` and ``checked_dft``
+                  checked_dft, local_train, served):
+    """Phases 11-14: the paper's schedules on a one-rank NCCL mesh:
+    serving, training, tuning, and phase 9's engine over the mesh
+    (``served``: what phase 9 served).  A process group that fails to
+    start fails the smoke: there is no fallback.  ``checked`` and ``checked_dft``
     hold the CGEMM and compact tile DFT cases held already; ``local_train``
     is phase 7's fft-cuda step.  Returns the launches of both phases and
     the compact tile DFT rows, for ``device_times``."""
@@ -2501,6 +3004,7 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
         total = {k: total[k] + counts[k] for k in KERNELS}
         train, train_counts = sharded_train(mesh, local_train)
         tune_counts = sharded_tune(mesh, convs, res, res.y, y_ref, configs)
+        serve_reports, serve_counts = sharded_serve(mesh, served, configs)
     finally:
         tmesh.destroy_process_group()
     emit("sharded", mesh=[1, 1], backend="nccl", image=IMAGE, batch=BATCH,
@@ -2516,8 +3020,12 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
          launches=train_counts, local_step_ms=local_train["step_ms"],
          local_device_busy_us=local_train["device_busy_us"],
          local_idle_share_vs_median_step=local_train["idle_share"])
+    emit("sharded_serve", mesh=[1, 1], backend="nccl", image=IMAGE,
+         max_batch=SERVE_MAX_BATCH, requests=SERVE_REQUESTS,
+         window_ms=SERVE_WINDOW_MS, configs=serve_reports,
+         launches=serve_counts)
     return {k: total[k] + train_counts[k] + tune_counts[k]
-            for k in KERNELS}, dft_rows
+            + serve_counts[k] for k in KERNELS}, dft_rows
 
 
 def main():
@@ -2595,22 +3103,25 @@ def main():
     rect_counts = rect_phase(res, layers, y_ref, slice_p50_ms)
     train_counts, local_train = train_phase()
     trainer_counts = trainer_phase()
-    trace_counts = serve_trace_phase(slice_p50_ms, profile_busy_us)
+    trace_counts, served = serve_trace_phase(slice_p50_ms, profile_busy_us)
     tune_counts = tune_phase(res, y_ref, slice_p50_ms, profile_busy_us)
     checked = {(*r["shape"], r["variant"]) for r in cg_rows
                if r["dtype"] == "float32" and r["three_m"]
                and r["spectrum"] == "real"}
     sharded_counts, sdft_rows = sharded_phase(
         res, y_ref, slice_p50_ms, profile_busy_us, checked,
-        {dft_key(r) for r in fwd_rows + inv_rows + binv_rows}, local_train)
+        {dft_key(r) for r in fwd_rows + inv_rows + binv_rows}, local_train,
+        served)
+    entry_counts = entry_points_phase()
     device_times(fwd_rows + rfwd_rows + inv_rows + binv_rows + sdft_rows
                  + rinv_rows + rinv_ep_rows + tiles_rows)
 
-    # launches: the eight main paths together (slice, rect, train, trainer,
-    # serve_trace, tune, sharded, sharded_train)
+    # launches: the main paths together (slice, rect, train, trainer,
+    # serve_trace, tune, sharded, sharded_train, sharded_tune,
+    # sharded_serve, entry_points)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
                 + trainer_counts[k] + trace_counts[k] + tune_counts[k]
-                + sharded_counts[k] for k in KERNELS}
+                + sharded_counts[k] + entry_counts[k] for k in KERNELS}
     main_cg = [r for r in cg_rows if r["dtype"] == "float32"
                and r["three_m"] and r["spectrum"] == "real"]
     main_inv = inv_rows[:n_layers]

@@ -44,7 +44,8 @@ the candidates are the sharded schedules ``nfft`` and ``wfft`` on
 ``off``/``slab:2``/``slab:4``), as in the reference.  The reference times
 its SPMD program from one controller; here every rank of the mesh is a
 process running ``tune`` and every candidate runs collectives, so the
-ranks must never diverge: rank 0 of the mesh decides whether its cache
+ranks must never diverge (``repro_torch.launch.mesh.RankDecisions``):
+rank 0 of the mesh decides whether its cache
 answers (its ``TunedConfig`` goes to every rank), whether measurement is
 on, the repetitions, and before each candidate whether the budget is
 spent; a candidate the planner refuses on any rank is skipped on all; a
@@ -99,7 +100,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.conv.plan import (
@@ -110,6 +110,7 @@ from repro_torch.conv.plan import (
 # inside plan_conv)
 from repro_torch.conv.plan import _build_spec as _make_spec
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import RankDecisions
 
 CACHE_VERSION = 2                      # 2: the key holds the mesh too
 DFT_BT_ALT = 4                         # the dft_bt axis: None and this
@@ -592,73 +593,6 @@ def _measure_candidate(cand: TunedConfig, x_shape, k_shape, *, padding,
 
 
 # --------------------------------------------------------------------------
-# Agreement across the ranks of a mesh
-# --------------------------------------------------------------------------
-
-class _Ranks:
-    """The tuner's decisions on a mesh's ranks: rank 0 of the mesh (all
-    coordinates 0) decides, a broadcast along each mesh dim in turn
-    carries its word to every rank, and an all-reduce ``MAX`` along each
-    dim in turn gives every rank the slowest time and any rank's flag.
-    The mesh's own dim groups carry them (NCCL on a ``cuda`` mesh, then
-    on the current CUDA device; gloo on a ``cpu`` mesh).  Without a mesh
-    there is one process, and each call returns what it was given."""
-
-    def __init__(self, mesh):
-        self.groups = ([] if mesh is None else
-                       [mesh.get_group(d) for d in range(mesh.ndim)])
-        self.root = True
-        self.device = torch.device("cpu")
-        if mesh is not None:
-            coord = mesh.get_coordinate()
-            if coord is None:
-                raise RuntimeError(
-                    "autotune: this rank is not in the mesh it tunes on")
-            self.root = not any(coord)
-            if mesh.device_type == "cuda":
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
-
-    def broadcast(self, obj):
-        """Rank 0's ``obj`` on every rank (the others' is ignored)."""
-        for group in self.groups:
-            box = [obj]
-            dist.broadcast_object_list(
-                box, src=dist.get_global_rank(group, 0), group=group,
-                device=self.device)
-            obj = box[0]
-        return obj
-
-    def _max(self, values) -> list:
-        t = torch.tensor(values, dtype=torch.float64, device=self.device)
-        for group in self.groups:
-            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-        return t.tolist()
-
-    def any(self, flag: bool) -> bool:
-        """Whether ``flag`` is true on any rank."""
-        return bool(self._max([float(flag)])[0]) if self.groups else flag
-
-    def slowest(self, us: float) -> float:
-        """The largest of the ranks' times; raises if a rank's
-        measurement failed (``fail``)."""
-        if not self.groups:
-            return us
-        us, failed = self._max([us, 0.0])
-        if failed:
-            raise RuntimeError(
-                "autotune: a candidate's measurement failed on another "
-                "rank of the mesh")
-        return us
-
-    def fail(self) -> None:
-        """Tell the other ranks, waiting in ``slowest``, that this rank's
-        measurement failed."""
-        if self.groups:
-            self._max([0.0, 1.0])
-
-
-# --------------------------------------------------------------------------
 # The tuner
 # --------------------------------------------------------------------------
 
@@ -737,7 +671,7 @@ def tune(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
                        spectrum=spectrum, overlap=overlap,
                        bm=bm, bn=bn, bk=bk, dft_bt=dft_bt)
     blocks = _cuda_blocks(bm, bn, bk)
-    ranks = _Ranks(mesh)
+    ranks = RankDecisions(mesh, what="autotune")
     store = _store()
     # rank 0's cache, switch and repetitions answer for every rank
     hit = store.get(key) if ranks.root else None

@@ -59,7 +59,9 @@ of the sharded schedules counts the collectives of its dk and d_bias
 reductions under kinds of their own, ``"grad_all_reduce"`` and
 ``"grad_all_gather"`` (``grad_kernel``, ``grad_bias``), and the gather
 of dx or d_residual into the global tensor for a plain operand as
-``"grad_full"`` (``grad_full``).
+``"grad_full"`` (``grad_full``); the serving engine's gather of a
+network's output into a plain tensor counts as ``"output_gather"``
+(``output_full``).
 """
 from __future__ import annotations
 
@@ -531,6 +533,18 @@ def _grad_all_gather(t, group, n: int, dim: int):
     _record("grad_all_gather", t)
     dist.all_gather(out, t, group=group)
     return torch.cat(out, dim=dim)
+
+
+def output_full(y):
+    """The global tensor of a sharded network's ``DTensor`` output
+    (``full_tensor()``: an all-gather over the mesh), as the serving
+    engine hands it out; counted as ``output_gather`` with the bytes of
+    this rank's block.  A plain tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(y, DTensor):
+        return y
+    _record("output_gather", y.to_local())
+    return y.full_tensor()
 
 
 def grad_full(t):

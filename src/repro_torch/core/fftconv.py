@@ -16,6 +16,8 @@ Convolution here is ML cross-correlation; ``conv2d_direct`` is the oracle.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 import torch.nn.functional as TF
 
@@ -265,3 +267,45 @@ def make_spec(x_shape, k_shape, padding=0, delta=16) -> ConvSpec:
     pad = _pair(padding)
     return ConvSpec(B=B, C=C, Cout=Cout, H=H, W=W, kh=kh, kw=kw,
                     pad_h=pad[0], pad_w=pad[1], delta=delta)
+
+
+# --------------------------------------------------------------------------
+# Deprecated entry points (the reference's signatures)
+# --------------------------------------------------------------------------
+
+def fft_conv2d(x, k, *, padding=0, delta=16, three_m: bool = True):
+    """Deprecated: use ``repro_torch.conv.plan_conv(...,
+    backend="fft-torch")``.
+
+    FFT-based 2-D convolution (cross-correlation), differentiable.
+    Thin shim over the plan API with the old signature.
+    """
+    warnings.warn(
+        "fft_conv2d is deprecated; use repro_torch.conv.plan_conv(x.shape, "
+        "k.shape, backend='fft-torch') and call the plan",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.conv import plan_conv
+    plan = plan_conv(tuple(x.shape), tuple(k.shape), padding=padding,
+                     delta=delta, backend="fft-torch", three_m=three_m)
+    return plan(x, k)
+
+
+def fft_conv2d_pallas(x, k, *, padding=0, delta=16, three_m: bool = True,
+                      bm=None, bn=None, bk=None):
+    """Deprecated: use ``repro_torch.conv.plan_conv(...,
+    backend="fft-cuda")``.
+
+    fft_conv2d with its stages on the hand-written CUDA kernels (the
+    CGEMM and the tile DFTs; their plain versions on a CPU tensor).
+    ``bm``/``bn``/``bk`` name a row of the CGEMM's tile table as the plan
+    takes them: a triple that names no row is the plan's ``ValueError``.
+    """
+    warnings.warn(
+        "fft_conv2d_pallas is deprecated; use repro_torch.conv.plan_conv("
+        "x.shape, k.shape, backend='fft-cuda', bm=..., bn=..., bk=...) and "
+        "call the plan", DeprecationWarning, stacklevel=2)
+    from repro_torch.conv import plan_conv
+    plan = plan_conv(tuple(x.shape), tuple(k.shape), padding=padding,
+                     delta=delta, backend="fft-cuda", three_m=three_m,
+                     bm=bm, bn=bn, bk=bk)
+    return plan(x, k)

@@ -38,9 +38,34 @@ is copied out of the static output, which the next replay of the same
 graph overwrites.  A capture that fails raises: the card never falls back
 to eager execution.
 
+Over a mesh (``mesh=`` among the plan knobs, the paper's sharded schedules
+behind the engine) every rank of the mesh is a process running its own
+engine, and the engine is SPMD.  The contract: every rank
+
+  - builds the same engine (the same layers, params, policy and knobs);
+  - submits the same requests in the same order;
+  - calls ``drain``, ``finish``, ``update_weights`` and ``run_trace`` in
+    the same order.
+
+The ranks' clocks never decide a batch: rank 0 of the mesh forms each
+batch (which queued requests, or none yet, by its own clock and window)
+and sends that word to every rank (``launch.mesh.RankDecisions.decide``:
+one fixed-size integer all-reduce along each mesh dim, read once on the
+host); every rank takes the named requests from its own queue.  The same
+all-reduce carries a digest of each rank's queue (rids, rows and image
+sizes in order): a rank whose queue differs from another's has diverged,
+and every rank raises the same ``RuntimeError``, so none waits forever
+in a collective.
+The executed callable is ``forward(prepared, x)`` followed by the counted
+gather of a ``DTensor`` output into a plain tensor
+(``conv.stages.output_full``), so ``results[rid]`` is the request's rows
+of the global output on every rank, as the reference's are.  On a
+``cuda`` mesh (NCCL) each bucket's graph is captured over every layer's
+collectives and that gather, so a replay runs them; on a ``cpu`` mesh
+(gloo) the executor is eager.  Without a mesh nothing is sent.
+
 Not ported yet (they raise ``NotImplementedError``): ``load_plans=`` and
-``export_plans`` (ROADMAP Queue 1 item 7, the plan artifacts), and a
-``mesh`` among the plan knobs (item 14).
+``export_plans`` (ROADMAP Queue 1 item 7, the plan artifacts).
 """
 from __future__ import annotations
 
@@ -53,6 +78,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import RankDecisions
 
 # eager passes on a side stream before a capture: they build every lazily
 # made device table and load every kernel, which a capture must not do
@@ -200,7 +226,7 @@ def _check_rows(parts, x_shape):
 
 class _EagerExecutor:
     """``forward(prepared, x)`` run eagerly on the zero-padded batch: the
-    executor on the CPU."""
+    executor on the CPU (a ``cpu`` mesh included)."""
     graph_pool_bytes = None
 
     def __init__(self, forward, prepared, x_shape, device):
@@ -290,7 +316,9 @@ class ServeEngine:
         batch (default: chain the layers in order, no epilogue
         operands).  Captured once per (replica, bucket) on a CUDA device.
       replicas: copies of the prepared state on the engine's device, each
-        with its own graphs, round-robin batch dispatch.
+        with its own graphs, round-robin batch dispatch (on a mesh: copies
+        on each rank's own device, each holding that rank's slabs; rank
+        0's batches keep the round-robin equal on every rank).
       window_s: batching window: a queued request is flushed once it has
         waited this long even if its bucket is not full (0 = flush every
         drain).
@@ -312,8 +340,10 @@ class ServeEngine:
       device: where the engine runs (``repro_torch.device.resolve_device``:
         the GPU unless the caller asks for the CPU).
       load_plans: AOT plan artifacts: not ported yet (raises).
-      plan_kwargs: shared ``plan_network`` knobs (backend=, spectrum=, ...);
-        a ``mesh`` is not ported yet (raises).
+      plan_kwargs: shared ``plan_network`` knobs (backend=, mesh=,
+        schedule=, overlap=, ...).  A ``mesh`` makes the engine SPMD (the
+        module docstring's contract); its device type must be the
+        engine's.
     """
 
     def __init__(self, make_layers: Callable, params: dict, *,
@@ -335,12 +365,15 @@ class ServeEngine:
             raise NotImplementedError(
                 "load_plans is not yet ported to repro_torch: it needs the "
                 "plan artifacts (ROADMAP Queue 1 item 7)")
-        if plan_kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "a ServeEngine over a mesh is not yet ported to "
-                "repro_torch (ROADMAP Queue 1 item 14)")
         t_startup = time.perf_counter()
         self.device = resolve_device(device)
+        self.mesh = plan_kwargs.get("mesh")
+        if self.mesh is not None and \
+                self.mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a {self.mesh.device_type!r} mesh cannot serve on device "
+                f"{str(self.device)!r}: pass the mesh's device type")
+        self._ranks = RankDecisions(self.mesh, what="ServeEngine")
         self.policy = policy
         self.mode = mode
         self.timing = timing
@@ -348,7 +381,8 @@ class ServeEngine:
         self.window_s = float(window_s)
         self.weights_version = weights_version
         self._make_layers = make_layers
-        self._forward = forward if forward is not None else _chain_forward
+        self._forward = _plain_output(
+            forward if forward is not None else _chain_forward)
         self._plan_kwargs = dict(plan_kwargs)
         self._clock = clock
         self._collect = collect_results
@@ -483,6 +517,39 @@ class ServeEngine:
         return len(self._queue)
 
     def _form_batch(self, *, force: bool) -> Optional[list]:
+        """The next batch to run, or None: rank 0's choice
+        (``_choose_batch``), which every rank takes from its own queue, or
+        a raise on every rank when any rank's queue diverged from rank
+        0's.  Without a mesh this process is rank 0 and nothing is
+        sent."""
+        digest = self._queue_digest()           # before rank 0 takes
+        take = self._choose_batch(force=force) if self._ranks.root else None
+        rids = [] if take is None else [r.rid for r in take]
+        word, agreed = self._ranks.decide(
+            [len(rids)] + rids, 1 + self.policy.max_batch, check=digest)
+        if not agreed:
+            raise RuntimeError(
+                "ServeEngine: the ranks' queues diverged from rank 0's; "
+                "every rank must submit the same requests in the same order")
+        if self._ranks.root:
+            return take
+        named = word[1:1 + word[0]]
+        if not named:
+            return None
+        queued, gone = {r.rid: r for r in self._queue}, set(named)
+        self._queue = collections.deque(
+            r for r in self._queue if r.rid not in gone)
+        return [queued[rid] for rid in named]
+
+    def _queue_digest(self) -> int:
+        """A number that equal queues share (rid, rows and image of each
+        queued request, in order; not the arrival times, which are on
+        each rank's own clock).  Python hashes ints alike in every
+        process."""
+        return hash(tuple((r.rid, r.rows, -1 if r.image is None else r.image)
+                          for r in self._queue)) & (2 ** 62 - 1)
+
+    def _choose_batch(self, *, force: bool) -> Optional[list]:
         """FIFO-pack the queue head into one bucket batch.  The batch
         launches when it fills ``max_batch`` rows, when the oldest
         request has waited out the batching window, or on ``force``
@@ -521,7 +588,8 @@ class ServeEngine:
     def drain(self, *, force: bool = False) -> int:
         """Run formable batches until the queue empties or the batching
         window holds the remainder back; returns batches executed.
-        Draining an empty queue is a no-op returning 0."""
+        Draining an empty queue is a no-op returning 0 (on a mesh it still
+        takes rank 0's word: another rank's queue may hold requests)."""
         n = 0
         while True:
             reqs = self._form_batch(force=force)
@@ -529,6 +597,10 @@ class ServeEngine:
                 return n
             self._run_batch(reqs)
             n += 1
+            if not self._queue:
+                # nothing left to form; on a mesh every rank's queue is
+                # as empty as rank 0's, which its word certified
+                return n
 
     def _label(self, bucket: int, image) -> str:
         return f"b{bucket}" if image is None else f"b{bucket}i{image}"
@@ -636,6 +708,9 @@ class ServeEngine:
             "mode": self.mode,
             "timing": self.timing,
             "replicas": self.replicas,
+            "mesh": (None if self.mesh is None else
+                     dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))),
+            "rank_broadcasts": self._ranks.broadcasts,
             "window_s": self.window_s,
             "buckets": buckets,
             "p50_us": _percentile(all_lat, 50) * 1e6,
@@ -702,12 +777,25 @@ def _replica_params(params: dict, replicas: int, device) -> list:
     caller's tensors are used as they are (``to`` returns the same tensor
     when it already lies there), so repeat engine builds over the same
     params dedupe through the prepared cache (keyed ``(plan, id(kernel))``);
-    more replicas get copies, so that each owns its own prepared state."""
+    more replicas get copies, so that each owns its own prepared state (on
+    a mesh: copies on the rank's own device, each prepared into that
+    rank's slabs)."""
     moved = {k: v.to(device) for k, v in params.items()}
     if replicas == 1:
         return [moved]
     return [{k: v.clone() for k, v in moved.items()}
             for _ in range(replicas)]
+
+
+def _plain_output(forward):
+    """``forward`` followed by the counted gather of a sharded network's
+    ``DTensor`` output into the plain global tensor: the callable every
+    executor runs or captures."""
+    from repro_torch.conv.stages import output_full
+
+    def run(prepared, x):
+        return output_full(forward(prepared, x))
+    return run
 
 
 def _chain_forward(prepared, x):

@@ -108,3 +108,94 @@ def make_host_mesh(n_data: int, n_model: int):
 def dp_axes(mesh) -> tuple:
     """Data-parallel axes of a mesh (pod included when present)."""
     return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+
+
+class RankDecisions:
+    """Decisions that every rank of a mesh must take alike (the tuner's
+    sweep, the serving engine's batches): rank 0 of the mesh (all
+    coordinates 0) decides, a broadcast along each mesh dim in turn
+    carries its word to every rank, and an all-reduce ``MAX`` along each
+    dim in turn gives every rank the slowest time and any rank's flag
+    (``decide`` carries a word of ints and a check in that all-reduce
+    alone).
+    The mesh's own dim groups carry them (NCCL on a ``cuda`` mesh, then
+    on the current CUDA device; gloo on a ``cpu`` mesh): no process group
+    is opened.  Without a mesh there is one process, and each call
+    returns what it was given.  ``what`` names the caller in errors;
+    ``broadcasts`` counts the words carried."""
+
+    def __init__(self, mesh, *, what: str):
+        self.what = what
+        self.groups = ([] if mesh is None else
+                       [mesh.get_group(d) for d in range(mesh.ndim)])
+        self.root = True
+        self.broadcasts = 0
+        self.device = torch.device("cpu")
+        if mesh is not None:
+            coord = mesh.get_coordinate()
+            if coord is None:
+                raise RuntimeError(
+                    f"{what}: this rank is not in the mesh it runs on")
+            self.root = not any(coord)
+            if mesh.device_type == "cuda":
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+
+    def broadcast(self, obj):
+        """Rank 0's ``obj`` on every rank (the others' is ignored)."""
+        if self.groups:
+            self.broadcasts += 1
+        for group in self.groups:
+            box = [obj]
+            dist.broadcast_object_list(
+                box, src=dist.get_global_rank(group, 0), group=group,
+                device=self.device)
+            obj = box[0]
+        return obj
+
+    def decide(self, word, length: int, *, check: int) -> tuple:
+        """Rank 0's ``word`` (at most ``length`` ints >= 0; the others'
+        is ignored) on every rank, and whether every rank gave the same
+        ``check`` (an int in [0, 2**62)), in one fixed-size int64
+        all-reduce ``MAX`` along each mesh dim: the other ranks send -1 in
+        the word's place, and each rank its check beside its negation.
+        Returns (the word padded with -1 to ``length``, agreed)."""
+        pad = [-1] * (length - len(word))
+        if not self.groups:
+            return list(word) + pad, True
+        self.broadcasts += 1
+        mine = list(word) + pad if self.root else [-1] * length
+        t = torch.tensor(mine + [check, -check],
+                         dtype=torch.int64).to(self.device)
+        for group in self.groups:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        *word, top, neg_bottom = t.tolist()
+        return word, top == -neg_bottom
+
+    def _max(self, values) -> list:
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        for group in self.groups:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return t.tolist()
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` is true on any rank."""
+        return bool(self._max([float(flag)])[0]) if self.groups else flag
+
+    def slowest(self, us: float) -> float:
+        """The largest of the ranks' times; raises if a rank's
+        measurement failed (``fail``)."""
+        if not self.groups:
+            return us
+        us, failed = self._max([us, 0.0])
+        if failed:
+            raise RuntimeError(
+                f"{self.what}: a candidate's measurement failed on another "
+                "rank of the mesh")
+        return us
+
+    def fail(self) -> None:
+        """Tell the other ranks, waiting in ``slowest``, that this rank's
+        measurement failed."""
+        if self.groups:
+            self._max([0.0, 1.0])

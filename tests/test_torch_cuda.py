@@ -25,9 +25,17 @@ the measured autotuner's sweep and cache round trip on the card.  The
 sharded schedules on a one-rank NCCL mesh (one card): ``fft-cuda``
 ``nfft``/``wfft`` against ``fft-torch`` on the same mesh and against the
 local ``fft-cuda`` plan, 1e-5 of the largest |y|, with exact launches and
-collectives.
+collectives; and the serving engine on that mesh, its graphs' replays
+within 1e-5 of the largest |y| of the eager sharded forward, its
+collectives counted at warm-up and capture only.  Across two or four
+cards (it skips with fewer than two), the engine's replays run NCCL
+kernels and give the local engine's rows within 1e-5 of the largest |y|.
 """
 import itertools
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -57,6 +65,8 @@ from repro_torch.launch.batcher import (  # noqa: E402
     WARMUP_PASSES, BucketPolicy, ServeEngine)
 
 pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ACTIVATIONS = ["none", "relu", "gelu", "silu"]
 # every M with every C and every N (the other dim cycling), so that each
@@ -832,3 +842,203 @@ def test_sharded_one_shot_on_the_card(nccl_mesh, replicate):
     assert trace[("collective", "all_reduce")] == 0
     y0 = plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda")(x, k)
     assert (y - y0).abs().max().item() <= 1e-5 * y0.abs().max().item()
+
+
+@pytest.mark.parametrize("schedule,overlap", [("nfft", "off"),
+                                              ("wfft", "slab:2")])
+def test_engine_on_a_nccl_mesh_replays_its_graphs(nccl_mesh, schedule,
+                                                  overlap):
+    """The serving engine on the one-rank NCCL mesh: one CUDA graph per
+    bucket, captured over every layer's collectives and the output
+    gather, so the collectives are counted at warm-up and capture only;
+    replays launch no kernel, count no collective, and give plain tensors
+    within ``GRAPH_TOL`` of the eager sharded forward of their bucket.
+    On one rank every collective is the identity: the test across cards
+    below shows that a replay runs them."""
+    cuda = torch.device("cuda")
+    kernels, biases = _graph_params(cuda)
+    with stages.stage_trace() as trace:
+        eng = ServeEngine(_graph_layers, kernels,
+                          policy=BucketPolicy(max_batch=4),
+                          forward=_graph_forward(biases), backend="fft-cuda",
+                          device=cuda, mesh=nccl_mesh, schedule=schedule,
+                          overlap=overlap)
+    passes = WARMUP_PASSES + 1
+    slabs = sum(p.num_slabs for net in eng.nets.values()
+                for p in net.plans.values())
+    kind, other = (("all_to_all", "all_reduce") if schedule == "nfft"
+                   else ("all_reduce", "all_to_all"))
+    assert trace[("collective", kind)] == passes * slabs * (
+        2 if schedule == "nfft" else 1)
+    assert trace[("collective", other)] == 0
+    assert trace[("collective", "output_gather")] == passes * len(eng.nets)
+    xs = [_rand((b, 8, 32, 32), 80 + i).to(cuda)
+          for i, b in enumerate((3, 4, 1, 2))]
+    before = [w.launches for w in GRAPH_WRAPPERS]
+    with stages.stage_trace() as trace:
+        rids = []
+        for x in xs:
+            rids.append(eng.submit(x))
+            eng.drain(force=True)
+    assert [w.launches for w in GRAPH_WRAPPERS] == before
+    assert not [k for k, n in trace.items()
+                if isinstance(k, tuple) and k[0] == "collective" and n]
+    for rid, x in zip(rids, xs):
+        y = eng.results[rid]
+        assert type(y) is torch.Tensor
+        label, _, off = eng.placements[rid]
+        bucket = int(label[1:])
+        prepared = eng.nets[(bucket, None)].prepare(kernels)
+        xpad = torch.zeros((bucket,) + tuple(x.shape[1:]), device=cuda)
+        xpad[off:off + x.shape[0]] = x
+        with torch.inference_mode():
+            y0 = _graph_forward(biases)(prepared, xpad).full_tensor()
+        _assert_rows(y, y0[off:off + x.shape[0]])
+    rep = eng.report()
+    assert rep["executor"] == "cuda-graph"
+    assert sum(map(sum, rep["graph_replays"].values())) == len(xs)
+    assert rep["plan_cache_misses_after_warmup"] == 0
+    assert rep["mesh"] == {"data": 1, "model": 1}
+
+
+# A rank of the engine across cards; BACKEND=gloo rehearses it on host
+# ranks (CPU, the eager executor, no profile).
+_CARDS_RANK = r'''
+import json, os, sys
+import torch
+sys.path.insert(0, os.environ["TESTS"])
+import test_torch_cuda as T
+from repro_torch.conv import stages
+from repro_torch.launch import mesh as M
+from repro_torch.launch.batcher import (
+    WARMUP_PASSES, BucketPolicy, ServeEngine)
+
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD"])
+host = os.environ["BACKEND"] == "gloo"
+dev = torch.device("cpu") if host else torch.device("cuda", rank)
+if not host:
+    torch.cuda.set_device(dev)
+M.start_process_group(os.environ["BACKEND"], rank=rank, world_size=world,
+                      store_path=os.environ["STORE"],
+                      device_id=None if host else dev)
+passes = 1 if host else WARMUP_PASSES + 1    # eager warm-up, or + capture
+kernels, biases = T._graph_params(dev)
+xs = [T._rand((b, 8, 32, 32), 80 + i).to(dev)
+      for i, b in enumerate((3, 4, 1, 2))]
+
+
+def serve(**kw):
+    with stages.stage_trace() as at_start:
+        eng = ServeEngine(T._graph_layers, kernels,
+                          policy=BucketPolicy(max_batch=4),
+                          forward=T._graph_forward(biases),
+                          backend="fft-cuda", device=dev, **kw)
+    ys = []
+    with stages.stage_trace() as serving:
+        for x in xs:
+            rid = eng.submit(x)
+            eng.drain(force=True)
+            ys.append(eng.results[rid])
+    return eng, ys, at_start, serving
+
+
+def collectives(trace):
+    return {k[1]: n for k, n in trace.items()
+            if isinstance(k, tuple) and k[0] == "collective" and n}
+
+
+def nccl_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if "nccl" in e.name.lower() and not e.is_user_annotation)
+
+
+_, local, _, _ = serve()
+out = {}
+for shape in json.loads(os.environ["SHAPES"]):
+    mesh = (M.make_host_mesh(*shape) if host else
+            M.make_mesh(shape, ("data", "model")))
+    for schedule, overlap in (("nfft", "off"), ("wfft", "off"),
+                              ("wfft", "slab:2")):
+        eng, ys, at_start, serving = serve(
+            mesh=mesh, schedule=schedule, overlap=overlap)
+        slabs = sum(p.num_slabs for net in eng.nets.values()
+                    for p in net.plans.values())
+        rep = eng.report()
+        out[f"{shape} {schedule} {overlap}"] = dict(
+            plain=all(type(y) is torch.Tensor for y in ys),
+            err=max(((y - y0).abs().max() / y0.abs().max()).item()
+                    for y, y0 in zip(ys, local)),
+            at_start=collectives(at_start),
+            want_at_start={
+                ("all_to_all" if schedule == "nfft" else "all_reduce"):
+                passes * slabs * (2 if schedule == "nfft" else 1),
+                "output_gather": passes * len(eng.nets)},
+            serving=collectives(serving),
+            replays=sum(map(sum, rep["graph_replays"].values())),
+            replay_nccl_kernels=None if host else nccl_kernels(
+                eng._executor((4, None), 0).graph.replay))
+        del eng
+with open(os.path.join(os.environ["OUT"], f"out{rank}.json"), "w") as fh:
+    json.dump(out, fh)
+M.destroy_process_group()
+'''
+
+
+def _cards_world(tmp, backend, world):
+    """Run ``_CARDS_RANK`` on ``world`` spawned ranks; every rank's
+    output, by rank.  The meshes have a model dim of 2 or more, so that
+    nfft's all-to-alls and wfft's all-reduces cross ranks."""
+    shapes = [(1, world)] + ([(2, world // 2)] if world >= 4 else [])
+    base = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                TESTS=os.path.dirname(os.path.abspath(__file__)),
+                OUT=str(tmp), STORE=str(tmp / "store"),
+                SHAPES=json.dumps(shapes), BACKEND=backend,
+                WORLD=str(world), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CARDS_RANK], env=dict(base, RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    failed = [log[-3000:] for p, log in zip(procs, logs) if p.returncode]
+    assert not failed, "\n\n".join(failed)
+    return [json.loads((tmp / f"out{r}.json").read_text())
+            for r in range(world)]
+
+
+def test_engine_across_cards_replays_its_collectives(tmp_path):
+    """The serving engine on a mesh of two or four cards (NCCL), nfft
+    ``off``, wfft ``off`` and ``slab:2``: collectives counted at warm-up
+    and capture only; each replay of the batch-4 graph runs NCCL
+    kernels; every rank's plain results within ``GRAPH_TOL`` of a local
+    engine's.  A graph that lost a collective would give other rows:
+    on one rank, where every collective is the identity, it could not
+    show."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two or more NVIDIA GPUs: NCCL takes one rank "
+                    "per card")
+    from repro_torch.kernels import _build
+    _build.build()                      # once, before the ranks load it
+    world = 4 if n >= 4 else 2
+    ranks = _cards_world(tmp_path, "nccl", world)
+    for r, out in enumerate(ranks):
+        for config, got in out.items():
+            what = f"rank {r} {config}"
+            print(what, json.dumps(got))
+            assert got["plain"], what
+            assert got["err"] <= GRAPH_TOL, what
+            assert got["at_start"] == got["want_at_start"], what
+            assert got["serving"] == {}, what
+            assert got["replays"] == 4, what
+            assert got["replay_nccl_kernels"] > 0, what
+    assert all(sorted(out) == sorted(ranks[0]) for out in ranks)
+    assert len(ranks[0]) == 3 * (1 + (world >= 4))
+

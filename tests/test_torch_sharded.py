@@ -374,7 +374,9 @@ def test_mesh_knobs_are_checked_as_the_reference_checks_them(mesh, jmesh):
     assert (jp.backend, jp.schedule) == ("fft-xla", "nfft")
 
 
-def test_what_waits_for_later_slices_raises(mesh):
+def test_former_later_slice_paths_run(mesh):
+    """What once waited for later slices, and raised, runs now: grads
+    through the sharded schedules, and the serving engine on a mesh."""
     from repro_torch.launch.batcher import BucketPolicy, ServeEngine
     x, k = _rand((2, 3, 12, 12), 15), _rand((4, 3, 3, 3), 16)
     plan = tconv.plan_conv(x.shape, k.shape, padding=1, schedule="wfft",
@@ -387,9 +389,18 @@ def test_what_waits_for_later_slices_raises(mesh):
     assert type(xg.grad) is torch.Tensor and xg.grad.shape == x.shape
     with torch.no_grad():
         plan(xg, _t(k))                  # no grad asked: runs
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ServeEngine(lambda b: [], {}, policy=BucketPolicy(max_batch=1),
-                    device="cpu", mesh=mesh)
+    # the serving engine on the mesh builds and serves a plain tensor
+    eng = ServeEngine(
+        lambda b: [tconv.NetworkConv("c", (b,) + x.shape[1:], k.shape,
+                                     padding=1)],
+        {"c": _t(k)}, policy=BucketPolicy(max_batch=2), device="cpu",
+        mesh=mesh, schedule="wfft")
+    rid = eng.submit(_t(x))
+    eng.drain(force=True)
+    y = eng.results[rid]
+    assert type(y) is torch.Tensor and y.shape == (2, 4, 12, 12)
+    y0 = conv2d_direct(_t(x), _t(k), padding=1).numpy()
+    assert _scaled(y.numpy(), y0) <= ORACLE_TOL
 
 
 def test_tuned_plan_on_a_mesh_runs(mesh, tmp_path, monkeypatch):

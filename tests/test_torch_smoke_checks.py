@@ -3,8 +3,12 @@ step through recorded branches (the float64 reference its grads are held
 to), the flip count, the forced generic forms, the launch counts that
 refuse a generic-form launch, forward or inverse, on a main path, and
 phase ``sharded``'s expected launches and collectives and its refusals
-(a rehearsal of its forward on a one-rank gloo mesh), and phase
-``sharded_train``'s (a rehearsal of its training step there)."""
+(a rehearsal of its forward on a one-rank gloo mesh), phase
+``sharded_train``'s (a rehearsal of its training step there), phase
+``sharded_serve``'s (the engine over that mesh: its launches and
+collectives per pass and per batch, its result checks), and phase
+``entry_points``'s (the shim's stage ops against its plan's, the example
+twins' checks)."""
 import collections
 import importlib.util
 import pathlib
@@ -697,3 +701,250 @@ def test_inverse_tiles_rows_cover_every_pass():
         == smoke.rect_bytes_flops(n, 16, tail=True)
     assert smoke.inverse_bytes_flops("tile_ifft", n) \
         == smoke.rect_bytes_flops(n, 16)
+
+
+# --------------------------------------------------------------------------
+# Phase sharded_serve: its arithmetic and gates, rehearsed on a one-rank
+# gloo mesh (the host engine is eager: one warm-up forward a bucket where
+# the card runs WARMUP_PASSES and a capture)
+# --------------------------------------------------------------------------
+
+def _serve_rig():
+    """A narrow two-layer bias+ReLU trunk for the engine, made from a seed
+    with numpy: (make_layers, kernels, forward)."""
+    from repro_torch.conv import Epilogue, NetworkConv
+    ep = Epilogue(bias=True, activation="relu")
+
+    def make_layers(batch):
+        return [NetworkConv("a", (batch, 3, 16, 16), (4, 3, 3, 3),
+                            padding=1, epilogue=ep),
+                NetworkConv("b", (batch, 4, 16, 16), (4, 4, 3, 3),
+                            padding=1, epilogue=ep)]
+    rng = np.random.default_rng(3)
+    kernels = {n: torch.as_tensor(rng.standard_normal((4, c, 3, 3)),
+                                  dtype=torch.float32)
+               for n, c in (("a", 3), ("b", 4))}
+    biases = {n: torch.as_tensor(rng.standard_normal(4), dtype=torch.float32)
+              for n in kernels}
+
+    def forward(prepared, x):
+        for name in prepared:
+            x = prepared[name](x, bias=biases[name])
+        return x
+    return make_layers, kernels, forward
+
+
+@pytest.fixture(scope="module")
+def gloo_mesh():
+    from repro_torch.launch import mesh as tmesh
+    tmesh.start_process_group("gloo")
+    try:
+        yield tmesh.make_host_mesh(1, 1)
+    finally:
+        tmesh.destroy_process_group()
+
+
+@pytest.mark.parametrize("schedule,overlap", smoke.SERVE_SHARDED,
+                         ids=[f"{s}-{o}" for s, o in smoke.SERVE_SHARDED])
+def test_sharded_serve_counts_are_the_engines_per_pass(gloo_mesh, schedule,
+                                                       overlap):
+    """``serve_capture_counts`` is ``WARMUP_PASSES + 1`` times what one
+    pass of the engine's buckets issues (the host's eager warm-up runs one
+    pass), with a prepare's stage 2 a bucket; each batch of a trace issues
+    its bucket's collectives and one output gather."""
+    from repro_torch.conv import stages
+    from repro_torch.launch import batcher
+    make_layers, kernels, forward = _serve_rig()
+    with stages.stage_trace() as trace:
+        eng = batcher.ServeEngine(
+            make_layers, kernels, policy=batcher.BucketPolicy(max_batch=4),
+            forward=forward, backend="fft-cuda", device="cpu",
+            mesh=gloo_mesh, schedule=schedule, overlap=overlap)
+    slabs = smoke.serve_bucket_slabs(eng, "rehearsal")
+    assert slabs == {(1, None): 1, (2, None): 1 + (overlap != "off"),
+                     (4, None): 1 + (overlap != "off")}
+    launches, want = smoke.serve_capture_counts(eng, schedule, 2,
+                                                "rehearsal")
+    passes = batcher.WARMUP_PASSES + 1
+    one_pass = smoke.check_serve_collectives(
+        "rehearsal", trace, {k: n // passes for k, n in want.items()})
+    assert {k: n * passes for k, n in one_pass.items()} == {
+        k: n for k, n in want.items() if n}
+    per_fwd = 2 * sum(slabs.values())
+    assert launches == {**dict.fromkeys(smoke.KERNELS, 0),
+                        "tile_rfft": passes * per_fwd + 2 * len(slabs),
+                        "cgemm": passes * per_fwd,
+                        "tile_irfft_epilogue": passes * per_fwd}
+    rng = np.random.default_rng(4)
+    with stages.stage_trace() as trace:
+        for b in (1, 3, 2):
+            eng.submit(torch.as_tensor(rng.standard_normal((b, 3, 16, 16)),
+                                       dtype=torch.float32))
+        eng.drain(force=True)                   # b4 (1 + 3 rows), b2
+    # the host runs each batch eagerly: its bucket's collectives, and one
+    # output gather (on the card a replay issues none from the host)
+    want_trace = collections.Counter(output_gather=2)
+    for key in ((4, None), (2, None)):
+        for kind, n in smoke.sharded_collectives(schedule,
+                                                 slabs[key]).items():
+            want_trace[kind] += 2 * n
+    smoke.check_serve_collectives("trace", trace, want_trace)
+
+
+def test_check_serve_collectives_refuses_a_wrong_count():
+    counts = collections.Counter({("collective", "all_reduce"): 3,
+                                  ("collective", "output_gather"): 1})
+    assert smoke.check_serve_collectives(
+        "x", counts, {"all_reduce": 3, "output_gather": 1,
+                      "all_to_all": 0}) == {"all_reduce": 3,
+                                            "output_gather": 1}
+    for want in ({"all_reduce": 2, "output_gather": 1}, {"all_reduce": 3},
+                 {}):
+        with pytest.raises(AssertionError, match="collectives"):
+            smoke.check_serve_collectives("x", counts, want)
+    # an all-to-all counts one boundary all-to-all too
+    counts = collections.Counter({("collective", "all_to_all"): 2,
+                                  "boundary_a2a": 1})
+    with pytest.raises(AssertionError, match="boundary"):
+        smoke.check_serve_collectives("x", counts, {"all_to_all": 2})
+
+
+def test_check_replay_activity_refuses_other_operations():
+    """A replay must run the eager callable's device operations, name by
+    name and count by count: one copy fewer (a lost one-rank
+    all-to-all), a kernel more or another name fails.  A reading that
+    lost a run of records passes only beside a complete one; one that
+    holds an operation more fails beside a complete one too."""
+    eager = {"Memcpy DtoD (Device -> Device)": 19, "cgemm_kernel": 9,
+             "rinv16_kernel": 9}
+    assert smoke.check_replay_activity("x", eager, [dict(eager)]) == 37
+    dropped = {"Memcpy DtoD (Device -> Device)": 6, "rinv16_kernel": 3}
+    assert smoke.check_replay_activity(
+        "x", eager, [dropped, dict(eager)]) == 37
+    for change in ({"Memcpy DtoD (Device -> Device)": 18},
+                   {"cgemm_kernel": 10}, {"ncclDevKernel_SendRecv": 1}):
+        with pytest.raises(AssertionError, match="differ|did not"):
+            smoke.check_replay_activity("x", eager, [dict(eager, **change)])
+    for change in ({"cgemm_kernel": 10}, {"ncclDevKernel_SendRecv": 1}):
+        with pytest.raises(AssertionError, match="did not"):
+            smoke.check_replay_activity(
+                "x", eager, [dict(eager), dict(eager, **change)])
+    for replays in ([{}], [dropped] * smoke.READINGS, []):
+        with pytest.raises(AssertionError, match="differ"):
+            smoke.check_replay_activity("x", eager, replays)
+
+
+def test_replay_readings_stop_at_agreement():
+    """The eager side is read until two readings agree, the replay side
+    until one equals theirs, each at most ``READINGS`` times."""
+    def reader(values):
+        it = iter(values)
+        return lambda: next(it)
+    full, cut = {"k": 9, "copy": 3}, {"k": 2}
+    reads = smoke.readings_until(reader([cut, full, full, cut]),
+                                 lambda rs: smoke.agreed(rs) is not None)
+    assert reads == [cut, full, full] and smoke.agreed(reads) == full
+    reads = smoke.readings_until(reader([{"k": i} for i in range(9)]),
+                                 lambda rs: smoke.agreed(rs) is not None)
+    assert len(reads) == smoke.READINGS and smoke.agreed(reads) is None
+    reads = smoke.readings_until(reader([cut, full, cut]),
+                                 lambda rs: rs[-1] == full)
+    assert reads == [cut, full]
+
+
+def test_serve_checks_on_a_mesh_hold_the_local_result(gloo_mesh):
+    """``serve_checks`` with ``local=``: a plain result of the engine on
+    the mesh passes against its gathered eager forward, direct, and the
+    local engine's result for the same request; one off by more than
+    ``GRAPH_TOL`` from the local result, or a ``DTensor``, is refused."""
+    import types
+
+    from repro_torch.launch import batcher
+    make_layers, kernels, forward = _serve_rig()
+    rng = np.random.default_rng(5)
+    xs = [torch.as_tensor(rng.standard_normal((b, 3, 16, 16)),
+                          dtype=torch.float32) for b in (1, 2)]
+    engines = {}
+    for kw in (dict(), dict(mesh=gloo_mesh, schedule="wfft",
+                            overlap="slab:2")):
+        eng = batcher.ServeEngine(
+            make_layers, kernels, policy=batcher.BucketPolicy(max_batch=4),
+            forward=forward, backend="fft-cuda", device="cpu", **kw)
+        rids = [eng.submit(x) for x in xs]
+        eng.drain(force=True)
+        engines["mesh" if kw else "local"] = eng
+    eng, local = engines["mesh"], engines["local"]
+    assert eng.placements == local.placements
+    res = types.SimpleNamespace(make_layers=make_layers, forward=forward)
+    out = smoke.serve_checks(eng, res, rids[1], xs[1], kernels,
+                             local=local.results[rids[1]])
+    assert out["rel_err_vs_local_engine"] <= smoke.GRAPH_TOL
+    with pytest.raises(AssertionError, match="not within"):
+        smoke.serve_checks(eng, res, rids[1], xs[1], kernels,
+                           local=local.results[rids[1]] * (1 + 1e-3))
+    net = eng.nets[(4, None)]
+    eng.results[rids[0]] = forward(net.prepare(kernels), torch.cat(
+        xs + [torch.zeros((1, 3, 16, 16))]))   # a DTensor, not gathered
+    with pytest.raises(AssertionError, match="plain tensor"):
+        smoke.serve_checks(eng, res, rids[0], xs[0], kernels)
+
+
+# --------------------------------------------------------------------------
+# Phase entry_points: its gates, rehearsed on the host
+# --------------------------------------------------------------------------
+
+def test_engine_launches_arithmetic():
+    """A local engine's start-up launches: per bucket a prepare and
+    ``WARMUP_PASSES + 1`` forwards (as the card test
+    ``test_replays_launch_no_kernel`` counts them for two buckets)."""
+    from repro_torch.launch import batcher
+    forwards = 2 * (batcher.WARMUP_PASSES + 1)
+    assert smoke.engine_launches(2, 2) == {
+        "tile_rfft": 2 * (2 + forwards), "cgemm": 2 * forwards,
+        "tile_irfft_epilogue": 2 * forwards}
+
+
+def test_pallas_shim_runs_what_its_one_shot_plan_runs():
+    """The phase's launch gate on the host: ``fft_conv2d_pallas`` on a
+    narrow layer runs exactly the stage ops of the layer's one-shot
+    ``fft-cuda`` plan, with the plain inverse (no epilogue), and warns."""
+    from repro_torch.conv import plan_conv, stages
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((4, 8, 28, 28)),
+                        dtype=torch.float32)
+    k = torch.as_tensor(rng.standard_normal((16, 8, 3, 3)),
+                        dtype=torch.float32)
+    plan = plan_conv(tuple(x.shape), tuple(k.shape), padding=1,
+                     backend="fft-cuda")
+    with stages.stage_trace() as want:
+        y_plan = plan(x, k)
+    with stages.stage_trace() as got, \
+            pytest.warns(DeprecationWarning, match="fft_conv2d_pallas"):
+        y = smoke.fft_conv2d_pallas(x, k, padding=1)
+    assert got == want and got["cgemm"] == 1
+    assert smoke.rel_err(y, y_plan) <= smoke.GRAPH_TOL
+    y0 = torch.nn.functional.conv2d(x, k, padding=1)
+    assert smoke.rel_err(y, y0) <= smoke.SLICE_TOL
+
+
+def test_entry_point_checks_hold_the_example_twins():
+    """``check_quickstart`` and ``check_serve_batcher`` pass the twins'
+    runs on the host (eager executor: no replay) and refuse a run that
+    is off."""
+    import dataclasses
+
+    from repro_torch.examples import quickstart, serve_batcher
+    quick = quickstart.main(["--device", "cpu"])
+    smoke.check_quickstart(quick)
+    for bad in (dict(rel_err=2 * smoke.SLICE_TOL),
+                dict(prepared_matches=False)):
+        with pytest.raises(AssertionError, match="quickstart"):
+            smoke.check_quickstart(dataclasses.replace(quick, **bad))
+    sb = serve_batcher.main(["--device", "cpu"])
+    assert smoke.check_serve_batcher(sb, "eager") == (10, 0)
+    with pytest.raises(AssertionError, match="serve_batcher"):
+        smoke.check_serve_batcher(sb, "cuda-graph")
+    for bad in (dict(rejected=False), dict(updated_shape=(4, 16, 32, 32))):
+        with pytest.raises(AssertionError, match="serve_batcher"):
+            smoke.check_serve_batcher(dataclasses.replace(sb, **bad),
+                                      "eager")
