@@ -26,8 +26,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               the ``inverse_tiles`` line), and its generic form at delta 8
               at 4, 8 and 16 (``inverse_generic``); and the training
               step's dk (cuDNN) in both formulations
-  4. slice    ``repro_torch.launch.serve`` serves the VGG trunk on backend
-              ``fft-cuda`` (plan_network -> prepare -> request batches ->
+  4. slice    ``repro_torch.launch.serve --analyze`` serves the VGG trunk on
+              backend ``fft-cuda`` (plan_network -> plan-lint of every
+              layer on fake tensors -> prepare -> request batches ->
               weight-update sweep); launch counters show every forward ran
               the forward tile DFT, the CGEMM and the fused inverse once per
               layer, and every prepare the forward tile DFT once per layer;
@@ -205,6 +206,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               ``examples.serve_batcher`` (``fft-cuda`` behind CUDA graphs:
               exact launches at start-up and at the weight update, one
               replay a batch)
+ 16. plan_lint  inside phase 11's process group, before it ends: the
+              plan-lint analyzer (``repro_torch.conv.analyze``) on the card.
+              Gates: the served trunk's ``fft-cuda`` plans analyzed on fake
+              CUDA tensors are all certified, launch no kernel and leave
+              ``memory_allocated`` unchanged, and give the facts of the
+              same analysis on the host; on the NCCL mesh, for nfft and
+              wfft x off and slab:2, each layer's static collective counts,
+              bytes and stage counts equal what ``stage_trace`` records
+              around one real forward of the same plan; ``analyze --check``
+              over ``LINT_LIMIT`` Table-I layers exits 0, and 1 with
+              ``--inject extra-collective``.  Reported, not gated: each
+              layer's estimated peak live bytes of a prepared forward
+              beside the measured ``max_memory_allocated`` increase
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
@@ -240,6 +254,7 @@ import torch.nn.functional as TF  # noqa: E402
 from repro_torch.conv import (  # noqa: E402
     Epilogue, autodiff, autotune, autotune_info, clear_prepared_cache,
     plan_conv, plan_network, stages)
+from repro_torch.conv.analyze import main as analyze_main  # noqa: E402
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core import fft_conv2d_pallas  # noqa: E402
 from repro_torch.core.dft import compact_layout, num_freq_real  # noqa: E402
@@ -2978,6 +2993,160 @@ def entry_points_phase():
             for k in KERNELS}
 
 
+# the analyzer's facts that must not depend on where its fake tensors lie
+LINT_FACTS = ("stage_counts", "collectives", "collective_bytes",
+              "collective_dtypes", "cgemm_dtypes", "cgemm_shapes")
+# Table-I layers of phase 16's gate (the sweep of ``analyze --check``),
+# and of its run with a seeded violation: about 30 s together
+LINT_LIMIT, LINT_INJECT_LIMIT = 2, 1
+# a stage_trace collective kind -> the analyzer's name for it
+LINT_KINDS = {"all_to_all": "all_to_all", "all_reduce": "psum"}
+
+
+def lint_facts(profile):
+    return {f: getattr(profile, f) for f in LINT_FACTS}
+
+
+def lint_trunk(net):
+    """Phase 16 (b): the trunk's plans analyzed on fake CUDA tensors:
+    every layer certified, no launch, no byte allocated, and the same
+    facts as the analysis on the host.  Returns the profile and the
+    seconds it took."""
+    torch.cuda.synchronize()
+    zero_counts()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    prof = net.analyze(device="cuda")
+    seconds = time.perf_counter() - t0
+    counts, after = read_counts(), torch.cuda.memory_allocated()
+    prof.raise_if_failed()
+    expect_counts("plan-lint of the trunk", counts, {})
+    if after != before:
+        raise AssertionError(f"plan-lint of the trunk allocated "
+                             f"{after - before} bytes on the card")
+    host = net.analyze(device="cpu")
+    for name, p in prof.layers.items():
+        if lint_facts(p) != lint_facts(host.layers[name]):
+            raise AssertionError(
+                f"plan-lint {name}: on the card {lint_facts(p)}, on the "
+                f"host {lint_facts(host.layers[name])}")
+    return prof, seconds
+
+
+def lint_peaks(net, res, gen):
+    """Phase 16 (e), reported: each layer's estimated peak live bytes of
+    its prepared forward beside the ``max_memory_allocated`` increase over
+    one real prepared forward of the layer (the inputs x, G and the bias
+    were allocated before it)."""
+    rows = []
+    for name, plan in net.items():
+        est = plan.analyze(prepared=True, device="cuda")
+        with torch.inference_mode():
+            prepared = plan.prepare(res.kernels[name])
+            x = torch.randn(plan.x_shape, generator=gen, device="cuda")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            y = prepared(x, bias=res.biases[name])
+            torch.cuda.synchronize()
+            measured = torch.cuda.max_memory_allocated() - base
+        inputs = sum(t.numel() * t.element_size()
+                     for t in (x, *prepared.state, res.biases[name]))
+        rows.append(dict(layer=name, peak_live_bytes=est.peak_live_bytes,
+                         input_bytes=inputs, measured_increase=measured,
+                         output_bytes=y.numel() * y.element_size()))
+        del prepared, x, y
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lint_dynamic(mesh, convs, res, gen):
+    """Phase 16 (c): on the NCCL mesh, for nfft and wfft x off and
+    slab:2, each trunk layer's static profile (fake CUDA tensors on the
+    mesh) against what ``stage_trace`` records around one real one-shot
+    forward of the same plan: collective counts and bytes by kind
+    (``all_reduce`` is the analyzer's ``psum``) and stage-op counts."""
+    rows = []
+    for schedule, overlap in SHARDED:
+        net = plan_network(convs, backend="fft-cuda", schedule=schedule,
+                           mesh=mesh, overlap=overlap)
+        for name, plan in net.items():
+            p = plan.analyze()
+            x = torch.randn(plan.x_shape, generator=gen, device="cuda")
+            with stages.stage_trace() as trace, torch.inference_mode():
+                plan(x, res.kernels[name], bias=res.biases[name])
+                torch.cuda.synchronize()
+            kinds = {k[1] for k in trace
+                     if isinstance(k, tuple) and k[0] == "collective"}
+            dynamic = {LINT_KINDS.get(k, k): trace[("collective", k)]
+                       for k in kinds}
+            dyn_bytes = sum(trace[("collective_bytes", k)] for k in kinds)
+            static = {k: v for k, v in p.collectives.items() if v}
+            stage_counts = {k: v for k, v in trace.items()
+                            if isinstance(k, str)}
+            if (static, p.collective_bytes, p.stage_counts) \
+                    != (dynamic, dyn_bytes, stage_counts):
+                raise AssertionError(
+                    f"plan-lint {schedule}/{overlap} {name}: static "
+                    f"{static}, {p.collective_bytes} bytes, "
+                    f"{p.stage_counts}; one real forward {dynamic}, "
+                    f"{dyn_bytes} bytes, {stage_counts}")
+            p.check().raise_if_failed()
+            rows.append(dict(schedule=schedule, overlap=overlap, layer=name,
+                             collectives=static,
+                             collective_bytes=p.collective_bytes))
+    return rows
+
+
+def lint_gate(*flags):
+    """``python -m repro_torch.conv.analyze --check`` with ``flags``, on
+    the running NCCL group: its exit code, its profile count and
+    seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "profiles.json")
+        t0 = time.perf_counter()
+        rc = analyze_main(["--check", "--batch", str(BATCH), "--json-out",
+                           out, *flags])
+        seconds = time.perf_counter() - t0
+        with open(out) as fh:
+            n = len(json.load(fh))
+    return rc, n, seconds
+
+
+def plan_lint_phase(mesh, convs, res):
+    """Phase 16, inside phase 11's process group: plan-lint
+    (``repro_torch.conv.analyze``) on the card.  Gates: the served trunk's
+    ``fft-cuda`` plans certified on fake CUDA tensors with no launch and
+    no byte allocated, with the facts of the same analysis on the host;
+    on the NCCL mesh, every layer's static collective counts, bytes and
+    stage counts equal to one real forward's (nfft and wfft x off and
+    slab:2); the ``--check`` sweep exits 0 (``LINT_LIMIT`` Table-I
+    layers), and 1 with ``--inject extra-collective``.  Reported, not
+    gated: each layer's estimated peak live bytes beside the measured
+    increase of one real prepared forward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    net = plan_network(convs, backend="fft-cuda")
+    prof, seconds = lint_trunk(net)
+    peaks = lint_peaks(net, res, gen)
+    dynamic = lint_dynamic(mesh, convs, res, gen)
+    rc, n, gate_s = lint_gate("--limit", str(LINT_LIMIT))
+    if rc != 0:
+        raise AssertionError(f"analyze --check exited {rc}")
+    inject_rc, inject_n, inject_s = lint_gate(
+        "--limit", str(LINT_INJECT_LIMIT), "--inject", "extra-collective")
+    if inject_rc != 1:
+        raise AssertionError(f"analyze --check --inject extra-collective "
+                             f"exited {inject_rc}, expected 1")
+    emit("plan_lint", image=IMAGE, batch=BATCH, layers=len(prof.layers),
+         trunk_seconds=seconds, launches=0, allocated_bytes=0,
+         total_collectives=prof.total_collectives,
+         peak_live_bytes=prof.peak_live_bytes, peaks=peaks,
+         static_vs_dynamic=dynamic,
+         gate=dict(limit=LINT_LIMIT, profiles=n, seconds=gate_s, rc=rc),
+         gate_inject=dict(limit=LINT_INJECT_LIMIT, profiles=inject_n,
+                          seconds=inject_s, rc=inject_rc))
+
+
 def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
                   checked_dft, local_train, served):
     """Phases 11-14: the paper's schedules on a one-rank NCCL mesh:
@@ -3005,6 +3174,7 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
         train, train_counts = sharded_train(mesh, local_train)
         tune_counts = sharded_tune(mesh, convs, res, res.y, y_ref, configs)
         serve_reports, serve_counts = sharded_serve(mesh, served, configs)
+        plan_lint_phase(mesh, convs, res)
     finally:
         tmesh.destroy_process_group()
     emit("sharded", mesh=[1, 1], backend="nccl", image=IMAGE, batch=BATCH,
@@ -3062,7 +3232,7 @@ def main():
     res = serve.main(["--convnet", "vgg", "--conv-backend", "fft-cuda",
                       "--image", str(IMAGE), "--batch", str(BATCH),
                       "--gen", str(GEN), "--timing", "per-request",
-                      "--seed", str(SEED)])
+                      "--seed", str(SEED), "--analyze"])
     slice_counts = read_counts()
     n_forward = GEN + 1                # request loop + post-update forward
     n_prepare = 2                      # weights versions 0 and 1

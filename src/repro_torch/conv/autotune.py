@@ -562,8 +562,21 @@ def _candidate_plan(cand: TunedConfig, x_shape, k_shape, *, padding, delta,
                      cache=False)
 
 
+# the inputs of the sweep running now, drawn once for all its candidates
+# (``tune`` fills and empties it): drawing them is no part of any
+# candidate's time, and at 224x224 it takes a large share of a layer's
+# budget on the host
+_drawn: dict = {}
+
+
 def _inputs(x_shape, k_shape, device) -> tuple:
-    """x, k and the bias, drawn from ``default_rng(0)`` in that order."""
+    """x, k and the bias, drawn from ``default_rng(0)`` in that order (the
+    running sweep's, when it is for these shapes and device)."""
+    key = (tuple(x_shape), tuple(k_shape), torch.device(device))
+    with _lock:
+        drawn = _drawn.get(key)
+    if drawn is not None:
+        return drawn
     rng = np.random.default_rng(0)
     return tuple(torch.as_tensor(rng.standard_normal(s),
                                  dtype=torch.float32).to(device)
@@ -700,33 +713,43 @@ def tune(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
         from repro_torch.kernels import _build
         _build.build()
     best, measured, reached = None, [], len(cands)
+    drawn = _inputs(x_shape, k_shape, device)   # before the budget's clock
+    with _lock:
+        _drawn[(x_shape, k_shape, torch.device(device))] = drawn
     t0 = time.perf_counter()
-    for i, cand in enumerate(cands):
-        if i > 0 and ranks.broadcast(
-                (time.perf_counter() - t0) * 1e3 > budget):
-            reached = i
-            break
-        try:
-            plan = _candidate_plan(cand, x_shape, k_shape, padding=padding,
-                                   delta=delta, three_m=three_m,
-                                   compute_dtype=compute_dtype,
-                                   **mesh_kwargs)
-            refused = False
-        except (ValueError, NotImplementedError):
-            refused = True              # the planner refuses it: skip
-        if ranks.any(refused):
-            continue
-        # a kernel's error propagates: it must not lose the sweep quietly
-        try:
-            us = _measure_plan(plan, reps, device)
-        except Exception:
-            ranks.fail()
-            raise
-        us = ranks.slowest(us)
-        cfg = dataclasses.replace(cand, us_per_call=us, source="measured")
-        measured.append(cfg)
-        if best is None or us < best.us_per_call:
-            best = cfg
+    try:
+        for i, cand in enumerate(cands):
+            if i > 0 and ranks.broadcast(
+                    (time.perf_counter() - t0) * 1e3 > budget):
+                reached = i
+                break
+            try:
+                plan = _candidate_plan(cand, x_shape, k_shape,
+                                       padding=padding, delta=delta,
+                                       three_m=three_m,
+                                       compute_dtype=compute_dtype,
+                                       **mesh_kwargs)
+                refused = False
+            except (ValueError, NotImplementedError):
+                refused = True          # the planner refuses it: skip
+            if ranks.any(refused):
+                continue
+            # a kernel's error propagates: it must not lose the sweep
+            # quietly
+            try:
+                us = _measure_plan(plan, reps, device)
+            except Exception:
+                ranks.fail()
+                raise
+            us = ranks.slowest(us)
+            cfg = dataclasses.replace(cand, us_per_call=us,
+                                      source="measured")
+            measured.append(cfg)
+            if best is None or us < best.us_per_call:
+                best = cfg
+    finally:
+        with _lock:
+            _drawn.clear()
     with _lock:
         _sweeps.append(dict(key=key, x_shape=x_shape, k_shape=k_shape,
                             padding=padding, delta=delta,

@@ -25,9 +25,11 @@ view): the startup sweep of the continuous-batching serve engine
 ``plan_network_buckets`` / ``prepare_network_buckets`` / ``bucket_report``
 spellings remain as DeprecationWarning shims.
 
-Not ported yet (they raise ``NotImplementedError``): ``NetworkPlan.report``
-(it needs the plan-lint analyzer) and ``BucketedNetworkPlan.export`` (it
-needs the plan artifacts).
+``NetworkPlan.analyze`` runs the plan-lint analyzer
+(``repro_torch.conv.analyze``) over every layer, and ``NetworkPlan.report``
+aggregates its stage-op and collective counts for one forward pass.  Not
+ported yet (it raises ``NotImplementedError``): ``BucketedNetworkPlan.export``
+(it needs the plan artifacts).
 """
 from __future__ import annotations
 
@@ -87,6 +89,44 @@ class PreparedNetwork:
 
     def items(self):
         return self.layers.items()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NetworkProfile:
+    """Per-layer static-analysis profiles for a whole network, plus the
+    aggregate collective/stage totals one forward pass pays.  Certify
+    every layer against the invariant registry with ``check()``."""
+    layers: "collections.OrderedDict"          # name -> PlanProfile
+    total_collectives: dict
+    total_stage_counts: dict
+    total_collective_bytes: int
+    peak_live_bytes: int                       # max over layers
+
+    def check(self):
+        """Evaluate the invariant registry for every layer; returns a
+        list of ``(layer_name, Violation)`` (empty = certified)."""
+        out = []
+        for name, profile in self.layers.items():
+            out.extend((name, v) for v in profile.check().violations)
+        return out
+
+    def raise_if_failed(self) -> "NetworkProfile":
+        bad = self.check()
+        if bad:
+            detail = "\n  ".join(f"{n}: {v}" for n, v in bad)
+            raise AssertionError(
+                f"plan-lint: network violates {len(bad)} invariant(s):"
+                f"\n  {detail}")
+        return self
+
+    def to_dict(self) -> dict:
+        return {
+            "layers": {n: p.to_dict() for n, p in self.layers.items()},
+            "total_collectives": dict(self.total_collectives),
+            "total_stage_counts": dict(self.total_stage_counts),
+            "total_collective_bytes": self.total_collective_bytes,
+            "peak_live_bytes": self.peak_live_bytes,
+        }
 
 
 def _same_tile(cfg, plan) -> bool:
@@ -202,30 +242,81 @@ class NetworkPlan:
             }
         return out
 
+    def analyze(self, *, device=None) -> NetworkProfile:
+        """Static analysis of every layer (``repro_torch.conv.analyze``,
+        on fake tensors on ``device``): the per-layer ``PlanProfile`` plus
+        network totals.  Same-geometry layers sharing one plan are
+        profiled once each so the totals reflect one full forward pass."""
+        from repro_torch.conv.analyze import analyze
+        total_stages: collections.Counter = collections.Counter()
+        total_coll: collections.Counter = collections.Counter()
+        total_bytes = 0
+        peak = 0
+        profiles: "collections.OrderedDict" = collections.OrderedDict()
+        for name, plan in self.plans.items():
+            p = analyze(plan, device=device)
+            profiles[name] = p
+            total_stages.update(p.stage_counts)
+            total_coll.update(p.collectives)
+            total_bytes += p.collective_bytes
+            peak = max(peak, p.peak_live_bytes)
+        return NetworkProfile(
+            layers=profiles, total_collectives=dict(total_coll),
+            total_stage_counts=dict(total_stages),
+            total_collective_bytes=total_bytes, peak_live_bytes=peak)
+
     def report(self) -> dict:
-        """Stage-op and collective counts of one forward pass: not ported
-        yet (ROADMAP Queue 1 item 6, the plan-lint analyzer)."""
-        raise NotImplementedError(
-            "NetworkPlan.report is not yet ported to repro_torch: it needs "
-            "the plan-lint analyzer (ROADMAP Queue 1 item 6)")
+        """Aggregate stage-op and collective counts for one forward pass
+        of the whole net (one-shot plans), plus cost-model FLOPs.  Counts
+        come from the static analyzer running each layer on fake tensors
+        and recording what it dispatches, so the numbers reflect what
+        actually executes, schedule by schedule."""
+        net = self.analyze()
+        per_layer = {}
+        total_flops = 0
+        for name, plan in self.plans.items():
+            p = net.layers[name]
+            flops = plan.flops()
+            per_layer[name] = {
+                "backend": plan.backend, "schedule": plan.schedule,
+                "epilogue": plan.epilogue.describe(),
+                "stage_counts": dict(p.stage_counts),
+                "collectives": dict(p.collectives),
+                "flops": flops,
+            }
+            total_flops += flops
+        return {
+            "layers": per_layer,
+            "total_stage_counts": dict(net.total_stage_counts),
+            "total_collectives": dict(net.total_collectives),
+            "total_flops": total_flops,
+            "n_layers": len(self.plans),
+            "n_distinct_plans": len({id(p) for p in self.plans.values()}),
+        }
 
     def describe(self) -> str:
-        total = sum(p.flops() for p in self.plans.values())
-        distinct = len({id(p) for p in self.plans.values()})
-        lines = [f"NetworkPlan: {len(self.plans)} layers, {distinct} "
-                 f"distinct plans, {total:.3e} FLOPs/pass"]
+        rep = self.report()
+        lines = [f"NetworkPlan: {rep['n_layers']} layers, "
+                 f"{rep['n_distinct_plans']} distinct plans, "
+                 f"{rep['total_flops']:.3e} FLOPs/pass"]
         meshes = dict.fromkeys(p.mesh for p in self.plans.values()
                                if p.mesh is not None)
         for mesh in meshes:
             axes = " x ".join(f"{a}={n}" for a, n in
                               zip(mesh.mesh_dim_names, mesh.shape))
             lines.append(f"  mesh {axes} ({mesh.device_type})")
-        for name, plan in self.plans.items():
+        for name, r in rep["layers"].items():
+            coll = ", ".join(f"{k}={v}" for k, v in r["collectives"].items()
+                             if v) or "none"
+            plan = self.plans[name]
             lines.append(
-                f"  {name}: {plan.backend}/{plan.schedule} "
-                f"overlap={plan.overlap} "
-                f"epilogue={plan.epilogue.describe()} "
-                f"flops={plan.flops():.3e}")
+                f"  {name}: {r['backend']}/{r['schedule']} "
+                f"overlap={plan.overlap} epilogue={r['epilogue']} "
+                f"flops={r['flops']:.3e} collectives: {coll}")
+        t = rep["total_collectives"]
+        lines.append(f"  total collectives/pass: "
+                     f"all_to_all={t.get('all_to_all', 0)} "
+                     f"psum={t.get('psum', 0)}")
         return "\n".join(lines)
 
 

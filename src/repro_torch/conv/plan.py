@@ -217,6 +217,16 @@ class ConvPlan:
         return prepared
 
     # ---- introspection ----------------------------------------------------
+    def analyze(self, *, prepared: bool = False, device=None):
+        """Static analysis of this plan run on fake tensors: collective
+        counts, dtype flow, fusion/elision facts, peak live bytes — see
+        ``repro_torch.conv.analyze``.  ``analyze(prepared=True)`` profiles
+        the prepared-execute path (the kernel prepared on a fake kernel; no
+        transform FLOPs run, no cache is written).  Certify with
+        ``plan.analyze().check()``."""
+        from repro_torch.conv.analyze import analyze
+        return analyze(self, prepared=prepared, device=device)
+
     @property
     def x_shape(self) -> tuple:
         s = self.spec
@@ -301,6 +311,14 @@ class PreparedConv:
     @property
     def out_shape(self) -> tuple:
         return self.plan.out_shape
+
+    def analyze(self, *, device=None):
+        """Static analysis of the prepared execution path (stage 2 and —
+        for nfft — boundary all-to-all #2 must be absent from it), on
+        fakes of the prepared state's shapes; see
+        ``repro_torch.conv.analyze``."""
+        from repro_torch.conv.analyze import analyze
+        return analyze(self, device=device)
 
 
 # --------------------------------------------------------------------------

@@ -116,6 +116,20 @@ def stage_trace():
         _remove(stack, counts)
 
 
+@contextlib.contextmanager
+def isolated_trace():
+    """A ``stage_trace`` that the traces already active in this thread do
+    not see: the static analyzer counts what a plan would run without it
+    counting as run."""
+    outer = _stack()
+    _tls.stack = []
+    try:
+        with stage_trace() as counts:
+            yield counts
+    finally:
+        _tls.stack = outer
+
+
 def _stack() -> list:
     stack = getattr(_tls, "stack", None)
     if stack is None:

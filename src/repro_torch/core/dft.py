@@ -16,13 +16,13 @@ The numpy tables are built exactly as ``repro.core.dft`` builds them.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from repro_torch.fake import constant_cache, fake_mode, fakes_like
 
-@functools.lru_cache(maxsize=None)
+
+@constant_cache
 def _dft_mats_np(delta: int):
     """Precompute (numpy, float64 -> float32) all DFT matrices for a tile size."""
     dh = delta // 2 + 1
@@ -50,7 +50,7 @@ def _dft_mats_np(delta: int):
     )
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _dft_mats_on(delta: int, device: torch.device, dtype: torch.dtype):
     # contiguous: the kernels read the tables row-major
     return tuple(torch.as_tensor(m).to(device=device, dtype=dtype)
@@ -59,8 +59,13 @@ def _dft_mats_on(delta: int, device: torch.device, dtype: torch.dtype):
 
 def dft_mats(delta: int, device=None, dtype=torch.float32):
     """Tensor copies of all DFT matrices for tile size ``delta`` (cached
-    per device and dtype: the tables are constants)."""
-    return _dft_mats_on(delta, torch.device(device or "cpu"), dtype)
+    per device and dtype: the tables are constants).  Under a fake mode:
+    fakes of their shapes on ``device`` (``repro_torch.fake``)."""
+    device = torch.device(device or "cpu")
+    if fake_mode() is not None:
+        return fakes_like(_dft_mats_on(delta, torch.device("cpu"), dtype),
+                          device)
+    return _dft_mats_on(delta, device, dtype)
 
 
 def rfft2_tiles(x, delta: int):
@@ -110,7 +115,7 @@ def num_freq_real(delta: int) -> int:
     return len(_compact_layout_np(delta)[0])
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _compact_layout_np(delta: int):
     """Gather/scatter index maps between the rect rfft2 layout and the
     compact Hermitian frequency list.
@@ -148,7 +153,7 @@ def _compact_layout_np(delta: int):
     return (store.astype(np.int32), src.astype(np.int32), sgn)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _compact_layout_on(delta: int, device: torch.device):
     store, src, sgn = _compact_layout_np(delta)
     return (torch.as_tensor(store).to(device),
@@ -157,8 +162,13 @@ def _compact_layout_on(delta: int, device: torch.device):
 
 
 def compact_layout(delta: int, device=None):
-    """Tensor copies of the (store, src, sgn) compact-layout index maps."""
-    return _compact_layout_on(delta, torch.device(device or "cpu"))
+    """Tensor copies of the (store, src, sgn) compact-layout index maps.
+    Under a fake mode: fakes of their shapes on ``device``."""
+    device = torch.device(device or "cpu")
+    if fake_mode() is not None:
+        return fakes_like(_compact_layout_on(delta, torch.device("cpu")),
+                          device)
+    return _compact_layout_on(delta, device)
 
 
 def pack_half_spectrum(Tr, Ti, delta: int):

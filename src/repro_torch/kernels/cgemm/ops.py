@@ -4,7 +4,10 @@
 plain PyTorch version (``ref.cgemm_ref``); a CUDA tensor launches the
 ``csrc/cgemm.cu`` kernel on the current stream, or raises.  It masks ragged
 dims itself, so nothing is padded.  ``cgemm_cuda.launches`` counts the
-kernel launches.
+kernel launches.  A fake operand (the static analyzer's,
+``repro_torch.fake``) gets fake outputs of the plain version's shape and
+dtype once the contract is checked: nothing is built, launched or
+counted.
 
 The kernel has two regimes on an H100, and ``choose_variant`` picks its
 form from the shapes alone:
@@ -40,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.fake import constant_cache, is_fake
 from repro_torch.kernels import _build
 from repro_torch.kernels.cgemm.ref import cgemm_ref
 
@@ -151,7 +155,7 @@ def choose_variant(P: int, M: int, C: int, N: int, dtype,
                    grid=(-(-N // bn), -(-M // bm), P))
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _lib():
     lib = _build.load("cgemm")
     for name in _ENTRY.values():
@@ -228,13 +232,15 @@ def cgemm_cuda(Dr, Di, Gr, Gi, *, three_m: bool = True,
     chooser's pick)."""
     _check(Dr, Di, Gr, Gi)
     _check_shape(shape)
+    P, M, C = Dr.shape
+    N = Gr.shape[2]
+    if is_fake(Dr):
+        return Dr.new_empty((P, M, N)), Dr.new_empty((P, M, N))
     device = Dr.device
     if device.type == "cpu":
         return cgemm_ref(Dr, Di, Gr, Gi, three_m=three_m)
     if device.type != "cuda":
         raise ValueError(f"cgemm_cuda: unsupported device {device}")
-    P, M, C = Dr.shape
-    N = Gr.shape[2]
     Zr = torch.empty((P, M, N), dtype=Dr.dtype, device=device)
     Zi = torch.empty((P, M, N), dtype=Dr.dtype, device=device)
     if Zr.numel() == 0:

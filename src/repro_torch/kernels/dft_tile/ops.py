@@ -20,7 +20,10 @@ the raw stage primitives' ``spectrum="rect"`` hooks (no plan uses it):
 Each dispatches on the operands' device: a CPU tensor runs the plain
 PyTorch version (``ref.py``); a CUDA tensor launches the
 ``csrc/dft_tile.cu`` kernel on the current stream, or raises.  Each counts
-its launches in ``<wrapper>.launches``.
+its launches in ``<wrapper>.launches``.  A fake operand (the static
+analyzer's, ``repro_torch.fake``) gets fake outputs of the plain
+version's shapes and dtypes once the contract is checked: nothing is
+built, launched or counted.
 
 The forward kernel has two forms, and ``choose_form`` picks one from the
 tile size and the tile tensor's alignment: ``specialised`` (delta 16, the
@@ -46,12 +49,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from repro_torch.core.dft import compact_layout, dft_mats, num_freq_real
+from repro_torch.fake import constant_cache, is_fake
 from repro_torch.kernels import _build
 from repro_torch.kernels.dft_tile.ref import (
     tile_fft_ref, tile_ifft_epilogue_ref, tile_ifft_ref,
@@ -109,7 +112,7 @@ def choose_form(delta: int, ptr: int) -> Form:
     return _form(delta, ptr % 16 == 0)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _form(delta: int, aligned: bool) -> Form:
     return SPECIALISED if delta == SPECIALISED_DELTA and aligned else GENERIC
 
@@ -123,7 +126,7 @@ def choose_inverse_form(delta: int, ptrs, ld: int) -> Form:
     return _inverse_form(delta, all(p % 16 == 0 for p in ptrs), ld % 2 == 0)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _inverse_form(delta: int, aligned: bool, even: bool) -> Form:
     return (SPECIALISED if delta == SPECIALISED_DELTA and aligned and even
             else GENERIC)
@@ -148,7 +151,7 @@ def resolve_tiles(tiles=None) -> int:
     return tiles
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def forward_tables(delta: int) -> np.ndarray:
     """The host copy of the table the specialised form takes by value:
     F_half (= rows 0..delta//2 of F), real then imaginary, (2, delta//2 +
@@ -157,7 +160,7 @@ def forward_tables(delta: int) -> np.ndarray:
     return np.ascontiguousarray(np.stack([Fhr.numpy(), Fhi.numpy()]))
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def inverse_tables(delta: int) -> np.ndarray:
     """The host copy of the tables the specialised inverse takes by value,
     flat float32: rows 0..delta//2 of Finv, real then imaginary (each
@@ -170,7 +173,7 @@ def inverse_tables(delta: int) -> np.ndarray:
                            for m in (Fvr, Fvi, Wr, Wi)])
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _lib():
     lib = _build.load("dft_tile")
     for name, argtypes in _ARGTYPES.items():
@@ -278,7 +281,7 @@ def _count(wrapper, form, tiles=None):
         wrapper.tiles_launches[tiles] += 1
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _forward_consts(delta, device):
     """The forward launch's constant arguments, cached per device: the data
     pointers of the generic form's tables F, F_half (the caches of
@@ -299,12 +302,14 @@ def tile_rfft_cuda(x, *, delta: int = 16):
     _check_delta(name, delta)
     _check_tiles(name, x, delta)
     _check_layout(name, (x,))
+    P = num_freq_real(delta)
+    if is_fake(x):
+        return x.new_empty((x.shape[0], P)), x.new_empty((x.shape[0], P))
     device = x.device
     if device.type == "cpu":
         return tile_rfft_ref(x, delta)
     _cuda_device(name, device)
     n = x.shape[0]
-    P = num_freq_real(delta)
     Tr = x.new_empty((n, P))        # x's float32 and device, less host time
     Ti = x.new_empty((n, P))
     if n == 0:
@@ -318,7 +323,7 @@ def tile_rfft_cuda(x, *, delta: int = 16):
     return Tr, Ti
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _inverse_consts(delta, device):
     """The inverse launch's constant arguments, cached per device: the data
     pointers of the generic form's tables Finv, W (the caches of
@@ -351,6 +356,8 @@ def tile_irfft_cuda(Zr, Zi, *, delta: int = 16, tiles=None):
     _check_delta(name, delta)
     _check_planes(name, Zr, Zi, delta)
     _check_layout(name, (Zr, Zi))
+    if is_fake(Zr):
+        return Zr.new_empty((Zr.shape[0], delta, delta))
     device = Zr.device
     if device.type == "cpu":
         return tile_irfft_ref(Zr, Zi, delta)
@@ -382,6 +389,8 @@ def tile_irfft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
     _check_planes(name, Zr, Zi, delta)
     _check_bias(Zr, bias)
     _check_layout(name, (Zr, Zi, bias))
+    if is_fake(Zr):
+        return Zr.new_empty((Zr.shape[0], delta, delta))
     device = Zr.device
     if device.type == "cpu":
         return tile_irfft_epilogue_ref(Zr, Zi, bias, activation=activation,
@@ -408,6 +417,9 @@ def tile_fft_cuda(x, *, delta: int = 16):
     _check_delta(name, delta)
     _check_tiles(name, x, delta)
     _check_layout(name, (x,))
+    if is_fake(x):
+        shape = (x.shape[0], delta, delta // 2 + 1)
+        return x.new_empty(shape), x.new_empty(shape)
     device = x.device
     if device.type == "cpu":
         return tile_fft_ref(x, delta)
@@ -436,6 +448,8 @@ def tile_ifft_cuda(Zr, Zi, *, delta: int = 16, tiles=None):
     _check_delta(name, delta)
     _check_rect_planes(name, Zr, Zi, delta)
     _check_layout(name, (Zr, Zi))
+    if is_fake(Zr):
+        return Zr.new_empty((Zr.shape[0], delta, delta))
     device = Zr.device
     if device.type == "cpu":
         return tile_ifft_ref(Zr, Zi, delta)
@@ -465,6 +479,8 @@ def tile_ifft_epilogue_cuda(Zr, Zi, bias, *, activation: str = "none",
     _check_rect_planes(name, Zr, Zi, delta)
     _check_bias(Zr, bias)
     _check_layout(name, (Zr, Zi, bias))
+    if is_fake(Zr):
+        return Zr.new_empty((Zr.shape[0], delta, delta))
     device = Zr.device
     if device.type == "cpu":
         return tile_ifft_epilogue_ref(Zr, Zi, bias, activation=activation,

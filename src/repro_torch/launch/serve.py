@@ -126,6 +126,13 @@ def serve_convnet(args) -> ServeResult:
             # persistent cache) before the first request executes
             _print_tuning(net, time.perf_counter() - t0)
     print(net.describe())
+    if args.analyze:
+        prof = net.analyze().raise_if_failed()
+        t = prof.total_collectives
+        print(f"plan-lint: OK — {len(prof.layers)} layers certified, "
+              f"collectives/pass: all_to_all={t.get('all_to_all', 0)} "
+              f"psum={t.get('psum', 0)}, "
+              f"peak live ~{prof.peak_live_bytes / 1e6:.1f} MB/rank")
 
     rng = np.random.default_rng(args.seed)
 
@@ -375,10 +382,10 @@ def serve_trace(args) -> TraceResult:
                        make_layers=make_layers, forward=forward)
 
 
-def _not_ported(flag: str, what: str, item: int) -> NotImplementedError:
+def _not_ported(flag: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{flag} is not yet ported to repro_torch: it needs {what} "
-        f"(ROADMAP Queue 1 item {item})")
+        f"{flag} is not yet ported to repro_torch: it needs the plan "
+        "artifacts (ROADMAP Queue 1 item 7)")
 
 
 def main(argv=None):
@@ -445,7 +452,11 @@ def main(argv=None):
                          "planning (cached per machine; overrides "
                          "--conv-backend)")
     ap.add_argument("--analyze", action="store_true",
-                    help="plan-lint: not ported yet")
+                    help="plan-lint the planned convnet (static analyzer, "
+                         "repro_torch.conv.analyze, on fake tensors) "
+                         "before serving; aborts if any layer violates a "
+                         "structural invariant (the fixed-shape loop "
+                         "only, as in the reference)")
     ap.add_argument("--image", type=int, default=0,
                     help="input size (default 224, smoke 64)")
     ap.add_argument("--smoke", action="store_true")
@@ -457,12 +468,10 @@ def main(argv=None):
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
-    if args.analyze:
-        raise _not_ported("--analyze", "the plan-lint analyzer", 6)
     for flag, value in (("--export-plans", args.export_plans),
                         ("--load-plans", args.load_plans)):
         if value:
-            raise _not_ported(flag, "the plan artifacts", 7)
+            raise _not_ported(flag)
     if not args.trace_requests:
         args.trace_requests = 24 if args.smoke else 64
     if args.timing is None:

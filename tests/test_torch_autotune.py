@@ -628,6 +628,30 @@ def test_measure_us_times_the_calls(tune_env):
     assert len(calls) == 4 and us >= 0         # one warm-up, three timed
 
 
+def test_a_sweep_draws_its_inputs_once(tune_env, monkeypatch):
+    """Every candidate of a sweep times the same x, k and bias, drawn once
+    before the budget's clock starts (drawing a 224x224 input took most
+    of a layer's budget on the card's host); none is kept after it."""
+    seen, draws = [], []
+    real_measure, real_rng = autotune._measure_plan, np.random.default_rng
+
+    def measure(plan, reps, device):
+        seen.append(autotune._inputs(plan.x_shape, plan.k_shape, device))
+        return real_measure(plan, reps, device)
+
+    def rng(*a):
+        draws.append(a)
+        return real_rng(*a)
+
+    monkeypatch.setattr(autotune, "_measure_plan", measure)
+    monkeypatch.setattr(np.random, "default_rng", rng)
+    autotune.tune(X_SHAPE, K_SHAPE, padding=1, budget=1e9)
+    assert len(seen) == autotune.sweeps()[-1]["candidates"] > 1
+    assert len(draws) == 1
+    assert all(all(a is b for a, b in zip(s, seen[0])) for s in seen)
+    assert autotune._drawn == {}
+
+
 def test_selfcheck_round_trips_on_the_cpu(tune_env, capsys):
     assert autotune.main(["--selfcheck", "--device", "cpu"]) == 0
     assert "selfcheck OK" in capsys.readouterr().out

@@ -16,6 +16,11 @@
   batch and occupancy figures, the dedupe report, the oversize rejection
   and the shape after the weight update equal.  Both modules also run as
   ``python -m``.
+- ``serve --analyze`` (plan-lint, ``repro_torch.conv.analyze``): the
+  fixed-shape loop certifies every layer before serving and serves what
+  it serves without the flag; with ``--serve-trace`` the flag is
+  accepted and the trace served, as the reference's serve does (its
+  trace mode plans inside the engine and lints nothing).
 """
 import contextlib
 import io
@@ -35,6 +40,7 @@ import repro.core as jcore
 import repro_torch.core as tcore
 from repro_torch.conv import plan_conv
 from repro_torch.examples import quickstart, serve_batcher
+from repro_torch.launch import serve
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 NAMES = {"direct": "direct", "fft-xla": "fft-torch",
@@ -217,3 +223,44 @@ def test_example_twin_runs_as_a_module(name):
     want = {"quickstart": "prepared exec matches one-shot: True",
             "serve_batcher": "after weight update: result (3, 16, 32, 32)"}
     assert want[name] in out.stdout
+
+
+# --------------------------------------------------------------------------
+# serve --analyze
+# --------------------------------------------------------------------------
+
+def _serve_lines(capsys, *flags):
+    serve.main(["--conv-backend", "fft-cuda", "--smoke", "--batch", "1",
+                "--gen", "2", "--device", "cpu", *flags])
+    return capsys.readouterr().out.splitlines()
+
+
+def test_serve_analyze_certifies_and_serves_the_same(capsys):
+    """``serve --analyze --conv-backend fft-cuda --smoke --batch 1 --gen 2
+    --device cpu`` prints the reference's plan-lint line and serves; its
+    ``output:`` line is the one the same run prints without the flag."""
+    lines = _serve_lines(capsys, "--analyze")
+    lint = [l for l in lines if l.startswith("plan-lint:")]
+    assert len(lint) == 1
+    assert lint[0].startswith("plan-lint: OK — 9 layers certified, "
+                              "collectives/pass: all_to_all=0 psum=0, "
+                              "peak live ~")
+    assert "  total collectives/pass: all_to_all=0 psum=0" in lines
+    plain = _serve_lines(capsys)
+    assert not [l for l in plain if l.startswith("plan-lint:")]
+    output = [l for l in lines if l.startswith("output:")]
+    assert len(output) == 1
+    assert output == [l for l in plain if l.startswith("output:")]
+
+
+def test_serve_trace_takes_analyze(capsys):
+    """``serve --serve-trace --analyze --device cpu`` serves the trace (the
+    flag no longer refuses)."""
+    res = serve.main(["--serve-trace", "--analyze", "--conv-backend",
+                      "fft-cuda", "--image", "32", "--max-batch", "2",
+                      "--trace-requests", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "serve-trace mode=bucketed" in out
+    assert res.reports["bucketed"]["n_requests"] == 4
+    assert all(bool(torch.isfinite(y).all())
+               for y in res.engines["bucketed"].results.values())
