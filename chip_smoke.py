@@ -219,11 +219,47 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               ``--inject extra-collective``.  Reported, not gated: each
               layer's estimated peak live bytes of a prepared forward
               beside the measured ``max_memory_allocated`` increase
+ 17. plan_artifacts  after phase 10, and its sharded half inside phase 11's
+              process group after phase 16: plan artifacts
+              (``repro_torch.conv.export``).  Phase 9's engine (every
+              bucket prepared afresh) exports its plans and slabs
+              (``export_plans``: no launch, every prepare a cache hit), and
+              a fresh ``ServeEngine(load_plans=)`` serves phase 9's trace
+              from the file.  Gates: ``plan_source`` ``"aot"``; plan-cache
+              hits and misses unchanged by the load; start-up launches
+              those of phase 9's start-up less its prepares (the warm-up
+              and capture forwards only); no launch in the trace, a replay
+              a batch, zero plan-cache misses after warm-up, phase 9's
+              placements; every loaded slab bit-equal (and stride-equal)
+              to the live prepare's; the first and last requests and one
+              per bucket within ``GRAPH_TOL`` of phase 9's results and
+              ``SLICE_TOL`` of cuDNN; ``verify`` ok on all 36 layer
+              entries; batch 4's fingerprints equal on the card's fake
+              tensors, the host's and in the file; a copy stamped for
+              another device warns, loads live and serves the same
+              results; an engine of another ``weights_version`` falls
+              back.  Then ``serve --serve-trace --conv-backend fft-cuda
+              --load-plans`` in a fresh process exits 0 with source
+              ``"aot"``, fingerprints verified and 0 misses, beside the
+              same command planning live.  Phase 10's tuned trunk, loaded
+              after ``autotune.reset()`` onto an empty temporary cache,
+              measures and launches nothing, has the export's backend, tile
+              row and ``dft_bt`` on every layer, and is within
+              ``SLICE_TOL`` of cuDNN.  On the mesh, phase 14's nfft ``off``
+              engine: ``load_network(mesh=)`` launches nothing, runs no
+              counted collective, holds the caller's mesh and slabs
+              bit-equal to the live prepare's; the engine from the file
+              starts without prepares and serves within ``GRAPH_TOL`` of
+              phase 14's results and ``SLICE_TOL`` of cuDNN.  Reported, not
+              gated: export seconds, the file's MB and distinct slab
+              members, load and capture seconds, slab bytes on the card
+              live and loaded, both fresh processes' cold starts, the
+              tuned load's seconds beside phase 10's sweep
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) and read right after it; each path
+(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17) and read right after it; each path
 must launch its own kernels and none of the others, and every tile DFT,
 forward and inverse, only in its specialised form.
 
@@ -253,7 +289,7 @@ import torch.nn.functional as TF  # noqa: E402
 
 from repro_torch.conv import (  # noqa: E402
     Epilogue, autodiff, autotune, autotune_info, clear_prepared_cache,
-    plan_conv, plan_network, stages)
+    plan_cache_info, plan_conv, plan_network, stages)
 from repro_torch.conv.analyze import main as analyze_main  # noqa: E402
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core import fft_conv2d_pallas  # noqa: E402
@@ -2022,7 +2058,7 @@ def tune_phase(res, y_ref, slice_p50_ms, profile_busy_us):
          round_trip=dict(info=rt_info._asdict(), launches=rt_counts,
                          cache_version=version))
     return {k: sweep_counts[k] + tuned["launches"][k]
-            + pinned["launches"][k] for k in KERNELS}
+            + pinned["launches"][k] for k in KERNELS}, net, sweep_s
 
 
 def sharded_launches(n_layers, slabs, forwards, prepares, one_shot=False):
@@ -2734,7 +2770,7 @@ def sharded_serve(mesh, served, configs):
     per-bucket p50/p99, throughput, start-up, capture, graph memory, rank
     broadcasts, and a lone batch-4 request's p50 and busy time beside
     phase 9's and phase 11's.  ``configs`` are phase 11's reports.
-    Returns (reports, launches)."""
+    Returns (reports, launches, nfft ``off``'s results by rid)."""
     res = served.res
     n_layers = len(serve._vgg_scale(IMAGE))
     eager = {(c["schedule"], c["overlap"]): c for c in configs}
@@ -2792,6 +2828,8 @@ def sharded_serve(mesh, served, configs):
                                 res.inputs[res.trace[rid].batch],
                                 res.kernels, local=served.results[rid])
                    for rid in sorted(rids)]
+        if (schedule, overlap) == ("nfft", "off"):   # phase 17's reference
+            kept = {r: eng.results[r] for r in range(SERVE_REQUESTS)}
         activity = replay_activity(eng, what)
 
         # a lone batch-4 request: host p50 and device busy time
@@ -2872,7 +2910,7 @@ def sharded_serve(mesh, served, configs):
                 eager_sharded_busy_us=base["device_busy_us"],
                 kernels=[{"name": k[:90], "device_us": t, "calls": c}
                          for t, k, c in rows[:8]])))
-    return reports, total
+    return reports, total, kept
 
 
 def engine_launches(n_layers, n_buckets):
@@ -3147,11 +3185,460 @@ def plan_lint_phase(mesh, convs, res):
                           seconds=inject_s, rc=inject_rc))
 
 
+# --------------------------------------------------------------------------
+# Phase 17: plan artifacts (repro_torch.conv.export)
+# --------------------------------------------------------------------------
+
+def loaded_start_launches(n_layers, n_buckets, slabs=1):
+    """Launches of an engine's start-up from a plan artifact: the
+    ``WARMUP_PASSES`` eager forwards and the capture of every bucket, and
+    no prepare (no stage 2)."""
+    return sharded_launches(n_layers, slabs,
+                            n_buckets * (batcher.WARMUP_PASSES + 1), 0)
+
+
+def prepared_of(eng, key):
+    """The prepared network bucket ``key``'s executor runs (replica 0)."""
+    return eng._exec[0][key]._prepared
+
+
+def slab_bytes(eng):
+    """Bytes of the distinct prepared slabs an engine's executors hold."""
+    seen = {}
+    for ex in eng._exec[0].values():
+        for layer in ex._prepared.layers.values():
+            st = layer.state
+            for t in (st if isinstance(st, tuple) else (st,)):
+                s = t.untyped_storage()
+                seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+def check_loaded_slabs(what, aot, live):
+    """Every bucket's loaded slabs equal the live engine's prepare's, bit
+    for bit and stride for stride (a CGEMM operand of other strides would
+    take another load form).  Returns the layer entries checked."""
+    n = 0
+    for key in live._exec[0]:
+        loaded, prepared = prepared_of(aot, key), prepared_of(live, key)
+        for name, layer in prepared.items():
+            for a, b in zip(loaded[name].state, layer.state):
+                if not (torch.equal(a, b) and a.stride() == b.stride()):
+                    raise AssertionError(
+                        f"{what} b{key[0]} {name}: a loaded slab differs "
+                        "from the live prepare's")
+            n += 1
+    return n
+
+
+def artifact_check(eng, res, rid, local):
+    """Request ``rid`` of an engine served from an artifact (or its live
+    fallback) against ``local`` (phase 9's or 14's result for the same
+    request), within ``GRAPH_TOL``, and against cuDNN at its own batch,
+    within ``SLICE_TOL``."""
+    x = res.inputs[res.trace[rid].batch]
+    y = eng.results[rid]
+    direct = plan_network(res.make_layers(x.shape[0]), backend="direct")
+    with torch.inference_mode():
+        y_direct = res.forward(direct.prepare(res.kernels), x)
+    torch.cuda.synchronize()
+    out = dict(rid=rid, bucket=eng.placements[rid][0],
+               rel_err_vs_served=rel_err(y, local),
+               rel_err_vs_cudnn=rel_err(y, y_direct))
+    if type(y) is not torch.Tensor or not bool(torch.isfinite(y).all()) \
+            or not out["rel_err_vs_served"] <= GRAPH_TOL \
+            or not out["rel_err_vs_cudnn"] <= SLICE_TOL:
+        raise AssertionError(
+            f"artifact request {out}: not a finite plain tensor within "
+            f"{GRAPH_TOL} of the served result and {SLICE_TOL} of cuDNN")
+    return out
+
+
+def trace_through(eng, res, served_results, what):
+    """Phase 9's trace through ``eng``: no launch, a replay a batch, zero
+    plan-cache misses after warm-up, phase 9's placements; the first and
+    last requests and the first of every bucket checked against
+    ``served_results`` (``artifact_check``).  Returns (report, checks)."""
+    zero_counts()
+    rep = batcher.run_trace(eng, res.trace,
+                            make_input=lambda b, _: res.inputs[b],
+                            realtime=False)
+    expect_counts(f"{what} trace", read_counts(), {})
+    n_batches = sum(b["n_batches"] for b in rep["buckets"].values())
+    replays = sum(map(sum, rep["graph_replays"].values()))
+    if (rep["executor"], replays, rep["n_requests"],
+            rep["plan_cache_misses_after_warmup"]) != (
+            "cuda-graph", n_batches, SERVE_REQUESTS, 0):
+        raise AssertionError(
+            f"{what}: executor {rep['executor']}, {replays} replays for "
+            f"{n_batches} batches, {rep['n_requests']} requests, "
+            f"{rep['plan_cache_misses_after_warmup']} plan-cache misses "
+            "after warm-up")
+    rids = {0, SERVE_REQUESTS - 1}
+    for label in rep["buckets"]:
+        rids.add(min(r for r, p in eng.placements.items() if p[0] == label))
+    checks = [artifact_check(eng, res, rid, served_results[rid])
+              for rid in sorted(rids)]
+    return rep, checks
+
+
+def engine_of(res, **kw):
+    """Phase 9's engine (its policy, forward, window and weights) on the
+    card, with ``kw`` (``load_plans=``, ``mesh=``, ...)."""
+    return batcher.ServeEngine(
+        res.make_layers, res.kernels,
+        policy=batcher.BucketPolicy(max_batch=SERVE_MAX_BATCH),
+        forward=res.forward, window_s=SERVE_WINDOW_MS * 1e-3,
+        device="cuda", backend="fft-cuda", **kw)
+
+
+def warned_load(res, path, **kw):
+    """An engine from ``path`` that must fall back to live planning with
+    the engine's warning: (engine, the warning)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = engine_of(res, load_plans=path, **kw)
+    msgs = [str(w.message) for w in caught
+            if "falling back to live planning" in str(w.message)]
+    if eng.plan_source != "live" or not msgs:
+        raise AssertionError(f"a stale artifact loaded as "
+                             f"{eng.plan_source!r}, warnings {msgs}")
+    return eng, msgs[0]
+
+
+def tamper(path, out, **fields):
+    """A copy of the artifact at ``path`` with manifest ``fields``
+    replaced, every member copied as it is stored."""
+    import zipfile
+    with zipfile.ZipFile(path) as zin, \
+            zipfile.ZipFile(out, "w", zipfile.ZIP_STORED) as zout:
+        for info in zin.infolist():
+            data = zin.read(info)
+            if info.filename == "manifest.json":
+                data = json.dumps(dict(json.loads(data), **fields))
+            zout.writestr(info, data)
+    return out
+
+
+def coldstart(path=None):
+    """``serve --serve-trace --conv-backend fft-cuda`` in a fresh process,
+    with ``--load-plans path`` when given: its cold-start report, exit
+    code, command seconds and certification line."""
+    out = path + ".cs.json" if path else os.path.join(
+        tempfile.gettempdir(), f"chip_smoke_live_{os.getpid()}.cs.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--serve-trace",
+           "--conv-backend", "fft-cuda", "--coldstart-out", out]
+    if path:
+        cmd += ["--load-plans", path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(
+                              os.environ, PYTHONPATH=os.path.join(ROOT,
+                                                                  "src")))
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(
+            f"serve {'--load-plans' if path else 'live'} in a fresh "
+            f"process exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+            f"{proc.stderr[-2000:]}")
+    with open(out) as fh:
+        report = json.load(fh)
+    os.remove(out)
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("load-plans")), None)
+    return dict(report, command_s=seconds, certification=line)
+
+
+def plan_artifacts_phase(served, tuned_net, tune_sweep_s):
+    """Phase 17, on the card: phase 9's engine exported from a live engine
+    and served from the artifact in a fresh engine, its tampered and stale
+    copies falling back, ``serve --load-plans`` in a fresh process beside
+    a live one, and phase 10's tuned trunk loaded onto an empty tuning
+    cache.  Returns the launches."""
+    from repro_torch.conv import export as planx
+    res = served.res
+    n_layers = len(serve._vgg_scale(IMAGE))
+    n_buckets = len(batcher.BucketPolicy(
+        max_batch=SERVE_MAX_BATCH).batch_buckets())
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k in KERNELS:
+            total[k] += counts[k]
+        return counts
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_plans_")
+    path = os.path.join(tmp.name, "vgg.rpa")
+    try:
+        # the live engine: every bucket prepared afresh
+        clear_prepared_cache()
+        zero_counts()
+        live = engine_of(res)
+        expect_counts("artifact live engine", add(read_counts()),
+                      engine_launches(n_layers, n_buckets))
+        zero_counts()
+        t0 = time.perf_counter()
+        live.export_plans(path)
+        export_s = time.perf_counter() - t0
+        # every prepare hits the live engine's prepared spectra
+        expect_counts("export", add(read_counts()), {})
+        manifest = planx.read_manifest(path)
+        layers = [e for n in manifest["nets"].values()
+                  for e in n["layers"].values()]
+        slab_members = {m for e in layers for m in e["state"]}
+
+        # a fresh engine from the artifact
+        plans = plan_cache_info()
+        zero_counts()
+        aot = engine_of(res, load_plans=path)
+        torch.cuda.synchronize()
+        start_counts = add(read_counts())
+        want_start = loaded_start_launches(n_layers, n_buckets)
+        expect_counts("engine from the artifact", start_counts, want_start)
+        if aot.plan_source != "aot" or plan_cache_info() != plans:
+            raise AssertionError(
+                f"engine from the artifact: source {aot.plan_source}, plan "
+                f"cache {plan_cache_info()} (was {plans})")
+        n_slabs_checked = check_loaded_slabs("artifact", aot, live)
+        rep, checks = trace_through(aot, res, served.results, "artifact")
+        if aot.placements != served.placements:
+            raise AssertionError("artifact: placements differ from phase "
+                                 "9's")
+        bytes_live, bytes_loaded = slab_bytes(live), slab_bytes(aot)
+        t0 = time.perf_counter()
+        cert = planx.verify(path)
+        verify_s = time.perf_counter() - t0
+        if not cert["ok"] or cert["n_checked"] != n_layers * n_buckets:
+            raise AssertionError(f"verify: {cert}")
+        # the fingerprint on the card's default device and on the host
+        net4 = live.nets[(4, None)]
+        fps = {name: (planx.plan_fingerprint(p, prepared=True),
+                      planx.plan_fingerprint(p, prepared=True, device="cpu"),
+                      manifest["nets"]["b4"]["layers"][name]["fingerprint"])
+               for name, p in net4.items()}
+        if any(len(set(f)) != 1 for f in fps.values()):
+            raise AssertionError(f"fingerprints differ between the card's "
+                                 f"analysis, the host's and the export's: "
+                                 f"{fps}")
+        aot_report = aot.report()
+        del aot, live
+        torch.cuda.empty_cache()
+
+        # a copy stamped for another device falls back, with equal results
+        bad = tamper(path, os.path.join(tmp.name, "other_device.rpa"),
+                     device_name="NVIDIA A100-SXM4-80GB")
+        zero_counts()
+        eng, device_warning = warned_load(res, bad)
+        add(read_counts())
+        _, tampered_checks = trace_through(eng, res, served.results,
+                                           "tampered artifact")
+        del eng
+        os.remove(bad)
+        # an engine of another weights_version falls back
+        zero_counts()
+        eng, version_warning = warned_load(res, path, weights_version=7,
+                                           warm=False)
+        add(read_counts())
+        del eng
+        clear_prepared_cache()
+        torch.cuda.empty_cache()
+
+        # fresh processes: live, then from the artifact
+        cold_live = coldstart()
+        cold_aot = coldstart(path)
+        if (cold_aot["source"], cold_aot["fingerprints_verified"],
+                cold_aot["plan_cache_misses_after_warmup"]) != (
+                "aot", True, 0):
+            raise AssertionError(f"serve --load-plans: {cold_aot}")
+        artifact_mb = os.path.getsize(path) / 1e6
+        os.remove(path)
+
+        tuned = tuned_artifact(tuned_net, served, tmp.name, add)
+    finally:
+        tmp.cleanup()
+    emit("plan_artifacts", image=IMAGE, max_batch=SERVE_MAX_BATCH,
+         requests=SERVE_REQUESTS, buckets=n_buckets, layers=n_layers,
+         export_s=export_s, artifact_mb=artifact_mb,
+         layer_entries=len(layers), distinct_slab_members=len(slab_members),
+         distinct_slab_sets=len({tuple(e["state"]) for e in layers}),
+         distinct_members=len(manifest["tensors"]),
+         load_s=aot_report["startup_load_s"],
+         capture_s=aot_report["startup_capture_s"],
+         startup_s=aot_report["startup_s"],
+         launches_at_start=start_counts,
+         slab_entries_bit_equal=n_slabs_checked,
+         slab_bytes_live=bytes_live, slab_bytes_loaded=bytes_loaded,
+         batches=sum(b["n_batches"] for b in rep["buckets"].values()),
+         graph_replays=rep["graph_replays"],
+         plan_cache_misses_after_warmup=rep[
+             "plan_cache_misses_after_warmup"],
+         tol=GRAPH_TOL, tol_cudnn=SLICE_TOL, checked=checks,
+         verify=dict(ok=cert["ok"], n_checked=cert["n_checked"],
+                     seconds=verify_s),
+         fingerprints_card_equal_host=len(fps),
+         tampered_device=dict(warning=device_warning[:300],
+                              checked=tampered_checks),
+         stale_weights_version=dict(warning=version_warning[:300]),
+         coldstart_live=cold_live, coldstart_aot=cold_aot,
+         tuned=dict(tuned, sweep_s_phase10=tune_sweep_s))
+    return total
+
+
+def tuned_artifact(net, served, tmp, add):
+    """Phase 10's tuned trunk exported, then loaded after
+    ``autotune.reset()`` onto an empty temporary tuning cache: nothing
+    measured, no launch, every layer's resolved backend, CGEMM row and
+    ``dft_bt`` those of the export, the output within ``SLICE_TOL`` of
+    cuDNN."""
+    from repro_torch.conv import export as planx
+    res = served.res
+    path = os.path.join(tmp, "tuned.rpa")
+    zero_counts()
+    t0 = time.perf_counter()
+    net.export(path, params=res.kernels, weights_version=0)
+    export_s = time.perf_counter() - t0
+    add(read_counts())
+    saved = {k: os.environ.pop(k) for k in TUNE_ENV if k in os.environ}
+    cache = os.path.join(tmp, "empty_tune.json")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
+    try:
+        autotune.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        loaded = planx.load_network(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_counts = add(read_counts())
+        expect_counts("tuned artifact load", load_counts, {})
+        info = autotune_info()
+        if loaded.source != "aot" or autotune.sweeps() or info.measured \
+                or os.path.exists(cache):
+            raise AssertionError(
+                f"tuned artifact load: source {loaded.source}, "
+                f"{info}, sweeps {autotune.sweeps()}")
+        keys = ("backend", "schedule", "spectrum", "bm", "bn", "bk",
+                "dft_bt", "overlap")
+        differ = {name: [k for k in keys if getattr(layer.plan, k)
+                         != getattr(net[name], k)]
+                  for name, layer in loaded.items()}
+        if any(differ.values()):
+            raise AssertionError(f"tuned artifact: layers differ from the "
+                                 f"export's in {differ}")
+        zero_counts()
+        direct = plan_network(network_convs(serve._vgg_scale(IMAGE), BATCH),
+                              backend="direct")
+        x = served.xa                   # batch 4, the tuned trunk's
+        with torch.inference_mode():
+            y = res.forward(loaded, x)
+            y_ref = res.forward(direct.prepare(res.kernels), x)
+        torch.cuda.synchronize()
+        add(read_counts())
+        rel = rel_err(y, y_ref)
+        if not bool(torch.isfinite(y).all()) or not rel <= SLICE_TOL:
+            raise AssertionError(f"tuned artifact vs cuDNN: {rel:.3e}")
+    finally:
+        for k in TUNE_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        autotune.reset()
+    return dict(export_s=export_s, load_s=load_s, load_launches=load_counts,
+                artifact_mb=os.path.getsize(path) / 1e6,
+                backends={n: layer.plan.backend
+                          for n, layer in loaded.items()},
+                rel_err_vs_cudnn=rel, tol=SLICE_TOL)
+
+
+def sharded_artifacts(mesh, served, served14):
+    """Phase 17's sharded half, inside phase 11's process group: phase
+    14's nfft ``off`` engine exported from a live engine over the mesh
+    (rank 0 gathers and writes) and loaded with ``load_network(mesh=)``
+    (no stage 2, no collective, the caller's mesh, slabs bit-equal to the
+    live prepare's), then served from the artifact (start-up without
+    prepares) with results within ``GRAPH_TOL`` of phase 14's and
+    ``SLICE_TOL`` of cuDNN.  Returns the launches."""
+    from repro_torch.conv import export as planx
+    res = served.res
+    n_layers = len(serve._vgg_scale(IMAGE))
+    n_buckets = len(batcher.BucketPolicy(
+        max_batch=SERVE_MAX_BATCH).batch_buckets())
+    total = dict.fromkeys(KERNELS, 0)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_plans_")
+    path = os.path.join(tmp.name, "vgg_nfft.rpa")
+    kw = dict(mesh=mesh, schedule="nfft", overlap="off")
+    try:
+        clear_prepared_cache()
+        zero_counts()
+        live = engine_of(res, warm=False, **kw)
+        t0 = time.perf_counter()
+        live.export_plans(path)
+        export_s = time.perf_counter() - t0
+        counts = read_counts()
+        total = {k: total[k] + counts[k] for k in KERNELS}
+        expect_counts("sharded export", counts, {
+            "tile_rfft": n_layers * n_buckets})   # the live prepares only
+
+        zero_counts()
+        t0 = time.perf_counter()
+        with stages.stage_trace() as trace:
+            nets = planx.load_network(path, mesh=mesh)
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        expect_counts("sharded load", read_counts(), {})
+        check_serve_collectives("sharded load", trace, {})
+        if {n.source for n in nets.values()} != {"aot"} or any(
+                layer.plan.mesh is not mesh
+                for n in nets.values() for layer in n.layers.values()):
+            raise AssertionError("sharded load: not ahead of time on the "
+                                 "caller's mesh")
+        n_equal = 0
+        for key in live._exec[0]:
+            prepared = prepared_of(live, key)
+            for name, layer in nets[f"b{key[0]}"].items():
+                for a, b in zip(layer.state, prepared[name].state):
+                    if not (torch.equal(a, b) and a.stride() == b.stride()):
+                        raise AssertionError(
+                            f"sharded load b{key[0]} {name}: a slab "
+                            "differs from the live prepare's")
+                n_equal += 1
+        del nets, live
+        clear_prepared_cache()
+        torch.cuda.empty_cache()
+
+        zero_counts()
+        with stages.stage_trace() as trace:
+            eng = engine_of(res, load_plans=path, **kw)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        total = {k: total[k] + counts[k] for k in KERNELS}
+        expect_counts("sharded engine from the artifact", counts,
+                      loaded_start_launches(n_layers, n_buckets))
+        if eng.plan_source != "aot":
+            raise AssertionError(f"sharded engine: {eng.plan_source}")
+        rep, checks = trace_through(eng, res, served14, "sharded artifact")
+        report = eng.report()
+        del eng
+        torch.cuda.empty_cache()
+        artifact_mb = os.path.getsize(path) / 1e6
+    finally:
+        tmp.cleanup()
+    emit("plan_artifacts_sharded", mesh=[1, 1], backend="nccl",
+         schedule="nfft", overlap="off", export_s=export_s,
+         artifact_mb=artifact_mb, load_s=load_s,
+         slab_entries_bit_equal=n_equal,
+         engine_load_s=report["startup_load_s"],
+         engine_capture_s=report["startup_capture_s"],
+         rank_broadcasts=report["rank_broadcasts"],
+         graph_replays=rep["graph_replays"], tol=GRAPH_TOL,
+         tol_cudnn=SLICE_TOL, checked=checks)
+    return total
+
+
 def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
                   checked_dft, local_train, served):
-    """Phases 11-14: the paper's schedules on a one-rank NCCL mesh:
-    serving, training, tuning, and phase 9's engine over the mesh
-    (``served``: what phase 9 served).  A process group that fails to
+    """Phases 11-14, 16 and 17's sharded half: the paper's schedules on a
+    one-rank NCCL mesh: serving, training, tuning, phase 9's engine over
+    the mesh (``served``: what phase 9 served), plan-lint, and the nfft
+    engine's plan artifact.  A process group that fails to
     start fails the smoke: there is no fallback.  ``checked`` and ``checked_dft``
     hold the CGEMM and compact tile DFT cases held already; ``local_train``
     is phase 7's fft-cuda step.  Returns the launches of both phases and
@@ -3173,8 +3660,10 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
         total = {k: total[k] + counts[k] for k in KERNELS}
         train, train_counts = sharded_train(mesh, local_train)
         tune_counts = sharded_tune(mesh, convs, res, res.y, y_ref, configs)
-        serve_reports, serve_counts = sharded_serve(mesh, served, configs)
+        serve_reports, serve_counts, served14 = sharded_serve(
+            mesh, served, configs)
         plan_lint_phase(mesh, convs, res)
+        artifact_counts = sharded_artifacts(mesh, served, served14)
     finally:
         tmesh.destroy_process_group()
     emit("sharded", mesh=[1, 1], backend="nccl", image=IMAGE, batch=BATCH,
@@ -3195,7 +3684,7 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
          window_ms=SERVE_WINDOW_MS, configs=serve_reports,
          launches=serve_counts)
     return {k: total[k] + train_counts[k] + tune_counts[k]
-            + serve_counts[k] for k in KERNELS}, dft_rows
+            + serve_counts[k] + artifact_counts[k] for k in KERNELS}, dft_rows
 
 
 def main():
@@ -3274,7 +3763,9 @@ def main():
     train_counts, local_train = train_phase()
     trainer_counts = trainer_phase()
     trace_counts, served = serve_trace_phase(slice_p50_ms, profile_busy_us)
-    tune_counts = tune_phase(res, y_ref, slice_p50_ms, profile_busy_us)
+    tune_counts, tuned_net, tune_sweep_s = tune_phase(
+        res, y_ref, slice_p50_ms, profile_busy_us)
+    artifact_counts = plan_artifacts_phase(served, tuned_net, tune_sweep_s)
     checked = {(*r["shape"], r["variant"]) for r in cg_rows
                if r["dtype"] == "float32" and r["three_m"]
                and r["spectrum"] == "real"}
@@ -3287,11 +3778,12 @@ def main():
                  + rinv_rows + rinv_ep_rows + tiles_rows)
 
     # launches: the main paths together (slice, rect, train, trainer,
-    # serve_trace, tune, sharded, sharded_train, sharded_tune,
-    # sharded_serve, entry_points)
+    # serve_trace, tune, plan_artifacts, sharded, sharded_train,
+    # sharded_tune, sharded_serve, plan_artifacts_sharded, entry_points)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
                 + trainer_counts[k] + trace_counts[k] + tune_counts[k]
-                + sharded_counts[k] + entry_counts[k] for k in KERNELS}
+                + artifact_counts[k] + sharded_counts[k] + entry_counts[k]
+                for k in KERNELS}
     main_cg = [r for r in cg_rows if r["dtype"] == "float32"
                and r["three_m"] and r["spectrum"] == "real"]
     main_inv = inv_rows[:n_layers]

@@ -22,6 +22,10 @@ from repro_torch.conv.netplan import (
     plan_network_buckets, prepare_network_buckets, bucket_report,
 )
 from repro_torch.conv import autotune
+from repro_torch.conv.export import (
+    ArtifactMismatch, LoadedConv, LoadedNetwork, export_network,
+    load_network, plan_fingerprint,
+)
 from repro_torch.conv.autotune import TunedConfig, autotune_info
 from repro_torch.conv.analyze import (
     PlanProfile, CheckReport, Violation, analyze, register_invariant,
@@ -42,6 +46,8 @@ __all__ = [
     "PlanProfile", "CheckReport", "Violation", "analyze",
     "register_invariant", "invariants_for",
     "autotune", "TunedConfig", "autotune_info",
+    "ArtifactMismatch", "LoadedConv", "LoadedNetwork", "export_network",
+    "load_network", "plan_fingerprint",
     "BackendInfo", "ScheduleInfo",
     "register_backend", "register_schedule",
     "get_backend", "get_schedule",

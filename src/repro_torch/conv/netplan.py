@@ -27,9 +27,9 @@ spellings remain as DeprecationWarning shims.
 
 ``NetworkPlan.analyze`` runs the plan-lint analyzer
 (``repro_torch.conv.analyze``) over every layer, and ``NetworkPlan.report``
-aggregates its stage-op and collective counts for one forward pass.  Not
-ported yet (it raises ``NotImplementedError``): ``BucketedNetworkPlan.export``
-(it needs the plan artifacts).
+aggregates its stage-op and collective counts for one forward pass.
+``NetworkPlan.export`` and ``BucketedNetworkPlan.export`` write a plan
+artifact (``repro_torch.conv.export``): build once, deploy many.
 """
 from __future__ import annotations
 
@@ -195,6 +195,19 @@ class NetworkPlan:
             "NetworkPlan.prepare(params, weights_version=...)",
             DeprecationWarning, stacklevel=2)
         return self.prepare(params, weights_version=weights_version)
+
+    def export(self, path: str, params: Optional[Mapping[str, Any]] = None,
+               *, weights_version=None, device=None) -> str:
+        """Export this network to a plan artifact
+        (``repro_torch.conv.export``): every layer's resolved config and
+        plan-lint fingerprint, and with ``params`` its prepared slabs and
+        kernel under ``weights_version``; ``load_network(path)`` loads it
+        on a fresh worker with no planning and no kernel transform.
+        ``device`` names the device of an unprepared export (the GPU
+        unless asked)."""
+        from repro_torch.conv.export import export_network
+        return export_network(self, path, params=params,
+                              weights_version=weights_version, device=device)
 
     def tuning_report(self) -> dict:
         """Per-layer autotune winners after a ``backend="tuned"`` planning
@@ -366,11 +379,12 @@ class BucketedNetworkPlan:
 
     def export(self, path: str,
                params: Optional[Mapping[str, Any]] = None, *,
-               weights_version=None) -> str:
-        """AOT plan artifacts: not ported yet (ROADMAP Queue 1 item 7)."""
-        raise NotImplementedError(
-            "BucketedNetworkPlan.export is not yet ported to repro_torch: "
-            "it needs the plan artifacts (ROADMAP Queue 1 item 7)")
+               weights_version=None, device=None) -> str:
+        """Export every bucket's network into one plan artifact (labels
+        ``b<batch>``); see ``repro_torch.conv.export``."""
+        from repro_torch.conv.export import export_network
+        return export_network(self, path, params=params,
+                              weights_version=weights_version, device=device)
 
 
 def plan_network(layers: Union[Sequence[NetworkConv], Callable], *,

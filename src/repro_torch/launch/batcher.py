@@ -10,12 +10,15 @@ plan-once/execute-many:
      two up to ``max_batch``, optionally a few image sizes).
   2. At startup the engine plans (``plan_network``) and prepares
      (``NetworkPlan.prepare``) one network per bucket (same-geometry
-     buckets dedupe through the shared plan and prepared caches) and, on
-     a CUDA device, captures one ``torch.cuda.CUDAGraph`` of
-     ``forward(prepared, static_x)`` per (replica, bucket).  The steady
-     state replays those graphs: zero re-planning and no launch from the
-     host on the hot path but the graph's own, the input copied in and the
-     results copied out.  On the CPU the executor is the eager forward.
+     buckets dedupe through the shared plan and prepared caches), or
+     with ``load_plans=<artifact>`` loads every bucket from a plan
+     artifact (``repro_torch.conv.export``: no planning, no tuning, no
+     kernel transform), and, on a CUDA device, captures one
+     ``torch.cuda.CUDAGraph`` of ``forward(prepared, static_x)`` per
+     (replica, bucket).  The steady state replays those graphs: zero
+     re-planning and no launch from the host on the hot path but the
+     graph's own, the input copied in and the results copied out.  On the
+     CPU the executor is the eager forward.
   3. ``submit`` enqueues requests; ``drain`` packs the FIFO queue into
      bucket batches (a batching window trades latency for occupancy),
      pads to the bucket with zero rows, executes on the next replica
@@ -62,10 +65,9 @@ gather of a ``DTensor`` output into a plain tensor
 of the global output on every rank, as the reference's are.  On a
 ``cuda`` mesh (NCCL) each bucket's graph is captured over every layer's
 collectives and that gather, so a replay runs them; on a ``cpu`` mesh
-(gloo) the executor is eager.  Without a mesh nothing is sent.
-
-Not ported yet (they raise ``NotImplementedError``): ``load_plans=`` and
-``export_plans`` (ROADMAP Queue 1 item 7, the plan artifacts).
+(gloo) the executor is eager.  Without a mesh nothing is sent.  On a
+mesh the ranks also agree on loading a plan artifact ahead of time or
+falling back to live planning.
 """
 from __future__ import annotations
 
@@ -73,6 +75,7 @@ import collections
 import dataclasses
 import itertools
 import time
+import warnings
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -330,7 +333,7 @@ class ServeEngine:
         not completion).
       weights_version: passed to ``NetworkPlan.prepare`` (a weight update
         is ``update_weights``: one invalidation sweep per bucket, and a
-        recapture).
+        recapture, which also drops a loaded plan artifact).
       collect_results: keep each request's output rows (a copy) in
         ``results[rid]`` and where it ran in ``placements[rid]``.
       warm: capture every graph (CPU: run one zero batch per bucket) in
@@ -339,7 +342,13 @@ class ServeEngine:
       clock: the clock latencies are taken on.
       device: where the engine runs (``repro_torch.device.resolve_device``:
         the GPU unless the caller asks for the CPU).
-      load_plans: AOT plan artifacts: not ported yet (raises).
+      load_plans: path of a plan artifact (``repro_torch.conv.export``,
+        written by ``export_plans`` or ``serve --export-plans``), in
+        ``mode="bucketed"`` only.  Start-up then loads every bucket (its
+        seconds in ``load_s``) in place of planning and preparing it; on
+        any mismatch (a stamp, the bucket set, the ``weights_version``)
+        the engine warns and builds live (on a mesh, every rank does).
+        Each loaded bucket is captured like a live one.
       plan_kwargs: shared ``plan_network`` knobs (backend=, mesh=,
         schedule=, overlap=, ...).  A ``mesh`` makes the engine SPMD (the
         module docstring's contract); its device type must be the
@@ -361,10 +370,8 @@ class ServeEngine:
             raise ValueError(f"unknown timing {timing!r}")
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
-        if load_plans is not None:
-            raise NotImplementedError(
-                "load_plans is not yet ported to repro_torch: it needs the "
-                "plan artifacts (ROADMAP Queue 1 item 7)")
+        if load_plans is not None and mode != "bucketed":
+            raise ValueError("load_plans requires mode='bucketed'")
         t_startup = time.perf_counter()
         self.device = resolve_device(device)
         self.mesh = plan_kwargs.get("mesh")
@@ -407,12 +414,19 @@ class ServeEngine:
         self.nets: dict = collections.OrderedDict()
         self._exec: list = [dict() for _ in range(replicas)]
         self.plan_source = "live"
+        self.load_s = 0.0
         if mode != "replan":
             batches = (policy.batch_buckets() if mode == "bucketed"
                        else (policy.max_batch,))
-            for key in self._bucket_keys(batches):
-                self._build_bucket(key)
-        self.plan_prepare_s = time.perf_counter() - t_startup
+            keys = self._bucket_keys(batches)
+            if load_plans is not None:
+                t0 = time.perf_counter()
+                self._load_buckets(load_plans, keys)
+                self.load_s = time.perf_counter() - t0
+            if self.plan_source != "aot":
+                for key in keys:
+                    self._build_bucket(key)
+        self.plan_prepare_s = time.perf_counter() - t_startup - self.load_s
         self.capture_s = 0.0
         self._warm_plan_misses: Optional[int] = None
         if warm:
@@ -450,11 +464,66 @@ class ServeEngine:
             self._exec[r][key] = self._executor_cls(
                 self._forward, prepared, x_shape, self.device)
 
+    def _load_buckets(self, path: str, keys) -> None:
+        """Every bucket's executors over a plan artifact's loaded networks:
+        no ``plan_conv`` call, no kernel transform.  A mismatch (a stamp,
+        a bucket missing from the artifact, a stale ``weights_version``)
+        warns and leaves ``plan_source`` live, for the constructor to
+        build every bucket live; on a mesh every rank takes the same way
+        (any rank's mismatch is every rank's)."""
+        from repro_torch.conv import export as planx
+        execs, err = [], None
+        try:
+            arts = planx.load_network(path, on_mismatch="error",
+                                      device=self.device, mesh=self.mesh)
+            if isinstance(arts, planx.LoadedNetwork):
+                arts = {"net": arts}
+            for key in keys:
+                label = self._label(*key)
+                if label not in arts:
+                    raise planx.ArtifactMismatch(
+                        f"artifact has no bucket {label!r} "
+                        f"(has: {sorted(arts)})")
+                net = arts[label]
+                if net.weights_version != self.weights_version:
+                    raise planx.ArtifactMismatch(
+                        f"artifact weights_version {net.weights_version!r} "
+                        f"!= engine weights_version "
+                        f"{self.weights_version!r}")
+                execs.append((key, net))
+        except planx.ArtifactMismatch as e:
+            err = e
+        if self._ranks.any(err is not None):
+            warnings.warn(
+                f"plan artifact {path!r} unusable "
+                f"({err or 'on another rank of the mesh'}); falling back "
+                "to live planning", stacklevel=3)
+            return
+        for key, net in execs:
+            # the replicas share the loaded slabs: read-only, on the device
+            for r in range(self.replicas):
+                self._exec[r][key] = self._executor_cls(
+                    self._forward, net, net.x_shape, self.device)
+        self.plan_source = "aot"
+
     def export_plans(self, path: str) -> str:
-        """AOT plan artifacts: not ported yet."""
-        raise NotImplementedError(
-            "export_plans is not yet ported to repro_torch: it needs the "
-            "plan artifacts (ROADMAP Queue 1 item 7)")
+        """Export every bucket's planned and prepared network (replica 0's
+        params) into one plan artifact under the current
+        ``weights_version``: the build-once half of fleet cold-start
+        (``load_plans=`` / ``serve --load-plans`` is the deploy-many half).
+        On a mesh every rank calls it; rank 0 writes the file."""
+        if not self.nets:
+            raise RuntimeError(
+                "export_plans needs a live-planned bucketed engine "
+                "(a loaded-artifact engine has no NetworkPlans to "
+                "export; rebuild with load_plans=None)")
+        from repro_torch.conv import export as planx
+        nets = collections.OrderedDict(
+            (self._label(b, img), net)
+            for (b, img), net in self.nets.items())
+        return planx.export_network(
+            nets, path, params=self._params[0],
+            weights_version=self.weights_version)
 
     def _executor(self, key, replica):
         ex = self._exec[replica].get(key)
@@ -484,9 +553,13 @@ class ServeEngine:
     def update_weights(self, params: dict, *, weights_version) -> None:
         """Weight update: one invalidation sweep re-preparing every bucket
         on every replica under the new version, and a new capture of each
-        (a graph holds the addresses of the old prepared spectra)."""
+        (a graph holds the addresses of the old prepared spectra).  An
+        engine started from a plan artifact drops it here (the artifact
+        holds the old ``weights_version``) and plans live: export again to
+        refresh the fleet."""
         self.weights_version = weights_version
         self._params = _replica_params(params, self.replicas, self.device)
+        self.plan_source = "live"
         for key in list(self._exec[0]):
             self._build_bucket(key)
         self.warm()
@@ -728,6 +801,7 @@ class ServeEngine:
             "plan_cache_misses_after_warmup": misses_after_warm,
             "startup_s": self.startup_s,
             "startup_plan_prepare_s": self.plan_prepare_s,
+            "startup_load_s": self.load_s,
             "startup_capture_s": self.capture_s,
             "plan_source": self.plan_source,
             "device": str(self.device),

@@ -21,6 +21,14 @@ and prepared kernels, on the GPU unless ``--device cpu`` is given.
     # bucketed engine wins):
     PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \
         --conv-backend fft-cuda --max-batch 8 --serve-compare
+
+    # fleet cold-start: one worker exports every bucket's plans and
+    # prepared slabs, a fresh one serves from the artifact (no planning,
+    # no tuning, no kernel transform) and certifies it:
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \
+        --conv-backend fft-cuda --export-plans vgg.rpa
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \
+        --conv-backend fft-cuda --load-plans vgg.rpa --coldstart-out cs.json
 """
 from __future__ import annotations
 
@@ -241,7 +249,12 @@ def serve_trace(args) -> TraceResult:
     the hot path.  ``--serve-compare`` also replays the SAME trace through
     the two degenerate strategies (pad everything to ``--max-batch``;
     re-plan and recapture per exact shape) and fails unless the bucketed
-    engine beats both.  Weights and inputs are drawn from ``--seed`` in
+    engine beats both.  ``--export-plans`` writes the bucketed engine's
+    plan artifact after the trace; ``--load-plans`` starts the bucketed
+    engine from one and, after the trace, certifies it (``verify``: every
+    layer's fingerprint equals a live plan's, and zero plan-cache misses
+    after warm-up), raising ``SystemExit`` on a failure.  Weights and
+    inputs are drawn from ``--seed`` in
     ``repro.launch.serve``'s order: kernels of the probe layers, biases,
     then one input per batch size in the order the trace first asks for
     it, all before the first engine starts.  Every mode keeps each
@@ -302,6 +315,8 @@ def serve_trace(args) -> TraceResult:
             # --serve-compare forces synchronized per-batch timing
             timing="async" if (args.timing == "async"
                                and not args.serve_compare) else "per-batch",
+            load_plans=(args.load_plans or None) if mode == "bucketed"
+            else None,
             device=device, backend=backend, overlap=args.overlap)
         rep = run_trace(eng, trace, make_input=make_input,
                         realtime=args.trace_rate > 0)
@@ -310,7 +325,8 @@ def serve_trace(args) -> TraceResult:
         pool = rep["graph_pool_bytes"]
         print(f"serve-trace mode={mode} [{eng.plan_source}, "
               f"{rep['executor']} on {device}]: "
-              f"startup={rep['startup_s']:.2f}s (plan+prepare "
+              f"startup={rep['startup_s']:.2f}s (load "
+              f"{rep['startup_load_s']:.2f}s, plan+prepare "
               f"{rep['startup_plan_prepare_s']:.2f}s, capture "
               f"{rep['startup_capture_s']:.2f}s) "
               f"wall={rep['wall_s']:.3f}s "
@@ -340,20 +356,38 @@ def serve_trace(args) -> TraceResult:
                 for key, net in eng.nets.items():
                     _print_tuning(net, label=f"b{key[0]} ")
     bucketed = engines["bucketed"]
-    br = bucketed.bucket_report()
-    print(f"buckets: {policy.batch_buckets()} x image={image} — "
-          f"{br['n_layer_plans']} layer plans, "
-          f"{br['n_distinct_plans']} distinct (shared-cache dedupe)")
+    if bucketed.nets:
+        br = bucketed.bucket_report()
+        print(f"buckets: {policy.batch_buckets()} x image={image} — "
+              f"{br['n_layer_plans']} layer plans, "
+              f"{br['n_distinct_plans']} distinct (shared-cache dedupe)")
+    else:
+        print(f"buckets: {policy.batch_buckets()} x image={image} — "
+              f"loaded from plan artifact {args.load_plans}")
+
+    if args.export_plans:
+        p = bucketed.export_plans(args.export_plans)
+        print(f"exported plan artifact: {p}")
+
+    fingerprints_ok = None
+    if args.load_plans and bucketed.plan_source == "aot":
+        fingerprints_ok = certify_loaded(args.load_plans, reports["bucketed"])
+    elif args.load_plans:
+        print(f"load-plans: artifact fell back to live planning "
+              f"(source={bucketed.plan_source})")
 
     if args.coldstart_out:
         import json
         rep = reports["bucketed"]
         payload = {
             "coldstart_s": bucketed.startup_s,
+            "startup_load_s": rep["startup_load_s"],
+            "startup_plan_prepare_s": rep["startup_plan_prepare_s"],
+            "startup_capture_s": rep["startup_capture_s"],
             "source": bucketed.plan_source,
             "plan_cache_misses_after_warmup":
                 rep["plan_cache_misses_after_warmup"],
-            "fingerprints_verified": None,
+            "fingerprints_verified": fingerprints_ok,
             "n_buckets": len(policy.batch_buckets()),
             "image": image,
         }
@@ -382,10 +416,29 @@ def serve_trace(args) -> TraceResult:
                        make_layers=make_layers, forward=forward)
 
 
-def _not_ported(flag: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} is not yet ported to repro_torch: it needs the plan "
-        "artifacts (ROADMAP Queue 1 item 7)")
+def certify_loaded(path: str, report: dict) -> bool:
+    """The plan-lint certificate of an engine loaded from ``path``: a live
+    plan of every stored config must give the export-time fingerprint,
+    and the engine planned nothing after warm-up.  Run after the trace,
+    so that its planning never touches the report's miss count.  Raises
+    ``SystemExit`` on a failure; returns True."""
+    from repro_torch.conv import export as planx
+    v = planx.verify(path)
+    fails = []
+    if not v["ok"]:
+        fails.append(f"export fingerprints diverge from a live plan: "
+                     f"{v['mismatches']}")
+    if report["plan_cache_misses_after_warmup"] != 0:
+        fails.append(
+            f"engine loaded ahead of time planned on the hot path: "
+            f"{report['plan_cache_misses_after_warmup']} plan-cache misses "
+            "after warmup")
+    if fails:
+        raise SystemExit("load-plans certification FAILED:\n  "
+                         + "\n  ".join(fails))
+    print(f"load-plans OK: {v['n_checked']} layer fingerprints match a "
+          "live plan, zero plan-cache misses after warmup")
+    return True
 
 
 def main(argv=None):
@@ -435,12 +488,20 @@ def main(argv=None):
                          "rows (BENCH_conv.json schema) to this path")
     ap.add_argument("--coldstart-out", default="",
                     help="with --serve-trace: write a cold-start JSON "
-                         "report (coldstart_s, source, plan-cache misses "
+                         "report (coldstart_s and its load, plan+prepare "
+                         "and capture split, source, plan-cache misses "
                          "after warmup)")
     ap.add_argument("--export-plans", default="",
-                    help="AOT plan artifacts: not ported yet")
+                    help="with --serve-trace: after the trace, export the "
+                         "bucketed engine's plans and prepared slabs "
+                         "(every bucket) to this plan artifact "
+                         "(repro_torch.conv.export)")
     ap.add_argument("--load-plans", default="",
-                    help="AOT plan artifacts: not ported yet")
+                    help="with --serve-trace: start the bucketed engine "
+                         "from this plan artifact (no planning, tuning or "
+                         "kernel transform; falls back to live planning "
+                         "with a warning on a mismatch) and certify it "
+                         "after the trace")
     ap.add_argument("--overlap", default="off",
                     help="conv sub-slab comm/compute overlap: off | "
                          "slab:<k> | auto (sharded schedules only; the "
@@ -468,10 +529,8 @@ def main(argv=None):
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
-    for flag, value in (("--export-plans", args.export_plans),
-                        ("--load-plans", args.load_plans)):
-        if value:
-            raise _not_ported(flag)
+    if (args.export_plans or args.load_plans) and not args.serve_trace:
+        ap.error("--export-plans and --load-plans go with --serve-trace")
     if not args.trace_requests:
         args.trace_requests = 24 if args.smoke else 64
     if args.timing is None:

@@ -11,7 +11,8 @@ and occupancy equal) and each request's result agrees within 1e-4 of the
 largest |y| (same algorithm, float32, as tests/test_torch_plan.py); and
 ``plan_network(..., buckets=)`` gives the same dedupe report.  Last, the
 parts that are the port's own: the ``serve --serve-trace`` entry point on
-the CPU, what is not ported yet, and the CUDA-graph accounting that reads
+the CPU, a bucket network's plan-lint report, and the CUDA-graph
+accounting that reads
 empty on the host (the graphs themselves run in tests/test_torch_cuda.py).
 """
 import numpy as np
@@ -525,23 +526,8 @@ def test_serve_tune_prints_the_layers_and_serves(capsys, tmp_path,
         autotune.reset()
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--export-plans", "p.rpa"], "item 7"),
-    (["--load-plans", "p.rpa"], "item 7")])
-def test_serve_refuses_what_is_not_ported(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(["--serve-trace", "--device", "cpu"] + flag)
-
-
-def test_engine_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _engine(load_plans="p.rpa")
-    eng = _engine(policy=BucketPolicy(max_batch=1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.export_plans("p.rpa")
+def test_bucket_networks_report_through_plan_lint():
     nets = plan_network(_layers, buckets=(1,), backend="fft-cuda")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        nets.export("p.rpa")
     # item 6, plan-lint, is ported: the bucket's report runs
     assert nets[1].report()["n_layers"] == len(nets[1])
 
