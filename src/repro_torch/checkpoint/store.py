@@ -12,7 +12,9 @@ Layout: ``<dir>/step_<N>/`` holds one ``leaf_<i>.npy`` a leaf (named by
 checkpoint, and a restart picks the newest *committed* step.
 ``save_async`` copies the tensors to the host first (the only
 synchronous part) and writes them on a worker thread.  A ``DTensor`` leaf
-is saved from its ``full_tensor()``.  A bfloat16 leaf, which numpy cannot
+is saved from its ``full_tensor()``.  A ``None`` in the tree is no leaf,
+as in ``jax.tree_util``: nothing is saved for it, and ``restore`` puts
+``None`` back where the target has one.  A bfloat16 leaf, which numpy cannot
 hold, is saved as its ``uint16`` bits, with its dtype in ``meta.json``'s
 ``dtypes`` map.
 
@@ -60,11 +62,20 @@ def _is_placement(x) -> bool:
                          and isinstance(x[0], DeviceMesh))
 
 
+def _key(path, legacy: bool) -> str:
+    return _legacy_key(path) if legacy else pytree.keystr(path)
+
+
 def _flatten(tree, *, legacy: bool = False, is_leaf=None) -> dict:
+    """key -> leaf, skipping ``None``: ``torch.utils._pytree`` calls it a
+    leaf, ``jax.tree_util`` an empty subtree, and the checkpoint keeps the
+    reference's leaves."""
     flat = pytree.tree_flatten_with_path(tree, is_leaf=is_leaf)[0]
     out = {}
     for path, leaf in flat:
-        key = _legacy_key(path) if legacy else pytree.keystr(path)
+        if leaf is None:
+            continue
+        key = _key(path, legacy)
         if key in out:
             raise ValueError(
                 f"checkpoint: two leaves flatten to the same key {key!r}")
@@ -211,9 +222,9 @@ def restore(ckpt_dir: str, step: int, target_tree, *, shardings=None,
         else:
             loaded[k] = t.to(dev)
     paths, spec = pytree.tree_flatten_with_path(target_tree)
-    keys = [_legacy_key(path) if legacy else pytree.keystr(path)
-            for path, _ in paths]
-    return pytree.tree_unflatten([loaded[k] for k in keys], spec), meta
+    leaves = [None if leaf is None else loaded[_key(path, legacy)]
+              for path, leaf in paths]
+    return pytree.tree_unflatten(leaves, spec), meta
 
 
 # --------------------------------------------------------------------------

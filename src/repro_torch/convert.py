@@ -6,10 +6,12 @@ this module needs neither ``jax`` nor ``repro``:
     kernels, biases = params_from_jax(jax_kernels, jax_biases)
     Gr, Gi = prepared_from_jax(jax_prepared.state, plan)
     params = tree_from_jax(jax_params, like=ours)
+    lm = lm_params_from_jax(jax_lm_params, like=init_lm_params(cfg, gen))
 
 The layouts are the same on both sides: OIHW kernels, (C',) biases, (in,
 out) dense weights and (P, C, C') spectrum slabs as separate real/imag
-float32 planes.
+float32 planes.  An LM's tree (nested dicts, lists of stacked units,
+float32 leaves of any rank) is the same tree on both sides, leaf for leaf.
 """
 from __future__ import annotations
 
@@ -94,3 +96,40 @@ def tree_from_jax(params: Mapping, *, like: Mapping = None, device=None):
                              f" got {a.shape}")
         out[name] = torch.tensor(a, device=device)       # copies
     return out
+
+
+def lm_params_from_jax(tree, *, like=None, device=None):
+    """The JAX package's LM or whisper parameter tree (nested dicts and
+    lists of float32 arrays, ``jax.device_get`` of ``init_lm_params``) ->
+    the same tree of tensors on ``device`` (default: the GPU).  With
+    ``like`` (the port's own tree for the same config) every path, shape
+    and dtype must match it."""
+    device = resolve_device(device)
+
+    def walk(t, ref, path):
+        if isinstance(t, Mapping):
+            if ref is not None and (not isinstance(ref, Mapping)
+                                    or set(t) != set(ref)):
+                raise ValueError(f"{path or 'root'}: keys differ from the "
+                                 f"port's tree")
+            return {k: walk(v, None if ref is None else ref[k],
+                            f"{path}[{k!r}]") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            if ref is not None and (not isinstance(ref, (list, tuple))
+                                    or len(t) != len(ref)):
+                raise ValueError(f"{path or 'root'}: a list of {len(t)} "
+                                 "where the port's tree differs")
+            return [walk(v, None if ref is None else ref[i], f"{path}[{i}]")
+                    for i, v in enumerate(t)]
+        a = _float32(path, t)
+        if ref is not None:
+            if not isinstance(ref, torch.Tensor) or \
+                    ref.dtype != torch.float32:
+                raise ValueError(f"{path}: the port's leaf is not a float32 "
+                                 "tensor")
+            if a.shape != tuple(ref.shape):
+                raise ValueError(f"{path}: expected {tuple(ref.shape)}, got "
+                                 f"{a.shape}")
+        return torch.tensor(a, device=device)            # copies
+
+    return walk(tree, like, "")

@@ -1,7 +1,16 @@
-"""Serving launcher: the paper's VGG conv trunk through whole-net planning
-and prepared kernels, on the GPU unless ``--device cpu`` is given.
+"""Serving launcher, on the GPU unless ``--device cpu`` is given: an LM
+architecture (prefill + greedy decode over the KV/SSM cache, random
+weights from ``--seed``), or with ``--convnet vgg`` the paper's VGG conv
+trunk through whole-net planning and prepared kernels.
 
-    # on the card, the hand-written CUDA kernels on the hot path:
+    # an LM: qwen3-14b at full width by default; --smoke for the small form
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+        --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --smoke --device cpu
+
+    # the conv trunk on the card, the hand-written CUDA kernels on the hot
+    # path:
     PYTHONPATH=src python -m repro_torch.launch.serve --convnet vgg \
         --conv-backend fft-cuda --timing per-request
 
@@ -40,8 +49,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.batcher import _percentile, _sync
+from repro_torch.models import lm as LM
+from repro_torch.models import whisper as WH
+from repro_torch.train.step import make_decode_step, make_prefill_step
 
 
 # Table-I VGG entries chain into a sequential trunk with a 2x2 max-pool
@@ -443,8 +456,10 @@ def certify_loaded(path: str, report: dict) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--convnet", choices=["vgg"], default="vgg",
-                    help="the conv trunk to serve (the paper's VGG)")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen3-14b")
+    ap.add_argument("--convnet", choices=["vgg"], default=None,
+                    help="serve the paper's conv trunk via plan_network "
+                         "instead of an LM arch")
     # "auto" matches the planner's cost-model default (direct for tiny
     # layers, fft-torch past the crossover); fft-cuda puts the hand-written
     # CUDA kernels on the hot path.
@@ -522,8 +537,10 @@ def main(argv=None):
                     help="input size (default 224, smoke 64)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16,
-                    help="request batches to serve")
+                    help="LM: tokens to generate; --convnet: request "
+                         "batches to serve")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
@@ -531,11 +548,126 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if (args.export_plans or args.load_plans) and not args.serve_trace:
         ap.error("--export-plans and --load-plans go with --serve-trace")
+    if (args.tune or args.serve_trace) and not args.convnet:
+        args.convnet = "vgg"        # conv-only flags imply the convnet path
     if not args.trace_requests:
         args.trace_requests = 24 if args.smoke else 64
     if args.timing is None:
         args.timing = "per-request" if args.serve_trace else "async"
-    return serve_convnet(args)
+    if args.convnet:
+        return serve_convnet(args)
+    return serve_lm(args)
+
+
+@dataclasses.dataclass
+class Generated:
+    """What ``generate`` produced: the greedy tokens (B, gen), each step's
+    logits (the prefill's, then each decode step's), and the host seconds
+    of prefill and of the decode loop (each ending in a device sync)."""
+    tokens: torch.Tensor
+    steps: list
+    prefill_s: float
+    decode_s: float
+
+
+def decode_start(cfg, prompt_len: int) -> int:
+    """``serve``'s first decode position after a prompt of ``prompt_len``
+    tokens: 1 for whisper (its prefill feeds one token), else past the meta
+    tokens and the prompt.  The vision stub's image tokens are counted
+    though no image is passed, as in the reference: its decode writes clamp
+    to the cache end."""
+    if cfg.encdec:
+        return 1
+    return prompt_len + (cfg.n_meta_tokens or 0) + (
+        cfg.n_frontend_tokens if cfg.frontend == "vision_stub" else 0)
+
+
+def generate(cfg, params, prompts, gen, frames=None, pos0=None) -> Generated:
+    """Prefill ``prompts`` (B, Sp), then greedy-decode until ``gen`` tokens
+    are out, one step at a time over the cache, as ``repro.launch.serve``
+    does.  Whisper prefills the first prompt token over the encoded
+    ``frames`` (B, T, d_model).  Decoding starts at ``pos0``, by default
+    ``decode_start(cfg, Sp)``."""
+    device = prompts.device
+    B, Sp = prompts.shape
+    if pos0 is None:
+        pos0 = decode_start(cfg, Sp)
+    decode = make_decode_step(cfg)
+    with torch.inference_mode():
+        if cfg.encdec:
+            cache = WH.init_dec_cache(cfg, B, frames.shape[1], device=device)
+            prefill = make_prefill_step(cfg)
+            batch = {"frames": frames, "tokens": prompts[:, :1]}
+        else:
+            max_len = Sp + gen + (cfg.n_meta_tokens or 0) + 8
+            cache = LM.init_cache(cfg, B, max_len, device=device)
+            prefill = make_prefill_step(cfg, use_flash=False)
+            batch = {"tokens": prompts}
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, cache)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+
+        steps, out = [logits], [torch.argmax(logits[:, -1:], dim=-1)]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, cache = decode(params, out[-1], pos0 + i, cache)
+            steps.append(logits)
+            out.append(torch.argmax(logits[:, -1:], dim=-1))
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+    return Generated(tokens=torch.cat(out, dim=1), steps=steps,
+                     prefill_s=prefill_s, decode_s=decode_s)
+
+
+@dataclasses.dataclass
+class LMServed:
+    """What ``serve --arch`` served: the generated tokens (B, gen), the
+    last step's logits, the host seconds of prefill and of the decode
+    loop, and the weights and prompts it used."""
+    cfg: Any
+    params: Any
+    prompts: torch.Tensor
+    tokens: torch.Tensor
+    logits: torch.Tensor
+    prefill_s: float
+    decode_s: float
+    tokens_per_s: float
+
+
+def serve_lm(args) -> LMServed:
+    """Prefill a batch of random prompts, then greedy-decode ``args.gen``
+    tokens (``generate``), as ``repro.launch.serve`` does.  The prompts
+    (and whisper's frames) are the reference's for the same seed; the
+    weights are the port's own random draw."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    B, Sp = args.batch, args.prompt_len
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.tensor(rng.integers(1, cfg.vocab, (B, Sp)),
+                           device=device)
+    frames = None
+    if cfg.encdec:
+        params = WH.init_whisper_params(cfg, gen)
+        frames = torch.tensor(rng.standard_normal((B, 64, cfg.d_model)),
+                              dtype=torch.float32, device=device)
+    else:
+        params = LM.init_lm_params(cfg, gen)
+    out = generate(cfg, params, prompts, args.gen, frames)
+    tput = B * (args.gen - 1) / max(out.decode_s, 1e-9)
+    print(f"arch={cfg.name} prefill={out.prefill_s*1e3:.0f}ms "
+          f"decode={out.decode_s*1e3:.0f}ms ({tput_fmt(tput)})")
+    print("sample tokens:", out.tokens[0].cpu().numpy()[:16])
+    return LMServed(cfg=cfg, params=params, prompts=prompts,
+                    tokens=out.tokens, logits=out.steps[-1],
+                    prefill_s=out.prefill_s, decode_s=out.decode_s,
+                    tokens_per_s=tput)
+
+
+def tput_fmt(x):
+    return f"{x:.1f} tok/s"
 
 
 if __name__ == "__main__":

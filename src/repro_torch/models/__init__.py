@@ -1,1 +1,2 @@
-"""Model building blocks of the port (the conv trunk's pooling so far)."""
+"""Model building blocks of the port: the conv trunk's layers and the LM
+substrate (``common``, ``layers``, ``lm``, ``whisper``)."""

@@ -21,6 +21,9 @@
   it serves without the flag; with ``--serve-trace`` the flag is
   accepted and the trace served, as the reference's serve does (its
   trace mode plans inside the engine and lints nothing).
+- ``serve``'s defaults: with no flags both ``main``s serve ``--arch
+  qwen3-14b`` at full width; ``--convnet vgg``, ``--serve-trace`` and
+  ``--tune`` take both to the conv trunk.
 """
 import contextlib
 import io
@@ -230,8 +233,8 @@ def test_example_twin_runs_as_a_module(name):
 # --------------------------------------------------------------------------
 
 def _serve_lines(capsys, *flags):
-    serve.main(["--conv-backend", "fft-cuda", "--smoke", "--batch", "1",
-                "--gen", "2", "--device", "cpu", *flags])
+    serve.main(["--convnet", "vgg", "--conv-backend", "fft-cuda", "--smoke",
+                "--batch", "1", "--gen", "2", "--device", "cpu", *flags])
     return capsys.readouterr().out.splitlines()
 
 
@@ -264,3 +267,41 @@ def test_serve_trace_takes_analyze(capsys):
     assert res.reports["bucketed"]["n_requests"] == 4
     assert all(bool(torch.isfinite(y).all())
                for y in res.engines["bucketed"].results.values())
+
+
+# --------------------------------------------------------------------------
+# serve's defaults
+# --------------------------------------------------------------------------
+
+class _Resolved(Exception):
+    pass
+
+
+def _resolve(monkeypatch, module, argv):
+    """What ``module.main(argv)`` would serve, stopped before it builds
+    anything: ("lm", arch, smoke) or ("convnet", name)."""
+    def lm(name, smoke=False):
+        raise _Resolved("lm", name, smoke)
+
+    def convnet(args):
+        raise _Resolved("convnet", args.convnet)
+
+    monkeypatch.setattr(module, "get_config", lm)
+    monkeypatch.setattr(module, "serve_convnet", convnet)
+    with pytest.raises(_Resolved) as e:
+        module.main(argv)
+    return e.value.args
+
+
+@pytest.mark.parametrize("argv", [[], ["--smoke"], ["--arch", "mamba2-2.7b"],
+                                  ["--convnet", "vgg"], ["--serve-trace"],
+                                  ["--tune"], ["--analyze"]],
+                         ids=lambda a: " ".join(a) or "no flags")
+def test_serve_defaults_match_the_reference(monkeypatch, argv):
+    """Both ``main``s resolve the same flags to the same system; with none
+    it is ``--arch qwen3-14b`` at full width."""
+    from repro.launch import serve as jserve
+    got = _resolve(monkeypatch, serve, argv)
+    assert got == _resolve(monkeypatch, jserve, argv)
+    if not argv:
+        assert got == ("lm", "qwen3-14b", False)

@@ -445,6 +445,30 @@ def test_checkpoint_crosses_packages(tmp_path, writer):
         np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("writer,reader", [("torch", "torch"),
+                                           ("torch", "jax"),
+                                           ("jax", "torch")])
+def test_checkpoint_none_leaf_roundtrips(tmp_path, writer, reader):
+    """A ``None`` in the tree is an empty subtree, as ``jax.tree_util``
+    has it: nothing is saved for it and ``restore`` gives ``None`` back,
+    in the port and across the two packages in both directions."""
+    import jax.numpy as jnp
+    from repro import checkpoint as jcheckpoint
+    w = np.arange(6.0, dtype=np.float32).reshape(2, 3)
+    lib = {"torch": (checkpoint, torch.from_numpy,
+                     lambda a: torch.zeros(a.shape)),
+           "jax": (jcheckpoint, jnp.asarray, lambda a: jnp.zeros(a.shape))}
+    d = str(tmp_path / "ck")
+    store, leaf, _ = lib[writer]
+    store.save(d, 1, {"w": leaf(w), "bias": None}, weights_version=1)
+    store, _, zeros = lib[reader]
+    kw = {"device": "cpu"} if reader == "torch" else {}
+    got, meta = store.restore(d, 1, {"w": zeros(w), "bias": None}, **kw)
+    assert meta["keys"] == ["['w']"]
+    assert got["bias"] is None
+    np.testing.assert_array_equal(np.asarray(got["w"]), w)
+
+
 def test_checkpoint_restores_a_dtensor_elsewhere(tmp_path, mesh):
     """A ``DTensor`` leaf is saved whole; ``shardings`` places it again."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor

@@ -1,0 +1,18 @@
+"""The port's LM slice against the JAX package for half of the ten
+architectures (the checks are in ``torch_lm_archs.py``): forward (whisper:
+encode), prefill, three greedy decode steps, the cache after them and the
+greedy tokens, each within 1e-4 of the reference's largest |value| in
+float32, the tokens equal."""
+import pytest
+
+import torch_lm_archs as A
+
+ARCHS = ["hymba-1.5b", "deepseek-v2-lite-16b", "mixtral-8x7b",
+         "whisper-small", "mamba2-2.7b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("check", ["forward", "prefill", "decode", "cache",
+                                   "greedy_tokens"])
+def test_slice_matches_the_jax_package(arch, check):
+    getattr(A, f"check_{check}")(arch)

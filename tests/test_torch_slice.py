@@ -81,6 +81,9 @@ def test_serve_entry_point_on_cpu(capsys):
 def test_entry_points_want_a_gpu_unless_told_otherwise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve.main(["--image", "32", "--batch", "1", "--gen", "1"])
+        serve.main(["--convnet", "vgg", "--image", "32", "--batch", "1",
+                    "--gen", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-14b", "--smoke"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_jax({}, {})

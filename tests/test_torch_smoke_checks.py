@@ -852,6 +852,56 @@ def test_replay_readings_stop_at_agreement():
     assert reads == [cut, full]
 
 
+def _readings(*counts):
+    """A reader of ``device_activity``-shaped readings: ``counts`` in
+    turn, then the last of them again."""
+    it = iter(counts)
+    last = []
+
+    def read():
+        last[:] = [next(it, last[0] if last else None)]
+        return (last[0], {}, {})
+    return read
+
+
+def test_replay_gate_reference_only_grows():
+    """The eager reference is the per-name maximum of the eager readings:
+    a replay that misses an operation fails though eager readings that
+    dropped the same operation agree, or a re-read one equals it; a replay
+    that holds more than two agreeing eager readings that both dropped
+    records passes once an eager reading holds them too; one that runs an
+    operation the eager callable never does fails."""
+    full = {"cgemm_kernel": 8, "rinv16_kernel": 1, "Memcpy DtoD": 3}
+    dropped = {"cgemm_kernel": 8, "rinv16_kernel": 1, "Memcpy DtoD": 1}
+    missing = {"cgemm_kernel": 8, "Memcpy DtoD": 3}
+    assert smoke.fullest([(dropped, {}, {}), (missing, {"r": 1}, {})]) == (
+        full, {"r": 1}, {})
+    # two dropped sessions agree after a complete one: the replay must
+    # still hold every operation
+    with pytest.raises(AssertionError, match="differ"):
+        smoke.replay_gate("x", _readings(full, missing, missing),
+                          _readings(missing))
+    # the eager readings agree on one that dropped copies; the replay
+    # holds them but misses a kernel, and a re-read eager session drops
+    # that same kernel
+    with pytest.raises(AssertionError, match="differ"):
+        smoke.replay_gate("x", _readings(dropped, dropped, missing),
+                          _readings(missing))
+    n, eager, eager_reads, replays = smoke.replay_gate(
+        "x", _readings(dropped, dropped, full), _readings(missing, full))
+    assert n == 12 and eager[0] == full
+    assert len(eager_reads) == 3 and len(replays) == smoke.READINGS
+    n, eager, eager_reads, replays = smoke.replay_gate(
+        "x", _readings(full, full), _readings(dropped, full))
+    assert n == 12 and len(eager_reads) == 2 and len(replays) == 2
+    with pytest.raises(AssertionError, match="did not"):
+        smoke.replay_gate("x", _readings(full, full),
+                          _readings(dict(full, nccl_kernel=1)))
+    with pytest.raises(AssertionError, match="agree"):
+        smoke.replay_gate("x", _readings(*({"k": i} for i in range(9))),
+                          _readings(full))
+
+
 def test_serve_checks_on_a_mesh_hold_the_local_result(gloo_mesh):
     """``serve_checks`` with ``local=``: a plain result of the engine on
     the mesh passes against its gathered eager forward, direct, and the
