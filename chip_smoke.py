@@ -283,25 +283,62 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               off beyond it), and the same
               prefill and decode steps in float32, teacher-forced on the
               served tokens, to the float32 forward (``LM_TOL``).  No
-              kernel may launch.  Reported: prefill ms, decode ms a step,
+              kernel may launch, in this process or in the child (which
+              zeroes and reads the counts around ``serve``'s ``main``).
+              Reported: prefill ms, decode ms a step,
               tokens/s, peak memory and one decode step's device time by
               kernel, beside the card's name and power limit
+ 19. lm_train  the LM training path (no hand-written kernel either), last:
+              each of the ten small forms, float32 weights drawn on the
+              host and copied to the card, one ``make_train_step`` step on
+              the card against the host (loss, grad_norm and every leaf of
+              mu and nu within ``LM_TOL``), a bf16 step on the card
+              (finite), and on the card the grads of ``microbatches=2``
+              (MoE: against the host's, its capacity sees other tokens)
+              and of ``lm_forward(remat=False)`` against the step's
+              (``LM_TOL``, ``LM_REMAT_TOL``; whisper's layers are always
+              recomputed and have no such run); then in a child process
+              with deterministic algorithms on (an op without a
+              deterministic form raises), ``launch.train``'s ``main`` at
+              qwen3's and hymba's small forms for 6 steps, again
+              checkpointed every 3, and resumed from step 3: the final loss
+              and state equal to the whole run's bit for bit; then
+              ``python -m repro_torch.launch.train --arch hymba-1.5b
+              --batch 2 --seq 2048 --steps 6`` at full width in a child
+              process (this process's memory freed first): every loss and
+              parameter finite, and on fresh weights and the step-0 batch
+              the bf16 grads against the float32 grads in every leaf and
+              unit slice (``LM_TRAIN_BF16_TOL``), a central difference of
+              the float32 loss against <g, d> (``LM_TRAIN_FD_TOL``), remat
+              on against off at ``--seq 512`` (``LM_REMAT_TOL``), and three
+              planted faults (labels one position off, the last unit's
+              grads left out, one layer's SSD branch detached) beyond both
+              gradient gates.  No kernel may launch, in this process or
+              in either child (each child zeroes and reads the counts
+              around its ``main``).  Reported: step ms,
+              tokens/s, the model FLOP share of the bf16 peak, peak memory,
+              one step's device time by kernel and idle share, the losses
+              against ln V, beside the card's name and power limit
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 18) and read right after it; each
-path must launch its own kernels and none of the others (phase 18 none),
-and every tile DFT, forward and inverse, only in its specialised form.
+(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 19) and read right after it;
+each path must launch its own kernels and none of the others (phases 18 and
+19 none), and every tile DFT, forward and inverse, only in its specialised
+form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -340,11 +377,20 @@ from repro_torch.kernels.dft_tile import (  # noqa: E402
     tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, tile_irfft_ref,
     tile_rfft_cuda, tile_rfft_ref)
 from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
+from repro_torch.data import DataConfig, lm_batch  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch import batcher, serve  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.models import layers as LML  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.models import whisper as WH  # noqa: E402
 from repro_torch.models.layers import conv_block, maxpool2x2  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    AdamWConfig, adamw_init, tree_leaves, tree_unflatten)
+from repro_torch.train import (  # noqa: E402
+    cross_entropy, init_train_state, loss_and_grads, train_loss)
+from repro_torch.train import make_train_step as make_lm_step  # noqa: E402
 
 IMAGE, BATCH, GEN, SEED = 224, 4, 10, 0
 TRAIN_STEPS = 5                         # timed training steps per backend
@@ -415,6 +461,34 @@ LM_DECODE_UNGATED = ("mixtral-8x7b",)
 LM_FULL_TOL = 0.1
 LM_FULL_ARGS = ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "32",
                 "--gen", "16"]
+# phase 19: the small forms' train steps (tests/torch_lm_train.py's batch
+# and AdamW settings), the archs resumed on the card, hymba-1.5b's
+# full-width run and the gates on its gradients
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 16
+LM_TRAIN_OPT = dict(lr=1e-3, total_steps=10)
+LM_RESUME_ARCHS = ("qwen3-14b", "hymba-1.5b")
+LM_RESUME_ARGS = ["--smoke", "--steps", "6", "--batch", "2", "--seq", "16"]
+LM_TRAIN_FULL_ARGS = ["--arch", "hymba-1.5b", "--batch", "2", "--seq",
+                      "2048", "--steps", "6"]
+LM_REMAT_SEQ = 512          # remat on against off at full width
+LM_REMAT_TOL = 1e-5         # remat on vs off, of the largest |grad|
+LM_ALWAYS_REMAT = ("whisper-small",)  # recomputed whatever remat says
+LM_TRAIN_SEED = 1           # the central difference's direction
+LM_FD_STEP = 1e-2           # half the loss change of the central difference
+LM_SSD_FAULT_LAYER = 16     # the layer whose SSD branch the fault detaches
+# hymba-1.5b at full width, fresh weights and the step-0 batch.  The bf16
+# grads against the float32 grads of the same step, the largest relative
+# L2 of any leaf or unit slice: 8.34e-2 on the H100 (PERF.md, LM
+# training); the planted faults read 1.0 (the last unit's grads left out;
+# one layer's SSD branch detached) and 1.83 (labels shifted one position):
+# the gate sits near the geometric middle (0.29) of 8.34e-2 and 1.0.  The
+# central difference of the float32 loss along fd_direction against
+# <g, d>, relative to <g, d>: 7.25e-5; the faults read 1.02e-2 (labels
+# shifted), 1.49e-2 (last unit), 2.82e-2 (SSD branch): the gate sits near
+# the geometric middle (8.6e-4) of 7.25e-5 and 1.02e-2.  Each fault must
+# read beyond both gates.
+LM_TRAIN_BF16_TOL = 0.3
+LM_TRAIN_FD_TOL = 1e-3
 TUNE_ENV = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_CACHE",
             "REPRO_TORCH_AUTOTUNE_BUDGET_MS", "REPRO_TORCH_AUTOTUNE_REPS")
 
@@ -3879,7 +3953,9 @@ from repro_torch.launch import serve
 from repro_torch.models import lm as LM
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.cuda.reset_peak_memory_stats()
+smoke.zero_counts()
 res = serve.main(sys.argv[1:])
+launches = smoke.read_counts()
 serve_peak = torch.cuda.max_memory_allocated()
 cfg, p = res.cfg, res.params
 B, P = res.prompts.shape
@@ -3919,6 +3995,7 @@ with torch.inference_mode():
     rows, busy_us, wall_us, _ = smoke.device_profile(step)
 a, b = res.logits[:, -1], full[:, -1]
 print("lm_full " + json.dumps({
+    "launches": launches,
     "finite": bool(torch.isfinite(res.logits).all()),
     "tokens_shape": list(res.tokens.shape),
     "logits_shape": list(res.logits.shape),
@@ -3953,7 +4030,9 @@ def check_lm_full(r):
     ``LM_FULL_TOL`` of ``lm_forward`` in bf16 and ``LM_TOL`` in float32;
     and every planted fault (``lm_planted_faults``, and the logits one
     position off) beyond ``LM_FULL_TOL``, so that the bf16 gate is shown
-    to see them."""
+    to see them; and no hand-written kernel launched by ``serve`` in the
+    child."""
+    expect_counts("lm_full", r["launches"], {})
     if not (r["finite"] and r["tokens_shape"] == [4, 16]
             and r["logits_shape"][-1] == get_config("qwen3-14b").vocab):
         raise AssertionError(f"qwen3-14b serve output: {r}")
@@ -4003,14 +4082,471 @@ def lm_serve_phase():
     t0 = time.perf_counter()
     small = [lm_small(arch) for arch in ARCH_NAMES]
     small_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    full = lm_full()
     counts = read_counts()
     expect_counts("lm_serve", counts, {})
+    torch.cuda.empty_cache()
+    full = lm_full()
+    counts = {k: n + full["launches"][k] for k, n in counts.items()}
     emit("lm_serve", archs=small, tol=LM_TOL, decode_tol=LM_DECODE_TOL,
          small_s=small_s, launches=counts)
     emit("lm_serve_full", args=LM_FULL_ARGS, tol=LM_FULL_TOL,
          this_process_before=before, nvidia_smi=nvidia_smi(), **full)
+    return counts
+
+
+# --------------------------------------------------------------------------
+# Phase 19: LM training (repro_torch.launch.train)
+# --------------------------------------------------------------------------
+
+def flat_keyed(tree):
+    """keystr -> leaf of a tree, in ``torch.utils._pytree``'s order."""
+    return {torch.utils._pytree.keystr(p): v for p, v in
+            torch.utils._pytree.tree_flatten_with_path(tree)[0]
+            if v is not None}
+
+
+def stacked(key):
+    """A leaf of the stacked units (leading n_units axis)."""
+    return key.startswith("['layers']")
+
+
+def by_slice(key, t):
+    """``t`` as rows: one a unit for a stacked leaf, else one row."""
+    return t.reshape(t.shape[0] if stacked(key) else 1, -1)
+
+
+def ratio(num, den):
+    if den > 0:
+        return num / den
+    return 0.0 if num == 0 else math.inf
+
+
+def rel_l2_slices(got, want):
+    """The relative L2 error of ``got`` against ``want``, for every leaf
+    and, for the stacked leaves, every unit slice (``key[u]``)."""
+    out, g_flat = {}, flat_keyed(got)
+    for k, w in flat_keyed(want).items():
+        w2 = by_slice(k, w).float()
+        num = (by_slice(k, g_flat[k]).float() - w2).norm(dim=1).tolist()
+        den = w2.norm(dim=1).tolist()
+        out[k] = ratio(math.hypot(*num), math.hypot(*den))
+        if stacked(k):
+            out.update({f"{k}[{u}]": ratio(a, b)
+                        for u, (a, b) in enumerate(zip(num, den))})
+    return out
+
+
+def scaled_tree_err(got, want):
+    """max over leaves of max|got - want| / max|want|."""
+    g_flat, worst = flat_keyed(got), 0.0
+    for k, w in flat_keyed(want).items():
+        num = (g_flat[k].double().cpu() - w.double().cpu()).abs().max()
+        worst = max(worst, ratio(float(num), float(w.abs().max())))
+    return worst
+
+
+def rel_scalar(got, want):
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def tree_dot(a, b):
+    return sum(float(torch.sum(x * y, dtype=torch.float64))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y, leaf by leaf."""
+    return tree_unflatten(y, [alpha * a + b for a, b in
+                              zip(tree_leaves(x), tree_leaves(y))])
+
+
+def lm_train_batch(cfg, device):
+    """tests/torch_lm_train.py's batch (the reference's ``_batch``)."""
+    rng = np.random.default_rng(0)
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    if cfg.encdec:
+        b = {"frames": rng.standard_normal((B, 24, cfg.d_model))
+             .astype(np.float32),
+             "tokens": rng.integers(0, cfg.vocab, (B, 8)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, 8)).astype(np.int32)}
+    else:
+        b = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+        if cfg.frontend == "vision_stub":
+            b["img_embeds"] = rng.standard_normal(
+                (B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def finite_tree(tree):
+    return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
+
+
+def lm_grads_no_remat(params, cfg, batch):
+    """(loss, grads) of the LM loss with every activation kept: the
+    train step's loss on ``lm_forward(remat=False)``, against which the
+    step's own (remat on) is held."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    labels = batch["labels"]
+    with torch.enable_grad():
+        logits = LM.lm_forward(tree_unflatten(params, leaves), cfg,
+                               batch["tokens"],
+                               img_embeds=batch.get("img_embeds"),
+                               remat=False)
+        loss = cross_entropy(logits[:, logits.shape[1] - labels.shape[1]:],
+                             labels)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def lm_train_small(arch, device="cuda"):
+    """Phase 19 (a) for one architecture's small form: a float32 train
+    step on ``device`` (the card) against the same step on the host
+    (loss, grad_norm, every leaf of mu and nu within ``LM_TOL``); a bf16
+    step on ``device``, finite; and on ``device`` the grads of
+    ``microbatches=2`` and of ``lm_grads_no_remat`` against the step's
+    own.  MoE archs dispatch a microbatch's tokens with another capacity,
+    so their microbatched grads are held card against host instead.
+    Whisper's layers are always recomputed (``LM_ALWAYS_REMAT``): it has
+    no remat-off run to compare, and reports None."""
+    cfg32 = dataclasses.replace(get_config(arch, smoke=True),
+                                dtype="float32")
+    init = WH.init_whisper_params if cfg32.encdec else LM.init_lm_params
+    host = init(cfg32, torch.Generator().manual_seed(SEED))
+    card = torch.utils._pytree.tree_map(lambda t: t.to(device), host)
+    hb, cb = lm_train_batch(cfg32, "cpu"), lm_train_batch(cfg32, device)
+    step = make_lm_step(cfg32, AdamWConfig(**LM_TRAIN_OPT))
+    _, ho, hm = step(host, adamw_init(host), hb)
+    cp, co, cm = step(card, adamw_init(card), cb)
+    errs = {"loss": rel_scalar(cm["loss"], hm["loss"]),
+            "grad_norm": rel_scalar(cm["grad_norm"], hm["grad_norm"]),
+            "mu": scaled_tree_err(co["mu"], ho["mu"]),
+            "nu": scaled_tree_err(co["nu"], ho["nu"])}
+    if not (max(errs.values()) <= LM_TOL and finite_tree(cp)):
+        raise AssertionError(f"{arch}: train step card vs host {errs} > "
+                             f"{LM_TOL}, or not finite")
+    cfg16 = get_config(arch, smoke=True)
+    p16, _, m16 = make_lm_step(cfg16, AdamWConfig(**LM_TRAIN_OPT))(
+        card, adamw_init(card), cb)
+    if not (math.isfinite(float(m16["loss"])) and finite_tree(p16)):
+        raise AssertionError(f"{arch}: the bf16 train step is not finite")
+    l1, g1 = loss_and_grads(card, cfg32, cb)
+    l2, g2 = loss_and_grads(card, cfg32, cb, microbatches=2)
+    moe = cfg32.n_experts > 0
+    if moe:
+        hl2, hg2 = loss_and_grads(host, cfg32, hb, microbatches=2)
+        mb = max(rel_scalar(l2, hl2), scaled_tree_err(g2, hg2))
+    else:
+        mb = max(rel_scalar(l2, l1), scaled_tree_err(g2, g1))
+    remat = None
+    if arch not in LM_ALWAYS_REMAT:
+        l0, g0 = lm_grads_no_remat(card, cfg32, cb)
+        remat = max(rel_scalar(l0, l1), scaled_tree_err(g0, g1))
+    if not (mb <= LM_TOL and (remat is None or remat <= LM_REMAT_TOL)):
+        raise AssertionError(f"{arch}: microbatches=2 {mb:.3e} (tol "
+                             f"{LM_TOL}), remat off {remat} (tol "
+                             f"{LM_REMAT_TOL})")
+    return {"arch": arch, "card_vs_host": errs, "bf16_loss": float(
+        m16["loss"]), "microbatches_2_err": mb,
+        "microbatches_2_against": "host" if moe else "microbatches=1",
+        "remat_off_err": remat}
+
+
+def check_lm_resume(arch, whole, resumed):
+    """A resumed run ends where the uninterrupted one does: the same final
+    loss and every leaf of the parameters and AdamW state bit for bit."""
+    if sorted(resumed.losses) != [3, 4, 5] or resumed.loss != whole.loss:
+        raise AssertionError(f"{arch}: resumed steps {sorted(resumed.losses)}"
+                             f", final loss {resumed.loss} vs {whole.loss}")
+    want = flat_keyed({"params": whole.params, "opt": whole.opt})
+    got = flat_keyed({"params": resumed.params, "opt": resumed.opt})
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{arch}: the resumed state has other leaves")
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"{arch}: the resumed state differs from the "
+                             f"uninterrupted run's at {differ[:5]}")
+
+
+def lm_resume(arch, device="cuda"):
+    """Phase 19 (b) for one small form: ``launch.train --steps 6`` whole,
+    then checkpointed every 3 steps, its step-6 checkpoint taken away (as
+    if the run had died after step 5) and ``--resume``d from step 3.  On
+    the card it runs in ``lm_resume_child``, with deterministic algorithms
+    on: an op with no deterministic form raises and names itself."""
+    argv = LM_RESUME_ARGS + ["--arch", arch, "--device", str(device)]
+    with tempfile.TemporaryDirectory() as d:
+        ck = ["--ckpt-dir", d, "--ckpt-every", "3"]
+        whole = train_launch.main(argv)
+        train_launch.main(argv + ck)
+        shutil.rmtree(os.path.join(d, "step_00000006"))
+        resumed = train_launch.main(argv + ck + ["--resume"])
+    check_lm_resume(arch, whole, resumed)
+    return {"arch": arch, "final_loss": whole.loss,
+            "leaves": len(flat_keyed((whole.params, whole.opt))),
+            "deterministic": torch.are_deterministic_algorithms_enabled()}
+
+
+LM_RESUME_CHILD = r"""
+import json
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke as smoke
+smoke.zero_counts()
+runs = [smoke.lm_resume(a) for a in smoke.LM_RESUME_ARCHS]
+print("lm_resume " + json.dumps({"runs": runs,
+                                 "launches": smoke.read_counts()}))
+"""
+
+
+@contextlib.contextmanager
+def ssd_detached(params, layer):
+    """A planted fault: the mamba mixer of stacked unit ``layer`` (hymba:
+    one layer a unit) returns its output detached, so no gradient flows
+    through that layer's SSD branch.  The unit is told by the address of
+    its ``A_log`` slice, which the backward's recompute sees again."""
+    target = params["layers"][0]["mamba"]["A_log"][layer].data_ptr()
+    sound = LML.mamba_forward
+
+    def fault(p, x, cfg, *, state=None):
+        y, ns = sound(p, x, cfg, state=state)
+        return (y.detach() if p["A_log"].data_ptr() == target else y), ns
+    LML.mamba_forward = fault
+    try:
+        yield
+    finally:
+        LML.mamba_forward = sound
+
+
+def fd_direction(grads, seed):
+    """A seeded direction in parameter space: each unit slice (each
+    non-stacked leaf) is its gradient, its elements' signs flipped at
+    random with probability 1/4, scaled to unit norm.  Each slice then
+    adds about half its gradient's norm to <g, d>."""
+    gen = None
+
+    def one(path, g):
+        nonlocal gen
+        if gen is None:
+            gen = torch.Generator(device=g.device).manual_seed(seed)
+        k = torch.utils._pytree.keystr(path)
+        g2 = by_slice(k, g)
+        s = torch.where(torch.rand(g2.shape, generator=gen,
+                                   device=g.device) < 0.75, 1.0, -1.0)
+        n = g2.norm(dim=1, keepdim=True)
+        return (s * g2 / torch.clamp(n, min=1e-30)).reshape(g.shape)
+    return torch.utils._pytree.tree_map_with_path(one, grads)
+
+
+def lm_grad_gates(params, cfg, batch, remat_batch, n_units):
+    """The gradient gates of phase 19 (c) on ``params`` and ``batch``:
+    the bf16 grads against the float32 grads (``rel_l2_slices``), the
+    central difference of the float32 loss along ``fd_direction`` against
+    <g, d>, each planted fault's readings of both, and ``remat`` on
+    against off on ``remat_batch`` in float32."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    loss32, g32 = loss_and_grads(params, cfg32, batch)
+    d = fd_direction(g32, LM_TRAIN_SEED)
+    gd = tree_dot(g32, d)
+    eps = LM_FD_STEP / abs(gd)
+    with torch.no_grad():
+        lp, lm = (float(train_loss(tree_axpy(s * eps, d, params), cfg32,
+                                   batch)) for s in (1.0, -1.0))
+    fd = (lp - lm) / (2 * eps)
+
+    def reading(g):
+        rel = rel_l2_slices(g, g32)
+        worst = max(rel, key=rel.get)
+        return {"grad_max": rel[worst], "grad_worst": worst,
+                "fd_err": abs(fd - tree_dot(g, d)) / abs(gd)}
+
+    loss16, g16 = loss_and_grads(params, cfg, batch)
+    bf16 = reading(g16)
+    del g16
+    faults = {}
+    shifted = dict(batch, labels=torch.roll(batch["labels"], 1, dims=1))
+    faults["labels_shifted"] = reading(loss_and_grads(params, cfg32,
+                                                      shifted)[1])
+    with ssd_detached(params, min(LM_SSD_FAULT_LAYER, n_units - 1)):
+        faults["ssd_branch_detached"] = reading(
+            loss_and_grads(params, cfg32, batch)[1])
+    last_out = torch.utils._pytree.tree_map_with_path(
+        lambda p, g: (torch.cat([g[:-1], torch.zeros_like(g[-1:])])
+                      if stacked(torch.utils._pytree.keystr(p)) else g), g32)
+    faults["last_unit_left_out"] = reading(last_out)
+    del last_out, g32, d
+    l_on, g_on = loss_and_grads(params, cfg32, remat_batch)
+    l_off, g_off = lm_grads_no_remat(params, cfg32, remat_batch)
+    remat = max(rel_scalar(l_off, l_on), scaled_tree_err(g_off, g_on))
+    return {"loss_float32": float(loss32), "loss_bf16": float(loss16),
+            "bf16": bf16, "fd": {"eps": eps, "g_dot_d": gd, "fd": fd,
+                                 "err": abs(fd - gd) / abs(gd)},
+            "faults": faults, "remat_err": remat}
+
+
+def lm_train_full_child(argv, remat_seq=LM_REMAT_SEQ):
+    """Phase 19 (c) in its child process: ``launch.train``'s ``main`` with
+    ``argv`` (what ``python -m repro_torch.launch.train`` runs), one more
+    step profiled, then the gradient gates on fresh weights and the
+    step-0 batch.  Returns the record ``check_lm_train_full`` gates."""
+    args = train_launch.parse_args(argv)
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = train_launch.main(argv)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    cfg = run.cfg
+    dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq + 1,
+                    global_batch=args.batch, seed=args.seed)
+    step = make_lm_step(cfg, AdamWConfig(
+        lr=args.lr, warmup_steps=min(20, args.steps // 5),
+        total_steps=args.steps))
+    batch = train_launch.batch_at(cfg, dc, args.steps, device)
+    state = [run.params, run.opt]
+    params_finite = finite_tree(run.params)
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+    rows, busy_us, wall_us, _ = (device_profile(one_step) if cuda
+                                 else ([], 0.0, 0.0, []))
+    run.params = run.opt = state = None
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    params, _ = init_train_state(cfg, args.seed, device=device)
+    remat_dc = dataclasses.replace(dc, seq_len=remat_seq + 1)
+    gates = lm_grad_gates(params, cfg, lm_batch(dc, 0, device=device),
+                          lm_batch(remat_dc, 0, device=device),
+                          LM._scan_geometry(cfg)[1])
+    losses = [run.losses[k] for k in sorted(run.losses)]
+    times = [run.step_s[k] for k in sorted(run.step_s)][1:]
+    step_s = statistics.median(times) if times else math.nan
+    tokens = args.batch * args.seq
+    return dict(
+        gates, losses=losses, params_finite=params_finite,
+        losses_finite=all(math.isfinite(x) for x in losses),
+        ln_vocab=math.log(cfg.vocab), step_ms=[t * 1e3 for t in times],
+        step_ms_median=step_s * 1e3, tokens_per_step=tokens,
+        tokens_per_s=tokens / step_s, n_params=cfg.n_params(),
+        param_count=sum(t.numel() for t in tree_leaves(params)),
+        model_flop_share=6 * cfg.n_params() * tokens / step_s
+        / PEAK_FLOPS[torch.bfloat16],
+        peak_bytes=peak, remat_seq=remat_seq, launches=launches,
+        # idle share against the unprofiled median step (the profiler
+        # slows the host) and against the profiled step's own wall time
+        step_profile={"busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+                      "idle_share": 1 - busy_us / (step_s * 1e6)
+                      if busy_us else None,
+                      "idle_share_profiled": 1 - busy_us / wall_us
+                      if wall_us else None,
+                      "top": [[name.split("(")[0][:100], us / 1e3, calls]
+                              for us, name, calls in rows[:10]]})
+
+
+LM_TRAIN_CHILD = r"""
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as smoke
+print("lm_train_full " + json.dumps(smoke.lm_train_full_child(sys.argv[1:])))
+"""
+
+
+def check_lm_train_full(r):
+    """The gates on the child's ``lm_train_full`` record: every loss and
+    every parameter finite; the bf16 grads within ``LM_TRAIN_BF16_TOL``
+    of the float32 ones in every leaf and unit slice; the central
+    difference within ``LM_TRAIN_FD_TOL`` of <g, d>; remat on against off
+    within ``LM_REMAT_TOL``; and every planted fault beyond both gradient
+    gates, so that each gate is shown to see them; and no hand-written
+    kernel launched by ``launch.train`` in the child."""
+    expect_counts("lm_train_full", r["launches"], {})
+    if not (r["losses_finite"] and r["params_finite"]):
+        raise AssertionError(f"hymba-1.5b training: losses {r['losses']}, "
+                             f"parameters finite {r['params_finite']}")
+    if not (r["bf16"]["grad_max"] <= LM_TRAIN_BF16_TOL
+            and r["fd"]["err"] <= LM_TRAIN_FD_TOL
+            and r["remat_err"] <= LM_REMAT_TOL):
+        raise AssertionError(
+            f"hymba-1.5b grads: bf16 vs float32 {r['bf16']['grad_max']:.3e} "
+            f"at {r['bf16']['grad_worst']} (tol {LM_TRAIN_BF16_TOL}), "
+            f"central difference {r['fd']['err']:.3e} (tol "
+            f"{LM_TRAIN_FD_TOL}), remat {r['remat_err']:.3e} (tol "
+            f"{LM_REMAT_TOL})")
+    unseen = {k: f for k, f in r["faults"].items()
+              if not (f["grad_max"] > LM_TRAIN_BF16_TOL
+                      and f["fd_err"] > LM_TRAIN_FD_TOL)}
+    if len(r["faults"]) < 3 or unseen:
+        raise AssertionError(f"hymba-1.5b: the gradient gates cannot tell "
+                             f"these planted faults: {unseen}")
+
+
+def lm_train_full():
+    """hymba-1.5b at full width: ``launch.train`` in a child process, the
+    gradient gates there."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", LM_TRAIN_CHILD, *LM_TRAIN_FULL_ARGS],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"train {' '.join(LM_TRAIN_FULL_ARGS)} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    r = json.loads(next(ln for ln in lines if ln.startswith(
+        "lm_train_full "))[len("lm_train_full "):])
+    check_lm_train_full(r)
+    printed = [ln for ln in lines if ln.startswith(("arch=", "step ",
+                                                    "done;"))]
+    return dict(r, printed=printed, command_s=seconds)
+
+
+def lm_resume_child():
+    """Phase 19 (b) in a child process with deterministic algorithms on
+    (cuBLAS's workspace set for it) for both archs of ``LM_RESUME_ARCHS``;
+    no hand-written kernel may launch there."""
+    proc = subprocess.run(
+        [sys.executable, "-c", LM_RESUME_CHILD], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                 CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    if proc.returncode:
+        raise AssertionError(f"resume exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    r = json.loads(next(ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("lm_resume "))[len("lm_resume "):])
+    expect_counts("lm_resume", r["launches"], {})
+    return r
+
+
+def lm_train_phase():
+    """Phase 19: the LM training path (no hand-written kernel)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    small = [lm_train_small(arch) for arch in ARCH_NAMES]
+    small_s = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("lm_train", counts, {})
+    resume = lm_resume_child()
+    torch.cuda.empty_cache()
+    full = lm_train_full()
+    counts = {k: n + resume["launches"][k] + full["launches"][k]
+              for k, n in counts.items()}
+    emit("lm_train", archs=small, resume=resume, tol=LM_TOL,
+         remat_tol=LM_REMAT_TOL, small_s=small_s, launches=counts)
+    emit("lm_train_full", args=LM_TRAIN_FULL_ARGS,
+         bf16_tol=LM_TRAIN_BF16_TOL, fd_tol=LM_TRAIN_FD_TOL,
+         nvidia_smi=nvidia_smi(), **full)
     return counts
 
 
@@ -4109,15 +4645,16 @@ def main():
     clear_plan_cache()
     clear_prepared_cache()
     lm_counts = lm_serve_phase()
+    train_lm_counts = lm_train_phase()
 
     # launches: the main paths together (slice, rect, train, trainer,
     # serve_trace, tune, plan_artifacts, sharded, sharded_train,
     # sharded_tune, sharded_serve, plan_artifacts_sharded, entry_points,
-    # lm_serve)
+    # lm_serve, lm_train)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
                 + trainer_counts[k] + trace_counts[k] + tune_counts[k]
                 + artifact_counts[k] + sharded_counts[k] + entry_counts[k]
-                + lm_counts[k] for k in KERNELS}
+                + lm_counts[k] + train_lm_counts[k] for k in KERNELS}
     main_cg = [r for r in cg_rows if r["dtype"] == "float32"
                and r["three_m"] and r["spectrum"] == "real"]
     main_inv = inv_rows[:n_layers]

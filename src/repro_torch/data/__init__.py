@@ -1,3 +1,4 @@
-from repro_torch.data.pipeline import DataConfig, image_batch
+from repro_torch.data.pipeline import (DataConfig, frames_batch, image_batch,
+                                       lm_batch)
 
-__all__ = ["DataConfig", "image_batch"]
+__all__ = ["DataConfig", "lm_batch", "frames_batch", "image_batch"]

@@ -1,1 +1,1 @@
-"""Entry points of the port (serving)."""
+"""Entry points of the port (serving and training)."""

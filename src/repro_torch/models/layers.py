@@ -20,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as TF
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
@@ -252,13 +253,16 @@ def _pick_block(S, pref):
 
 def attend_flash(q, k, v, *, q_positions, kv_positions, window=0,
                  softcap=0.0, causal=True, q_block=512, kv_block=512):
-    """Online-softmax blocked attention (forward only).
+    """Online-softmax blocked attention.
 
     q, k, v: (B, H, S, hd), kv pre-expanded to H.  Static sliding-window
     layers get a banded schedule: only the kv blocks intersecting the window
     are visited (O(S*W) instead of O(S^2)).  A tensor window applies the
     mask but visits all blocks.  All q blocks advance together, one kv
-    block a step, in the reference's order of steps."""
+    block a step, in the reference's order of steps.  While grad is on,
+    each step runs under ``torch.utils.checkpoint``, the twin of the
+    reference's ``jax.checkpoint`` of its step: the backward keeps only
+    ``(m, l, acc)`` between steps and recomputes a step's scores."""
     B, H, Sq, hd = q.shape
     Skv, vd = k.shape[2], v.shape[-1]
     q_block, kv_block = _pick_block(Sq, q_block), _pick_block(Skv, kv_block)
@@ -282,13 +286,9 @@ def attend_flash(q, k, v, *, q_positions, kv_positions, window=0,
 
     dev = q.device
     qi = torch.arange(nq, device=dev)
-    m = torch.full((B, H, nq, q_block), NEG_INF, dtype=torch.float32,
-                   device=dev)
-    l = torch.zeros((B, H, nq, q_block), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, nq, q_block, vd), dtype=torch.float32,
-                      device=dev)
     qp_b = qp[:, None, :, :, None]                     # (B, 1, nq, Q, 1)
-    for js in range(n_steps):
+
+    def step(m, l, acc, qb, kb, vb, window, js):
         if banded:
             j_raw = qi - (n_steps - 1) + js
             visit = (j_raw >= 0)[None, None, :, None, None]
@@ -313,7 +313,22 @@ def attend_flash(q, k, v, *, q_positions, kv_positions, window=0,
         l = l * corr + torch.sum(p, dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhnqk,bhnkd->bhnqd",
                                                    p, v_j)
-        m = m_new
+        return m_new, l, acc
+
+    m = torch.full((B, H, nq, q_block), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, H, nq, q_block), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, nq, q_block, vd), dtype=torch.float32,
+                      device=dev)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (qb, kb, vb))
+    for js in range(n_steps):
+        if remat:
+            m, l, acc = checkpoint(step, m, l, acc, qb, kb, vb, window, js,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            m, l, acc = step(m, l, acc, qb, kb, vb, window, js)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     # (B, H, nq, q_block, vd) -> (B, H, Sq, vd)
     return out.reshape(B, H, Sq, vd).to(v.dtype)
@@ -688,11 +703,16 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk):
 
     dA = dtc * A[None, None, None, :]                 # (B, nc, Q, H) <= 0
     dAcs = torch.cumsum(dA, dim=2)                    # inclusive cumsum
-    # intra-chunk: L[i,j] = exp(dAcs_i - dAcs_j) for i >= j
+    # intra-chunk: L[i,j] = exp(dAcs_i - dAcs_j) for i >= j.  The mask
+    # goes on before the exponential: above the diagonal the difference is
+    # a positive sum that overflows exp at a long chunk, and where(mask,
+    # exp, 0)'s backward would multiply that inf by a zero cotangent (NaN).
+    # exp(-inf) = 0 keeps the forward's values bit for bit.
     Ldec = dAcs[:, :, :, None, :] - dAcs[:, :, None, :, :]   # (B,nc,Q,Q,H)
     tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=xh.device))
-    Ldec = torch.where(tril[None, None, :, :, None], torch.exp(Ldec), 0.0)
+    Ldec = torch.exp(Ldec.masked_fill(~tril[None, None, :, :, None],
+                                      -math.inf))
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (B,nc,Q,Q)
     w = scores[..., None] * Ldec * dtc[:, :, None, :, :]     # (B,nc,Q,Q,H)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
@@ -199,15 +200,40 @@ def _tree_index(tree, u):
     return tree[u]
 
 
+def _unstack(tree, n):
+    """The ``n`` unit trees of a stacked tree, each leaf taken apart with
+    one ``unbind(0)``: its backward is one ``stack``, where indexing each
+    unit would backpropagate a full-size zero tensor a unit."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][u] for k in tree} for u in range(n)]
+    return tree.unbind(0)
+
+
+def remat_call(remat, fn, *args):
+    """``fn(*args)``; with ``remat``, while grad is on, under a
+    non-reentrant ``torch.utils.checkpoint``: only the inputs are kept,
+    and the backward runs ``fn`` again."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def _run_stack(params, cfg: ModelConfig, x, positions, *, cache=None,
-               cache_index=None, use_flash=False):
+               cache_index=None, use_flash=False, remat=False):
     """Run the stacked units.  ``cache`` is the per-unit-position dict
     from init_cache ({"u{j}": (n_units, ...) stacks}); each unit works on
-    its slice, a view, so writes land in the stacks.  Returns (x,
-    the unit entries of the cache, or None)."""
+    its slice, a view, so writes land in the stacks.  With ``remat``, while
+    grad is on, each unit runs under ``torch.utils.checkpoint`` and saves
+    nothing but its input (the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``).  Returns (x, the unit entries of the cache, or
+    None)."""
     unit, n_units = _scan_geometry(cfg)
     static_local, thetas, wins = _unit_flags(cfg, x.device)
-    for u in range(n_units):
+    units = [_unstack(params["layers"][j], n_units) for j in range(len(unit))]
+
+    def unit_body(x, p_unit, c_unit, u):
         for j, kind in enumerate(unit):
             if static_local[j] is None:
                 window = wins[u, j]                     # per layer (hymba)
@@ -215,13 +241,19 @@ def _run_stack(params, cfg: ModelConfig, x, positions, *, cache=None,
                 window = cfg.window if static_local[j] else 0
             ring = (cfg.ring_local_cache and static_local[j] is True
                     and cfg.window > 0)
-            c_j = None if cache is None else _tree_index(cache[f"u{j}"], u)
             x, _ = _block_forward(
-                _tree_index(params["layers"][j], u), x, cfg, kind,
-                positions=positions, window=window, theta=thetas[u][j],
-                cache=c_j, cache_index=cache_index, use_flash=use_flash,
-                ring=ring)
+                p_unit[j], x, cfg, kind, positions=positions,
+                window=window, theta=thetas[u][j],
+                cache=None if c_unit is None else c_unit[j],
+                cache_index=cache_index, use_flash=use_flash, ring=ring)
             x = constrain(x, "seq")
+        return x
+
+    for u in range(n_units):
+        p_unit = [units[j][u] for j in range(len(unit))]
+        c_unit = None if cache is None else [
+            _tree_index(cache[f"u{j}"], u) for j in range(len(unit))]
+        x = remat_call(remat, unit_body, x, p_unit, c_unit, u)
     if cache is None:
         return x, None
     return x, {f"u{j}": cache[f"u{j}"] for j in range(len(unit))}
@@ -283,13 +315,16 @@ def _positions(B, S, start, device):
 # --------------------------------------------------------------------------
 
 def lm_forward(params, cfg: ModelConfig, tokens, *, img_embeds=None,
-               use_flash=False):
-    """Scoring forward: (B, S) tokens -> (B, S_total, vocab) float32."""
+               use_flash=False, remat=True):
+    """Training/scoring forward: (B, S) tokens -> (B, S_total, vocab)
+    float32.  ``remat`` recomputes each unit in the backward (it matters
+    only while grad is on)."""
     x = _embed(params, cfg, tokens, img_embeds, prepend_meta=True)
     B, S, _ = x.shape
     positions = _positions(B, S, 0, x.device)
     x, _ = _dense_prefix(params, cfg, x, positions, None, None, use_flash)
-    x, _ = _run_stack(params, cfg, x, positions, use_flash=use_flash)
+    x, _ = _run_stack(params, cfg, x, positions, use_flash=use_flash,
+                      remat=remat)
     return _logits(params, cfg, x)
 
 

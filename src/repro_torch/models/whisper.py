@@ -4,7 +4,8 @@ stub — callers feed precomputed frame embeddings).
 Encoder: bidirectional attention over frames + sinusoidal positions.
 Decoder: causal self-attention + cross-attention, learned positions.
 Both stacks are weight-stacked, (n_layers, ...) leaves, and run in a
-Python loop over the layers.
+Python loop over the layers; while grad is on each layer is recomputed in
+the backward, as the reference's ``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _dtype, _positions, _tree_index
+from repro_torch.models.lm import (_dtype, _positions, _tree_index,
+                                   _unstack, remat_call)
 from repro_torch.parallel.act_sharding import constrain
 
 
@@ -100,14 +102,17 @@ def encode(params, cfg: ModelConfig, frames):
     x = frames.to(cdt) + sinusoid_posemb(T, cfg.d_model,
                                          frames.device).to(cdt)[None]
     pos = _positions(B, T, 0, frames.device)
-    for i in range(cfg.n_enc_layers):
-        p = _tree_index(params["enc_layers"], i)
+
+    def body(x, p):
         h = L.apply_norm(x, p["ln1"], cfg.norm)
         q, k, v = _proj_qkv(p["attn"], h, h)
         x = x + _attend(p["attn"], q, k, v, cfg, causal=False,
                         q_pos=pos, kv_pos=pos, use_flash=use_flash)
         h = L.apply_norm(x, p["ln2"], cfg.norm)
-        x = constrain(x + L.mlp_forward(p["mlp"], h, cfg.mlp), "seq")
+        return constrain(x + L.mlp_forward(p["mlp"], h, cfg.mlp), "seq")
+
+    for p in _unstack(params["enc_layers"], cfg.n_enc_layers):
+        x = remat_call(True, body, x, p)
     return L.apply_norm(x, params["enc_norm"], cfg.norm)
 
 
@@ -125,8 +130,8 @@ def decode_train(params, cfg: ModelConfig, enc_out, tokens):
         + params["dec_posemb"][:S].to(cdt)[None]
     dpos = _positions(B, S, 0, tokens.device)
     epos = _positions(B, T, 0, tokens.device)
-    for i in range(cfg.n_layers):
-        p = _tree_index(params["dec_layers"], i)
+
+    def body(x, p):
         h = L.apply_norm(x, p["ln1"], cfg.norm)
         q, k, v = _proj_qkv(p["attn"], h, h)
         x = x + _attend(p["attn"], q, k, v, cfg, causal=True,
@@ -136,7 +141,10 @@ def decode_train(params, cfg: ModelConfig, enc_out, tokens):
         x = x + _attend(p["xattn"], q, k, v, cfg, causal=False,
                         q_pos=dpos, kv_pos=epos)
         h = L.apply_norm(x, p["ln2"], cfg.norm)
-        x = constrain(x + L.mlp_forward(p["mlp"], h, cfg.mlp), "seq")
+        return constrain(x + L.mlp_forward(p["mlp"], h, cfg.mlp), "seq")
+
+    for p in _unstack(params["dec_layers"], cfg.n_layers):
+        x = remat_call(True, body, x, p)
     return _dec_logits(params, cfg, x)
 
 

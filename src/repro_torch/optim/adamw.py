@@ -1,9 +1,12 @@
-"""AdamW + global-norm clipping + cosine schedule over a dict of tensors
+"""AdamW + global-norm clipping + cosine schedule over a tree of tensors
 (``repro.optim.adamw`` twin, same math in float32).
 
 ``torch.optim.AdamW`` is not a twin: it has neither the global-norm clip
-nor this schedule.  Parameters are visited in sorted-key order, the order
-in which JAX flattens a dict, so sums (the global norm) add up alike.
+nor this schedule.  A tree is nested dicts, lists and tuples of tensors,
+as the LM's parameters are.  Leaves are visited in the order in which JAX
+flattens a tree (dict keys sorted, sequences in order), so sums (the
+global norm) add up alike; ``torch.utils._pytree`` would take a dict in
+insertion order.  A ``None`` is an empty subtree, not a leaf, as in JAX.
 """
 from __future__ import annotations
 
@@ -26,6 +29,42 @@ class AdamWConfig:
     min_lr_frac: float = 0.1
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's order, ``None`` skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` (in
+    ``tree_leaves``'s order); dicts keep ``like``'s key order."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def tree_map(fn, tree):
+    return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
+
+
 def cosine_lr(cfg: AdamWConfig, step):
     """Linear warm-up, then cosine decay to ``min_lr_frac * lr``; ``step``
     is an integer tensor, the result a float32 scalar tensor."""
@@ -41,16 +80,24 @@ def cosine_lr(cfg: AdamWConfig, step):
 
 def adamw_init(params):
     """Zero moments like ``params`` and a step count of 0."""
-    device = next(iter(params.values())).device
-    return {"mu": {n: torch.zeros_like(p) for n, p in params.items()},
-            "nu": {n: torch.zeros_like(p) for n, p in params.items()},
+    device = tree_leaves(params)[0].device
+    return {"mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree):
-    """L2 norm over every tensor of a dict, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(tree[n].float()))
-                          for n in sorted(tree)))
+    """L2 norm over every tensor of a tree, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def _leaves_like(tree, n, what):
+    leaves = tree_leaves(tree)
+    if len(leaves) != n:
+        raise ValueError(f"adamw_update: {what} has {len(leaves)} leaves, "
+                         f"the parameters {n}")
+    return leaves
 
 
 @torch.no_grad()
@@ -66,15 +113,23 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
     bc1 = 1 - cfg.b1 ** t
     bc2 = 1 - cfg.b2 ** t
 
-    new_params, mu, nu = {}, {}, {}
-    for n in sorted(params):
-        p = params[n]
-        g = (grads[n] * scale).float()
-        m = cfg.b1 * state["mu"][n] + (1 - cfg.b1) * g
-        v = cfg.b2 * state["nu"][n] + (1 - cfg.b2) * g * g
+    flat_p = tree_leaves(params)
+    n = len(flat_p)
+    flat_g = _leaves_like(grads, n, "grads")
+    flat_m = _leaves_like(state["mu"], n, "mu")
+    flat_v = _leaves_like(state["nu"], n, "nu")
+    new_p, mu, nu = [], [], []
+    for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
+        g = (g * scale).float()
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * g * g
         mh, vh = m / bc1, v / bc2
-        new_p = p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+        p_new = p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
                           + cfg.weight_decay * p)
-        new_params[n], mu[n], nu[n] = new_p.to(p.dtype), m, v
-    return new_params, {"mu": mu, "nu": nu, "step": step}, \
-        {"lr": lr, "grad_norm": gnorm}
+        new_p.append(p_new.to(p.dtype))
+        mu.append(m)
+        nu.append(v)
+    return (tree_unflatten(params, new_p),
+            {"mu": tree_unflatten(params, mu),
+             "nu": tree_unflatten(params, nu), "step": step},
+            {"lr": lr, "grad_norm": gnorm})

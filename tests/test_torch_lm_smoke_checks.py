@@ -48,7 +48,7 @@ def test_planted_faults_differ_from_the_sound_forward():
 
 
 def _lm_full_record(**kw):
-    r = {"finite": True, "tokens_shape": [4, 16],
+    r = {"launches": dict.fromkeys(smoke.read_counts(), 0), "finite": True, "tokens_shape": [4, 16],
          "logits_shape": [4, 1, smoke.get_config("qwen3-14b").vocab],
          "err": 0.045, "err_float32": 1.4e-5, "err_one_position_off": 1.47,
          "err_planted_faults": {"qk_norm_off": 1.0, "rope_theta_1e4": 0.6,
@@ -60,10 +60,13 @@ def _lm_full_record(**kw):
 def test_check_lm_full_gates():
     """The full-width record passes when the served step is within
     ``LM_FULL_TOL`` in bf16 and ``LM_TOL`` in float32 and every planted
-    fault reads beyond ``LM_FULL_TOL``; it fails otherwise."""
+    fault reads beyond ``LM_FULL_TOL``, and no kernel launched in the
+    child; it fails otherwise."""
     smoke.check_lm_full(_lm_full_record())
     tol = smoke.LM_FULL_TOL
-    for bad in ({"err": 2 * tol}, {"err_float32": 10 * smoke.LM_TOL},
+    one_launch = dict.fromkeys(smoke.read_counts(), 0)
+    one_launch[next(iter(one_launch))] = 1
+    for bad in ({"launches": one_launch}, {"err": 2 * tol}, {"err_float32": 10 * smoke.LM_TOL},
                 {"finite": False}, {"tokens_shape": [4, 15]},
                 {"err_one_position_off": tol / 2},
                 {"err_planted_faults": {"qk_norm_off": 1.0,
