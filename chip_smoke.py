@@ -319,13 +319,39 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               tokens/s, the model FLOP share of the bf16 peak, peak memory,
               one step's device time by kernel and idle share, the losses
               against ln V, beside the card's name and power limit
+ 20. lm_mesh   the LM substrate over a mesh (no hand-written kernel), in a
+              child process on a one-rank NCCL group and a (1, 1)
+              ("data", "model") mesh: each of the ten small forms' float32
+              train step (parameters with FSDP) and ``serve.generate``
+              (prefill + ``LM_STEPS`` greedy decode steps) on trees placed
+              by the sharding rules, under ``activation_sharding``, against
+              the same runs on plain tensors on the host (``LM_TOL``, equal
+              tokens); then deepseek-v2-lite-16b at full width through the
+              expert-parallel MoE (``moe_ep``, ``moe_groups`` 1), float32
+              weights from seed 0 placed with ``param_specs(fsdp=False)``
+              without a copy, batch 4 x 32 prompt tokens and 16 greedy
+              decode steps through ``serve.generate(mesh=)``: the last
+              step's logits against the same weights as plain tensors
+              (TP ``moe_forward``, teacher-forced on the mesh run's tokens)
+              within ``LM_FULL_TOL`` of the largest |logit| in bf16, one
+              float32 prefill within ``LM_TOL``; exactly 2 all-to-alls a
+              MoE layer a step (``stage_trace``; in a short run of a
+              prefill and a decode step ``CommDebugMode`` sees them too)
+              and no other collective; two planted faults
+              (the exchange's slots rolled, the shared experts dropped)
+              in the float32 prefill beyond ``LM_TOL``; cross_entropy on
+              vocab-sharded
+              logits issuing no all-gather.  No kernel may launch in the
+              child.  Reported: prefill ms, decode ms a step, tokens/s,
+              peak memory, a decode step's device time by kernel, NCCL
+              time and idle share, beside the card's name and power limit
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 19) and read right after it;
-each path must launch its own kernels and none of the others (phases 18 and
-19 none), and every tile DFT, forward and inverse, only in its specialised
+(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 19, 20) and read right after
+it; each path must launch its own kernels and none of the others (phases
+18-20 none), and every tile DFT, forward and inverse, only in its specialised
 form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
@@ -382,15 +408,22 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch import batcher, serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.launch import shardings as SH  # noqa: E402
 from repro_torch.models import layers as LML  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.models import whisper as WH  # noqa: E402
+from repro_torch.models.common import ShapeCell  # noqa: E402
 from repro_torch.models.layers import conv_block, maxpool2x2  # noqa: E402
+from repro_torch.parallel import ep_moe  # noqa: E402
+from repro_torch.parallel.act_sharding import (  # noqa: E402
+    P, activation_sharding)
 from repro_torch.optim import (  # noqa: E402
     AdamWConfig, adamw_init, tree_leaves, tree_unflatten)
 from repro_torch.train import (  # noqa: E402
     cross_entropy, init_train_state, loss_and_grads, train_loss)
 from repro_torch.train import make_train_step as make_lm_step  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    make_decode_step, make_prefill_step)
 
 IMAGE, BATCH, GEN, SEED = 224, 4, 10, 0
 TRAIN_STEPS = 5                         # timed training steps per backend
@@ -489,6 +522,12 @@ LM_SSD_FAULT_LAYER = 16     # the layer whose SSD branch the fault detaches
 # read beyond both gates.
 LM_TRAIN_BF16_TOL = 0.3
 LM_TRAIN_FD_TOL = 1e-3
+# phase 20: deepseek-v2-lite-16b at full width through the expert-parallel
+# MoE on a (1, 1) mesh, batch 4 x 32 prompt tokens, 16 greedy decode steps
+# (LM_MESH_GEN - 1); its 26 MoE layers each exchange twice a step
+LM_MESH_ARCH = "deepseek-v2-lite-16b"
+LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_GEN = 4, 32, 17
+LM_MESH_VOCAB = (4, 8, 512)             # cross_entropy's vocab-sharded check
 TUNE_ENV = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_CACHE",
             "REPRO_TORCH_AUTOTUNE_BUDGET_MS", "REPRO_TORCH_AUTOTUNE_REPS")
 
@@ -3848,6 +3887,19 @@ def sharded_phase(res, y_ref, slice_p50_ms, profile_busy_us, checked,
             + serve_counts[k] + artifact_counts[k] for k in KERNELS}, dft_rows
 
 
+def lm_small_prompts(cfg, device):
+    """Phase 18's prompts (and whisper's frames) for a small form."""
+    rng = np.random.default_rng(SEED)
+    prompts = torch.tensor(rng.integers(1, cfg.vocab, (LM_BATCH, LM_PROMPT)),
+                           device=device)
+    frames = None
+    if cfg.encdec:
+        frames = torch.tensor(rng.standard_normal((LM_BATCH, 24,
+                                                   cfg.d_model)),
+                              dtype=torch.float32, device=device)
+    return prompts, frames
+
+
 def lm_greedy(cfg, params, device, pos0=None):
     """``serve.generate`` (``serve``'s prefill step then ``LM_STEPS`` greedy
     decode steps, from position ``pos0``, by default ``serve``'s) on
@@ -3855,13 +3907,7 @@ def lm_greedy(cfg, params, device, pos0=None):
     generated tokens (whisper: ``decode_train`` over the first prompt token
     and them).  Returns (the steps' logits, the tokens, the forward's
     logits)."""
-    rng = np.random.default_rng(SEED)
-    prompts = torch.tensor(rng.integers(1, cfg.vocab, (LM_BATCH, LM_PROMPT)),
-                           device=device)
-    frames = None
-    if cfg.encdec:
-        frames = torch.tensor(rng.standard_normal((LM_BATCH, 24, cfg.d_model)),
-                              dtype=torch.float32, device=device)
+    prompts, frames = lm_small_prompts(cfg, device)
     out = serve.generate(cfg, params, prompts, LM_STEPS + 1, frames, pos0)
     with torch.inference_mode():
         if cfg.encdec:
@@ -4550,6 +4596,383 @@ def lm_train_phase():
     return counts
 
 
+# --------------------------------------------------------------------------
+# Phase 20: the LM substrate over a mesh (repro_torch.launch.shardings,
+# parallel.act_sharding, parallel.ep_moe)
+# --------------------------------------------------------------------------
+
+def whole(tree):
+    """A tree with every ``DTensor`` leaf gathered whole (``full``)."""
+    return torch.utils._pytree.tree_map(full, tree)
+
+
+def lm_mesh_small(arch, mesh, device="cuda"):
+    """Phase 20 (a) for one architecture's small form, in float32: one
+    ``make_train_step`` step (phase 19's batch and AdamW settings) on the
+    parameters, AdamW state and batch placed on ``mesh`` (``param_specs``
+    with FSDP), and ``serve.generate`` on the parameters placed without
+    FSDP, on ``device``, under ``activation_sharding``; each against the
+    same run on plain tensors on the host (loss, grad_norm and every leaf
+    of mu and nu, as phase 19: the first AdamW step moves a parameter by
+    about lr times the sign of its grad, so a grad near 0 that differs in
+    the last bits moves it another way; every step's logits; within
+    ``LM_TOL``; equal greedy tokens), the new parameters finite and
+    placed as their specs."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    init = WH.init_whisper_params if cfg.encdec else LM.init_lm_params
+    host = init(cfg, torch.Generator().manual_seed(SEED))
+    card = torch.utils._pytree.tree_map(lambda t: t.to(device), host)
+    step = make_lm_step(cfg, AdamWConfig(**LM_TRAIN_OPT))
+    hp, ho, hm = step(host, adamw_init(host), lm_train_batch(cfg, "cpu"))
+    batch = lm_train_batch(cfg, device)
+    cell = ShapeCell("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    pspecs = SH.param_specs(cfg, card, mesh, fsdp=True)
+    bspecs = SH.batch_specs(cfg, cell, mesh)
+    with activation_sharding(mesh):
+        mp, mo, mm = step(SH.place(mesh, pspecs, card),
+                          SH.place(mesh, SH.opt_specs(pspecs),
+                                   adamw_init(card)),
+                          SH.place(mesh, {k: bspecs[k] for k in batch},
+                                   batch))
+    placed_as_specs = all(
+        tuple(t.placements) == SH.placements(s, mesh, t.ndim)
+        for t, s in zip(torch.utils._pytree.tree_leaves(mp),
+                        torch.utils._pytree.tree_leaves(
+                            pspecs, is_leaf=lambda x: isinstance(x, P))))
+    mp, mo, mm = whole((mp, mo, mm))
+    train = {"loss": rel_scalar(mm["loss"], hm["loss"]),
+             "grad_norm": rel_scalar(mm["grad_norm"], hm["grad_norm"]),
+             "mu": scaled_tree_err(mo["mu"], ho["mu"]),
+             "nu": scaled_tree_err(mo["nu"], ho["nu"])}
+    finite = finite_tree(mp)
+    hprompts, hframes = lm_small_prompts(cfg, "cpu")
+    prompts, frames = lm_small_prompts(cfg, device)
+    h = serve.generate(cfg, host, hprompts, LM_STEPS + 1, hframes)
+    placed = SH.place(mesh, SH.param_specs(cfg, card, mesh, fsdp=False),
+                      card)
+    m = serve.generate(cfg, placed, prompts, LM_STEPS + 1, frames, mesh=mesh)
+    serve_errs = [lm_scaled_err(a, b) for a, b in zip(m.steps, h.steps)]
+    worst = max(max(train.values()), max(serve_errs))
+    if not (worst <= LM_TOL and placed_as_specs and finite):
+        raise AssertionError(f"{arch} on the mesh vs the host: train "
+                             f"{train}, serve {serve_errs} (tol {LM_TOL}); "
+                             f"parameters placed as specced: "
+                             f"{placed_as_specs}, finite: {finite}")
+    if not torch.equal(m.tokens.cpu(), h.tokens):
+        raise AssertionError(f"{arch}: greedy tokens differ on the mesh: "
+                             f"{m.tokens.tolist()} vs {h.tokens.tolist()}")
+    return {"arch": arch, "train_vs_host": train,
+            "serve_vs_host": serve_errs, "tokens": m.tokens.tolist()}
+
+
+def comm_counts(comm):
+    """``CommDebugMode``'s collective counts, by the op's name without its
+    namespace (``alltoall_base_``, ``all_gather_into_tensor``, ...)."""
+    return {str(k).split(".")[1]: n
+            for k, n in comm.get_comm_counts().items() if n}
+
+
+def lm_vocab_record(mesh, device="cuda", gather=False):
+    """``cross_entropy`` on logits placed vocab-sharded on ``mesh``
+    (``P(dp, None, "model")``, as ``constrain(.., "logits")`` places
+    them) under ``CommDebugMode``: its collectives and its loss against
+    the plain loss.  ``gather`` plants the fault of gathering the vocab
+    first."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    rng = np.random.default_rng(SEED)
+    B, S, V = LM_MESH_VOCAB
+    logits = torch.tensor(rng.standard_normal((B, S, V)),
+                          dtype=torch.float32, device=device)
+    labels = torch.tensor(rng.integers(0, V, (B, S)), device=device)
+    want = cross_entropy(logits, labels)
+    dp = tmesh.dp_axes(mesh)
+    placed = SH.place_tensor(logits, mesh, P(dp, None, "model"))
+    with activation_sharding(mesh), CommDebugMode() as comm:
+        if gather:
+            placed = placed.redistribute(
+                mesh, SH.placements(P(dp, None, None), mesh, 3))
+        got = cross_entropy(placed, SH.place_tensor(labels, mesh,
+                                                    P(dp, None)))
+    return {"collectives": comm_counts(comm),
+            "loss_err": rel_scalar(whole(got), want),
+            "placements": [str(p) for p in placed.placements]}
+
+
+def check_lm_vocab(r):
+    """Vocab-sharded logits stay sharded through ``cross_entropy``: no
+    all-gather, and the loss within ``LM_TOL`` of the plain one."""
+    gathers = {k: n for k, n in r["collectives"].items()
+               if "gather" in k}
+    if gathers or not r["loss_err"] <= LM_TOL:
+        raise AssertionError(f"cross_entropy on vocab-sharded logits: "
+                             f"gathers {gathers}, loss {r['loss_err']:.3e} "
+                             f"(tol {LM_TOL})")
+
+
+@contextlib.contextmanager
+def lm_mesh_fault(name, cfg):
+    """A planted fault of the expert-parallel MoE, yielding the config to
+    run: ``exchange_rolled`` sends each token block to the next expert's
+    slots (a wrong exchange permutation), ``shared_dropped`` leaves the
+    shared experts out."""
+    if name == "shared_dropped":
+        yield dataclasses.replace(cfg, n_shared=0)
+        return
+    if name != "exchange_rolled":
+        raise ValueError(name)
+    sound = ep_moe.exchange
+
+    def rolled(send, group):
+        # send: (n_ranks, E_loc * cap, d); one expert's capacity of slots
+        cap = send.shape[0] * send.shape[1] // cfg.n_experts
+        return sound(send.roll(cap, dims=1), group)
+    ep_moe.exchange = rolled
+    try:
+        yield cfg
+    finally:
+        ep_moe.exchange = sound
+
+
+def lm_mesh_prefill(cfg, params, prompts, mesh=None):
+    """The prefill step's logits (last position) of ``prompts`` over a
+    fresh cache, on ``mesh`` (placed as ``serve.generate`` places them)
+    or on plain tensors."""
+    return serve.generate(cfg, params, prompts, 1, mesh=mesh).steps[0]
+
+
+def lm_teacher_forced(cfg, params, prompts, tokens):
+    """The plain prefill and decode steps' logits over ``prompts`` and then
+    ``tokens`` (each step fed the given token, not its own argmax), and
+    the decode steps' seconds."""
+    B, Sp = prompts.shape
+    cache = LM.init_cache(cfg, B, Sp + tokens.shape[1] + 8,
+                          device=prompts.device)
+    prefill, decode = make_prefill_step(cfg, use_flash=False), \
+        make_decode_step(cfg)
+    with torch.inference_mode():
+        lg, cache = prefill(params, {"tokens": prompts}, cache)
+        steps = [lg]
+        serve._sync(prompts.device)
+        t0 = time.perf_counter()
+        for i in range(tokens.shape[1] - 1):
+            lg, cache = decode(params, tokens[:, i:i + 1], Sp + i, cache)
+            steps.append(lg)
+        serve._sync(prompts.device)
+    return steps, time.perf_counter() - t0
+
+
+def lm_mesh_decode_profile(cfg, placed, prompts, tokens, mesh):
+    """Device time of one more decode step on the mesh (after a prefill
+    of ``prompts`` and a warm-up step), as ``device_profile`` reads it."""
+    from repro_torch.launch.serve import decode_start
+    B, Sp = prompts.shape
+    max_len = Sp + tokens.shape[1] + 8
+    cell = ShapeCell("serve", max_len, B, "decode")
+    cache = SH.place(mesh, SH.cache_specs(cfg, cell, mesh),
+                     LM.init_cache(cfg, B, max_len, device=prompts.device))
+    toks = SH.place(mesh, SH.batch_specs(cfg, cell, mesh), {
+        "tokens": tokens[:, -1:]})["tokens"]
+    prefill, decode = make_prefill_step(cfg, use_flash=False), \
+        make_decode_step(cfg)
+    pos = decode_start(cfg, Sp)
+    with torch.no_grad(), activation_sharding(mesh):
+        prefill(placed, SH.place(mesh, {"tokens": P(tmesh.dp_axes(mesh))},
+                                 {"tokens": prompts}), cache)
+        decode(placed, toks, pos, cache)
+        torch.cuda.synchronize()
+        return device_profile(lambda: decode(placed, toks, pos + 1, cache))
+
+
+def lm_mesh_full(mesh, smoke=False, device="cuda"):
+    """Phase 20 (b): deepseek-v2-lite-16b at full width (``smoke``: its
+    small form) through the expert-parallel MoE on ``mesh``, against the
+    same weights as plain tensors (see the module docstring).  On the
+    host (``device`` cpu) nothing is timed on the device."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    cuda = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(get_config(LM_MESH_ARCH, smoke=smoke),
+                              moe_ep=True, moe_groups=1)
+    n_moe = cfg.n_layers - cfg.first_dense
+    params = LM.init_lm_params(cfg, torch.Generator(device=device)
+                               .manual_seed(SEED))
+    placed = SH.place(mesh, SH.param_specs(cfg, params, mesh, fsdp=False),
+                      params)
+    shares = all(a.to_local().data_ptr() == b.data_ptr() for a, b in
+                 zip(tree_leaves(placed), tree_leaves(params)))
+    rng = np.random.default_rng(SEED)
+    prompts = torch.tensor(rng.integers(1, cfg.vocab, (LM_MESH_BATCH,
+                                                        LM_MESH_PROMPT)),
+                           device=device)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with stages.stage_trace() as trace:
+        out = serve.generate(cfg, placed, prompts, LM_MESH_GEN, mesh=mesh)
+    # every collective of a prefill and a decode step, seen by DTensor's
+    # own counter (a dispatch mode: it slows every op, so not in the
+    # timed run)
+    with stages.stage_trace() as short, CommDebugMode() as comm:
+        serve.generate(cfg, placed, prompts, 2, mesh=mesh)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    plain, plain_s = lm_teacher_forced(cfg, params, prompts, out.tokens)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    sound = lm_mesh_prefill(cfg32, params, prompts)
+    f32 = lm_scaled_err(lm_mesh_prefill(cfg32, placed, prompts, mesh),
+                        sound)
+    faults = {}
+    for name in ("exchange_rolled", "shared_dropped"):
+        with lm_mesh_fault(name, cfg32) as fcfg:
+            faults[name] = lm_scaled_err(
+                lm_mesh_prefill(fcfg, placed, prompts, mesh), sound)
+    rows, busy_us, wall_us, ranges = [], 0.0, 0.0, []
+    if cuda:
+        rows, busy_us, wall_us, ranges = lm_mesh_decode_profile(
+            cfg, placed, prompts, out.tokens, mesh)
+    steps = LM_MESH_GEN
+    decode_ms = out.decode_s * 1e3 / (steps - 1)
+    return {
+        "arch": cfg.name, "vocab": cfg.vocab,
+        "launches": launches, "shares_storage": shares,
+        "n_params": cfg.n_params(),
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params)),
+        "finite": bool(torch.isfinite(out.steps[-1]).all()),
+        "tokens_shape": list(out.tokens.shape),
+        "logits_shape": list(out.steps[-1].shape),
+        "err": lm_scaled_err(out.steps[-1][:, -1], plain[-1][:, -1]),
+        "err_first_step": lm_scaled_err(out.steps[0], plain[0]),
+        "err_float32_prefill": f32, "err_planted_faults": faults,
+        "max_abs_logit": plain[-1].abs().max().item(),
+        "steps": steps, "moe_layers": n_moe,
+        "all_to_all_recorded": trace[("collective", "all_to_all")],
+        "all_to_all_bytes": trace[("collective_bytes", "all_to_all")],
+        "short_steps": 2,
+        "short_all_to_all_recorded": short[("collective", "all_to_all")],
+        "collectives": comm_counts(comm),
+        "prefill_ms": out.prefill_s * 1e3, "decode_ms_per_step": decode_ms,
+        "decode_tokens_per_s": LM_MESH_BATCH * (steps - 1) / out.decode_s,
+        "plain_decode_ms_per_step": plain_s * 1e3 / (steps - 1),
+        "peak_bytes": peak,
+        "decode_step_profile": {
+            "busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+            "nccl_kernels_ms": sum(us for us, name, _ in rows
+                                   if "nccl" in name.lower()) / 1e3,
+            "nccl_ranges_ms": sum(us for us, name, _ in ranges
+                                  if "nccl" in name.lower()) / 1e3,
+            "idle_share": 1 - busy_us / (decode_ms * 1e3),
+            "top": [[name.split("(")[0][:100], us / 1e3, calls]
+                    for us, name, calls in rows[:10]]},
+    }
+
+
+def check_lm_mesh_full(r):
+    """The gates on phase 20 (b)'s record: the parameters placed without a
+    copy; finite logits and tokens of the served shapes; the last decode
+    step within ``LM_FULL_TOL`` of the plain run's largest |logit| (bf16)
+    and the float32 prefill within ``LM_TOL``; exactly 2 all-to-alls a MoE
+    layer a step, recorded in the timed run and in the short run, where
+    ``CommDebugMode`` sees them too and no other collective; every planted
+    fault's float32 prefill beyond ``LM_TOL``; no kernel launched."""
+    expect_counts("lm_mesh_full", r["launches"], {})
+    if not (r["shares_storage"] and r["finite"]
+            and r["tokens_shape"] == [LM_MESH_BATCH, LM_MESH_GEN]
+            and r["logits_shape"][-1] == r["vocab"]):
+        raise AssertionError(f"{LM_MESH_ARCH} on the mesh: {r}")
+    if not (r["err"] <= LM_FULL_TOL
+            and r["err_float32_prefill"] <= LM_TOL):
+        raise AssertionError(
+            f"{LM_MESH_ARCH}: the mesh's last decode step vs plain "
+            f"{r['err']:.3e} (bf16, tol {LM_FULL_TOL}), float32 prefill "
+            f"{r['err_float32_prefill']:.3e} (tol {LM_TOL})")
+    want = 2 * r["moe_layers"] * r["steps"]
+    want_short = 2 * r["moe_layers"] * r["short_steps"]
+    others = {k: n for k, n in r["collectives"].items()
+              if k != "alltoall_base_"}
+    seen = r["collectives"].get("alltoall_base_", 0)
+    if (r["all_to_all_recorded"] != want or others
+            or r["short_all_to_all_recorded"] != want_short
+            or seen != want_short):
+        raise AssertionError(
+            f"{LM_MESH_ARCH}: all-to-alls recorded "
+            f"{r['all_to_all_recorded']} (want {want}: 2 a MoE layer a "
+            f"step), in the short run {r['short_all_to_all_recorded']} and "
+            f"seen {seen} (want {want_short}); other collectives {others}")
+    unseen = {k: e for k, e in r["err_planted_faults"].items()
+              if not e > LM_TOL}
+    if len(r["err_planted_faults"]) < 2 or unseen:
+        raise AssertionError(f"{LM_MESH_ARCH}: the float32 gate ({LM_TOL}) "
+                             f"cannot tell these planted faults: {unseen}")
+
+
+def lm_mesh_child():
+    """Phase 20 in this (child) process: a one-rank NCCL group, a (1, 1)
+    mesh, the small forms, cross_entropy's vocab check and the full-width
+    model; no kernel may launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    tmesh.start_process_group("nccl", device_id=device)
+    try:
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+        zero_counts()
+        t0 = time.perf_counter()
+        small = [lm_mesh_small(arch, mesh) for arch in ARCH_NAMES]
+        small_s = time.perf_counter() - t0
+        vocab = lm_vocab_record(mesh)
+        check_lm_vocab(vocab)
+        counts = read_counts()
+        expect_counts("lm_mesh", counts, {})
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        full = lm_mesh_full(mesh)
+        full["seconds"] = time.perf_counter() - t0
+        check_lm_mesh_full(full)
+    finally:
+        tmesh.destroy_process_group()
+    return {"archs": small, "small_s": small_s, "vocab": vocab,
+            "launches": counts, "full": full}
+
+
+LM_MESH_CHILD = r"""
+import json
+import chip_smoke as smoke
+print("lm_mesh " + json.dumps(smoke.lm_mesh_child()))
+"""
+
+
+def lm_mesh_phase():
+    """Phase 20: the LM substrate over a mesh, in a child process (this
+    process's memory freed first)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", LM_MESH_CHILD], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"phase lm_mesh exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    r = json.loads(next(ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("lm_mesh "))[len("lm_mesh "):])
+    expect_counts("lm_mesh", r["launches"], {})
+    check_lm_vocab(r["vocab"])
+    check_lm_mesh_full(r["full"])
+    full = r.pop("full")
+    counts = {k: r["launches"][k] + full["launches"][k]
+              for k in r["launches"]}
+    emit("lm_mesh", mesh=[1, 1], backend="nccl", tol=LM_TOL,
+         command_s=seconds, **dict(r, launches=counts))
+    emit("lm_mesh_full", batch=LM_MESH_BATCH, prompt=LM_MESH_PROMPT,
+         gen=LM_MESH_GEN, tol=LM_FULL_TOL, nvidia_smi=nvidia_smi(), **full)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -4646,15 +5069,17 @@ def main():
     clear_prepared_cache()
     lm_counts = lm_serve_phase()
     train_lm_counts = lm_train_phase()
+    mesh_lm_counts = lm_mesh_phase()
 
     # launches: the main paths together (slice, rect, train, trainer,
     # serve_trace, tune, plan_artifacts, sharded, sharded_train,
     # sharded_tune, sharded_serve, plan_artifacts_sharded, entry_points,
-    # lm_serve, lm_train)
+    # lm_serve, lm_train, lm_mesh)
     launches = {k: slice_counts[k] + rect_counts[k] + train_counts[k]
                 + trainer_counts[k] + trace_counts[k] + tune_counts[k]
                 + artifact_counts[k] + sharded_counts[k] + entry_counts[k]
-                + lm_counts[k] + train_lm_counts[k] for k in KERNELS}
+                + lm_counts[k] + train_lm_counts[k] + mesh_lm_counts[k]
+                for k in KERNELS}
     main_cg = [r for r in cg_rows if r["dtype"] == "float32"
                and r["three_m"] and r["spectrum"] == "real"]
     main_inv = inv_rows[:n_layers]

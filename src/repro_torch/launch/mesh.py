@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel.act_sharding import dp_axes  # noqa: F401
+
 
 def start_process_group(backend: str | None = None, *, rank: int = 0,
                         world_size: int = 1, store_path=None,
@@ -99,15 +101,23 @@ def make_mesh(shape, axis_names, device_type=None):
                       mesh_dim_names=axis_names)
 
 
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: 16x16 = 256 ranks (data, model).  Multi-pod: 2 pods =
+    512 ranks (pod, data, model); ``pod`` x ``data`` is the DP domain.
+    Built on the started process group, which must hold that many ranks
+    (else ``RuntimeError``): on the GPU over NCCL, else on host ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    host = dist.is_initialized() and "nccl" not in dist.get_backend()
+    return make_mesh(shape, axes, device_type="cpu" if host else None)
+
+
 def make_host_mesh(n_data: int, n_model: int):
     """Small mesh over host (CPU, gloo) ranks for tests."""
     return make_mesh((n_data, n_model), ("data", "model"),
                      device_type="cpu")
 
 
-def dp_axes(mesh) -> tuple:
-    """Data-parallel axes of a mesh (pod included when present)."""
-    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
 
 
 class RankDecisions:

@@ -42,6 +42,7 @@ trunk through whole-net planning and prepared kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Any, Optional
@@ -54,6 +55,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.batcher import _percentile, _sync
 from repro_torch.models import lm as LM
 from repro_torch.models import whisper as WH
+from repro_torch.models.common import ShapeCell
+from repro_torch.parallel.act_sharding import is_dtensor
 from repro_torch.train.step import make_decode_step, make_prefill_step
 
 
@@ -582,27 +585,50 @@ def decode_start(cfg, prompt_len: int) -> int:
         cfg.n_frontend_tokens if cfg.frontend == "vision_stub" else 0)
 
 
-def generate(cfg, params, prompts, gen, frames=None, pos0=None) -> Generated:
+def generate(cfg, params, prompts, gen, frames=None, pos0=None, *,
+             mesh=None) -> Generated:
     """Prefill ``prompts`` (B, Sp), then greedy-decode until ``gen`` tokens
     are out, one step at a time over the cache, as ``repro.launch.serve``
     does.  Whisper prefills the first prompt token over the encoded
     ``frames`` (B, T, d_model).  Decoding starts at ``pos0``, by default
-    ``decode_start(cfg, Sp)``."""
+    ``decode_start(cfg, Sp)``.
+
+    On a ``mesh`` (a ``DeviceMesh``) the steps run under
+    ``activation_sharding(mesh)`` on ``params`` as the caller placed them
+    (``launch.shardings.place``; plain tensors count as replicated), the
+    prompts and the cache placed by ``batch_specs``/``cache_specs``, and
+    under ``no_grad`` (a ``DTensor`` cannot run under ``inference_mode``);
+    the tokens and each step's logits come back whole."""
     device = prompts.device
     B, Sp = prompts.shape
     if pos0 is None:
         pos0 = decode_start(cfg, Sp)
     decode = make_decode_step(cfg)
-    with torch.inference_mode():
-        if cfg.encdec:
-            cache = WH.init_dec_cache(cfg, B, frames.shape[1], device=device)
-            prefill = make_prefill_step(cfg)
-            batch = {"frames": frames, "tokens": prompts[:, :1]}
-        else:
-            max_len = Sp + gen + (cfg.n_meta_tokens or 0) + 8
-            cache = LM.init_cache(cfg, B, max_len, device=device)
-            prefill = make_prefill_step(cfg, use_flash=False)
-            batch = {"tokens": prompts}
+    if cfg.encdec:
+        cache = WH.init_dec_cache(cfg, B, frames.shape[1], device=device)
+        prefill = make_prefill_step(cfg)
+        batch = {"frames": frames, "tokens": prompts[:, :1]}
+        cell = ShapeCell("serve", frames.shape[1], B, "prefill")
+    else:
+        max_len = Sp + gen + (cfg.n_meta_tokens or 0) + 8
+        cache = LM.init_cache(cfg, B, max_len, device=device)
+        prefill = make_prefill_step(cfg, use_flash=False)
+        batch = {"tokens": prompts}
+        cell = ShapeCell("serve", max_len, B, "decode")
+    if mesh is None:
+        scope, whole = torch.inference_mode(), (lambda t: t)
+    else:
+        from repro_torch.launch import shardings as SH
+        from repro_torch.parallel.act_sharding import activation_sharding
+        cache = SH.place(mesh, SH.cache_specs(cfg, cell, mesh), cache)
+        specs = SH.batch_specs(cfg, dataclasses.replace(cell,
+                                                        kind="prefill"), mesh)
+        batch = SH.place(mesh, {k: specs[k] for k in batch}, batch)
+        scope = contextlib.ExitStack()
+        scope.enter_context(torch.no_grad())
+        scope.enter_context(activation_sharding(mesh))
+        whole = _whole
+    with scope:
         _sync(device)
         t0 = time.perf_counter()
         logits, cache = prefill(params, batch, cache)
@@ -617,8 +643,14 @@ def generate(cfg, params, prompts, gen, frames=None, pos0=None) -> Generated:
             out.append(torch.argmax(logits[:, -1:], dim=-1))
         _sync(device)
         decode_s = time.perf_counter() - t0
-    return Generated(tokens=torch.cat(out, dim=1), steps=steps,
+        tokens = torch.cat([whole(t) for t in out], dim=1)
+        steps = [whole(t) for t in steps]
+    return Generated(tokens=tokens, steps=steps,
                      prefill_s=prefill_s, decode_s=decode_s)
+
+
+def _whole(t):
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 @dataclasses.dataclass

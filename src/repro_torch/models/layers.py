@@ -20,11 +20,15 @@ import math
 
 import torch
 import torch.nn.functional as TF
+from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.fake import is_fake
 from repro_torch.models.common import ModelConfig
-from repro_torch.parallel.act_sharding import constrain
+from repro_torch.parallel.act_sharding import (P, axis_sizes, constrain,
+                                               dp_axes, is_dtensor, local_of,
+                                               on_blocks, placements)
 
 NEG_INF = -2.3819763e38   # most-negative bf16-representable
 
@@ -101,9 +105,12 @@ def conv_block(x, k, bias=None, *, activation="none", residual=None,
 # --------------------------------------------------------------------------
 
 def split_keys(gen: torch.Generator, n):
-    """``n`` generators on ``gen``'s device, seeded from draws of ``gen``."""
-    seeds = torch.randint(0, 2 ** 62, (n,), generator=gen,
-                          device=gen.device).tolist()
+    """``n`` generators on ``gen``'s device, seeded from draws of ``gen``.
+    The seeds are real under a fake mode too (``launch.specs`` builds the
+    parameters' shapes on fake tensors)."""
+    with _disable_current_modes():
+        seeds = torch.randint(0, 2 ** 62, (n,), generator=gen,
+                              device=gen.device).tolist()
     return [torch.Generator(device=gen.device).manual_seed(s) for s in seeds]
 
 
@@ -111,6 +118,8 @@ def dense_init(gen: torch.Generator, shape, scale=0.02):
     """``scale`` times a standard normal truncated at +-2, float32, on the
     generator's device."""
     w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if is_fake(w):              # shapes only (launch.specs): nothing to draw
+        return w
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return w.mul_(scale)
 
@@ -144,8 +153,37 @@ def cache_write(buf, update, start, axis):
     serve path writes past the end of the cache for the vision stub)."""
     n = update.shape[axis]
     s = _clamp_start(start, buf.shape[axis], n)
-    buf.narrow(axis, s, n).copy_(update)
+    if is_dtensor(buf):
+        _write_blocks(buf, update, s, axis)
+    else:
+        buf.narrow(axis, s, n).copy_(update)
     return buf
+
+
+def _write_blocks(buf, update, s, axis):
+    """``cache_write`` into a ``DTensor`` cache: each rank writes the rows
+    of ``[s, s + n)`` that fall in its own block of ``buf`` (a view of a
+    dim sharded over ranks would be a copy, and the write lost).  The
+    update comes whole along ``axis`` and laid out as ``buf`` elsewhere."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, places = buf.device_mesh, tuple(buf.placements)
+    axis %= buf.ndim
+    whole = [Replicate() if isinstance(pl, Shard) and pl.dim == axis else pl
+             for pl in places]
+    if not is_dtensor(update):
+        update = DTensor.from_local(update, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    up = update.redistribute(mesh, whole).to_local()
+    shape, offset = compute_local_shape_and_global_offset(buf.shape, mesh,
+                                                          places)
+    lo, n = offset[axis], up.shape[axis]
+    a, b = max(s, lo), min(s + n, lo + shape[axis])
+    if a < b:
+        buf.to_local().narrow(axis, a - lo, b - a).copy_(
+            up.narrow(axis, a - s, b - a))
 
 
 def cache_slice(buf, start, n, axis):
@@ -629,20 +667,75 @@ def _moe_group(xt, p, cfg: ModelConfig, cap: int):
         0, st, contrib)
 
 
+def _moe_groups(T, cfg: ModelConfig):
+    """(dispatch groups, tokens a group, an expert's capacity a group) of
+    ``T`` tokens."""
+    G = cfg.moe_groups if T % cfg.moe_groups == 0 else 1
+    Tg = T // G
+    cap = int(min(Tg, max(8, round(Tg * cfg.top_k / cfg.n_experts
+                                   * cfg.capacity_factor))))
+    return G, Tg, cap
+
+
 def moe_forward(p, x, cfg: ModelConfig):
     """Token-choice top-k MoE with capacity; sorted dispatch.
 
     Tokens are split into ``cfg.moe_groups`` dispatch groups, each
-    dispatched on its own, as the reference's vmap over groups."""
+    dispatched on its own, as the reference's vmap over groups.  On a
+    ``DTensor`` each rank dispatches its own groups (``_moe_forward_mesh``),
+    as GSPMD keeps the reference's vmapped sort and scatter shard-local."""
+    if is_dtensor(x):
+        return _moe_forward_mesh(p, x, cfg)
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    T = B * S
-    G = cfg.moe_groups if T % cfg.moe_groups == 0 else 1
-    Tg = T // G
-    cap = int(min(Tg, max(8, round(Tg * K / E * cfg.capacity_factor))))
+    G, Tg, cap = _moe_groups(B * S, cfg)
     xg = x.reshape(G, Tg, d)
     out = torch.stack([_moe_group(xg[g], p, cfg, cap) for g in range(G)])
     out = out.reshape(B, S, d)
+    if cfg.n_shared:
+        out = out + mlp_forward(p["shared"], x, cfg.mlp)
+    return out
+
+
+def _moe_forward_mesh(p, x, cfg: ModelConfig):
+    """TP-MoE on a ``DTensor``: each rank runs its own dispatch groups
+    (the batch split over the DP axes when the groups fall whole in a
+    rank's rows, else every group on every rank) through ``_moe_group``
+    on its block of the experts' d_ff (``w1``/``w2`` on their last dim,
+    ``w3`` on -2, as ``param_specs`` places them), so the ``w3`` product
+    is a partial sum over ``model``, reduced once (the "wFFT" of MoE).
+    ``torch.bincount``, ``argsort`` and the index scatters have no DTensor
+    strategy: they run on the local blocks, as the reference's do under
+    its vmap."""
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = x.device_mesh
+    sizes = axis_sizes(mesh)
+    n_model = sizes["model"]
+    B, S, d = x.shape
+    G, Tg, cap = _moe_groups(B * S, cfg)
+    dp = dp_axes(mesh)
+    dp_size = 1
+    for a in dp:
+        dp_size *= sizes[a]
+    b_ax = dp if B % dp_size == 0 and G % dp_size == 0 else None
+    f_ax = "model" if cfg.expert_dff % n_model == 0 else None
+    pl = {"w_gate_router": P(), "w1": P(None, None, f_ax),
+          "w2": P(None, None, f_ax), "w3": P(None, f_ax, None)}
+    # ranks along the DP axes hold other tokens, and along "model" other
+    # d_ff columns: a replicated block's gradient is a partial sum there
+    partial = (dp if b_ax else ()) + (("model",) if f_ax else ())
+    p_loc = {k: local_of(p[k], mesh, s, partial) for k, s in pl.items()}
+    x_spec = P(b_ax, None, None)
+    x_loc = local_of(x, mesh, x_spec, partial)
+    g_loc = G // dp_size if b_ax else G
+    xg = x_loc.reshape(g_loc, Tg, d)
+    out = torch.stack([_moe_group(xg[g], p_loc, cfg, cap)
+                       for g in range(g_loc)]).reshape(x_loc.shape)
+    places = list(placements(x_spec, mesh, 3))
+    if f_ax and n_model > 1:
+        places[mesh.mesh_dim_names.index("model")] = Partial()
+    out = DTensor.from_local(out, mesh, places, run_check=False,
+                             shape=x.shape, stride=x.stride())
+    out = out.redistribute(mesh, placements(x_spec, mesh, 3))
     if cfg.n_shared:
         out = out + mlp_forward(p["shared"], x, cfg.mlp)
     return out
@@ -677,9 +770,11 @@ def _causal_conv1d(x, w, state=None):
     state: (B, W-1, C) carry for decode. Returns (y, new_state)."""
     W = w.shape[0]
     if state is None:
-        xp = TF.pad(x, (0, 0, W - 1, 0))
-    else:
-        xp = torch.cat([state.to(x.dtype), x], dim=1)
+        # zeros before the input (not ``TF.pad``: on a DTensor, torch
+        # 2.11's pad gives a layout of one mesh dim on a 2-d mesh)
+        state = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
             for i in range(W))
     new_state = xp[:, -(W - 1):, :] if W > 1 else None
@@ -702,7 +797,9 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk):
     Cc = Cm.reshape(Bsz, nc, chunk, N).float()
 
     dA = dtc * A[None, None, None, :]                 # (B, nc, Q, H) <= 0
-    dAcs = torch.cumsum(dA, dim=2)                    # inclusive cumsum
+    # inclusive cumsum, on each rank's block on a mesh: its backward flips,
+    # and torch 2.11's DTensor has no strategy for flip
+    dAcs = on_blocks(lambda t: torch.cumsum(t, dim=2), dA, (2,))
     # intra-chunk: L[i,j] = exp(dAcs_i - dAcs_j) for i >= j.  The mask
     # goes on before the exponential: above the diagonal the difference is
     # a positive sum that overflows exp at a long chunk, and where(mask,

@@ -26,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.parallel.act_sharding import constrain
+from repro_torch.parallel.act_sharding import (axis_sizes, carried,
+                                               constrain, current_mesh)
 
 HUGE_WINDOW = 1 << 30
 
@@ -170,11 +171,13 @@ def _block_forward(p, x, cfg: ModelConfig, kind: str, *, positions,
     if kind != "M" and cfg.d_ff:
         h2 = L.apply_norm(x, p["ln2"], cfg.norm)
         if "w_gate_router" in p.get("ffn", {}):
-            if cfg.moe_ep:
-                raise NotImplementedError(
-                    "expert-parallel MoE (moe_ep) needs a mesh, which the "
-                    "port's LM path does not have yet: ROADMAP item 9c")
-            f = L.moe_forward(p["ffn"], h2, cfg)
+            mesh = current_mesh() if cfg.moe_ep else None
+            if mesh is not None and \
+                    cfg.n_experts % axis_sizes(mesh)["model"] == 0:
+                from repro_torch.parallel.ep_moe import moe_forward_ep
+                f = moe_forward_ep(p["ffn"], h2, cfg, mesh)
+            else:
+                f = L.moe_forward(p["ffn"], h2, cfg)
         else:
             f = L.mlp_forward(p["ffn"], h2, cfg.mlp)
         if cfg.post_norm:
@@ -213,9 +216,10 @@ def _unstack(tree, n):
 def remat_call(remat, fn, *args):
     """``fn(*args)``; with ``remat``, while grad is on, under a
     non-reentrant ``torch.utils.checkpoint``: only the inputs are kept,
-    and the backward runs ``fn`` again."""
+    and the backward runs ``fn`` again, in the activation-sharding context
+    of the forward."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(carried(fn), *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
 

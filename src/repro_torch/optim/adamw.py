@@ -7,6 +7,9 @@ as the LM's parameters are.  Leaves are visited in the order in which JAX
 flattens a tree (dict keys sorted, sequences in order), so sums (the
 global norm) add up alike; ``torch.utils._pytree`` would take a dict in
 insertion order.  A ``None`` is an empty subtree, not a leaf, as in JAX.
+On a mesh the leaves are ``DTensor``s (run it inside
+``activation_sharding``): the global norm reduces over ranks, and each new
+parameter and moment keeps its parameter's placement.
 """
 from __future__ import annotations
 
@@ -78,6 +81,17 @@ def cosine_lr(cfg: AdamWConfig, step):
     return torch.where(step < cfg.warmup_steps, warm, coss)
 
 
+def placed_like(t, like):
+    """``t`` laid out as ``like`` on its mesh when ``like`` is a
+    ``DTensor`` (a partial sum is reduced, a shard cut), else ``t``."""
+    from repro_torch.parallel.act_sharding import is_dtensor
+    if not is_dtensor(like):
+        return t
+    if tuple(t.placements) == tuple(like.placements):
+        return t
+    return t.redistribute(like.device_mesh, like.placements)
+
+
 def adamw_init(params):
     """Zero moments like ``params`` and a step count of 0."""
     device = tree_leaves(params)[0].device
@@ -126,9 +140,9 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
         mh, vh = m / bc1, v / bc2
         p_new = p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
                           + cfg.weight_decay * p)
-        new_p.append(p_new.to(p.dtype))
-        mu.append(m)
-        nu.append(v)
+        new_p.append(placed_like(p_new.to(p.dtype), p))
+        mu.append(placed_like(m, p))
+        nu.append(placed_like(v, p))
     return (tree_unflatten(params, new_p),
             {"mu": tree_unflatten(params, mu),
              "nu": tree_unflatten(params, nu), "step": step},

@@ -1,4 +1,6 @@
-"""Distributed utilities of the LM path (the activation-sharding hook)."""
-from repro_torch.parallel.act_sharding import constrain, current_mesh
+"""Distributed utilities of the LM path: activation sharding over a mesh
+(``DTensor``s at block boundaries) and the expert-parallel MoE."""
+from repro_torch.parallel.act_sharding import (activation_sharding,
+                                               constrain, current_mesh)
 
-__all__ = ["constrain", "current_mesh"]
+__all__ = ["activation_sharding", "constrain", "current_mesh"]

@@ -25,21 +25,24 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models import lm as LM
 from repro_torch.models import whisper as WH
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                               tree_leaves, tree_map, tree_unflatten)
+                               placed_like, tree_leaves, tree_map,
+                               tree_unflatten)
 
 
 def cross_entropy(logits, labels, *, z_loss=1e-4, mask=None):
     """Masked softmax CE + z-loss. logits f32 (B, S, V); labels (B, S).
 
     The max is held out of the gradient (the reference's
-    ``stop_gradient``); the label's log-prob is a gather, where the
-    reference takes a one-hot einsum so that vocab-sharded logits stay
-    sharded (the port's logits are whole): both pick the same term."""
+    ``stop_gradient``).  Every op over V keeps vocab-sharded logits (a
+    ``DTensor`` on a mesh) sharded: the label's log-prob is a masked sum
+    over V (a reduction that shards, as the reference's one-hot einsum),
+    not a gather along the sharded dim, which would gather the vocab."""
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - m
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
-    ll = torch.gather(shifted, -1, labels.long()[..., None])[..., 0] \
-        + m[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    ll = torch.sum(torch.where(vocab == labels.long()[..., None], shifted,
+                               0.0), dim=-1) + m[..., 0]
     ce = lse - ll
     if z_loss:
         ce = ce + z_loss * torch.square(lse)
@@ -76,14 +79,16 @@ def train_loss(params, cfg: ModelConfig, batch, *, use_flash=False):
 
 def _value_and_grad(params, cfg, batch, use_flash):
     """(loss, grads) of one batch; unused parameters get zero grads, as
-    ``jax.grad`` gives them."""
+    ``jax.grad`` gives them.  On a mesh each grad is placed as its
+    parameter (a partial sum over ranks is reduced there)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss = train_loss(tree_unflatten(params, leaves), cfg, batch,
                           use_flash=use_flash)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-    return loss.detach(), tree_unflatten(params, list(grads))
+    return loss.detach(), tree_unflatten(
+        params, [placed_like(g, p) for g, p in zip(grads, leaves)])
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch, *, use_flash=False,
