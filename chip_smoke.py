@@ -345,13 +345,30 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               child.  Reported: prefill ms, decode ms a step, tokens/s,
               peak memory, a decode step's device time by kernel, NCCL
               time and idle share, beside the card's name and power limit
+ 21. dryrun    ``repro_torch.launch.dryrun`` in a child process (no device
+              work, no kernel): (a) the full-width runs of phases 18-20
+              (qwen3-14b decode at batch 4, hymba-1.5b training at 2 x
+              2048, deepseek-v2-lite-16b decode through the expert-
+              parallel MoE; the same arch, batch, lengths, kind and
+              float32 parameters) traced on a fake (1, 1) mesh: their
+              collectives a step exactly the phases' (phase 20's
+              ``CommDebugMode`` counts: 2 all-to-alls a MoE layer a step,
+              nothing else; none for 18 and 19), the per-rank peak
+              estimate over the phase's ``max_memory_allocated`` and the
+              roofline bound (H100 peaks) over the phase's measured busy
+              time, reported; a busy time under its bound by more than
+              ``DRYRUN_SLACK`` fails (only a wrong count can do that);
+              (b) qwen3-14b ``decode_32k`` and deepseek-v2-lite-16b
+              ``decode_32k --variant ep`` at full width on the fake
+              (16, 16) mesh: status ok, exactly 2 expert all-to-alls a
+              MoE layer through EP, their trace seconds
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
-(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 19, 20) and read right after
-it; each path must launch its own kernels and none of the others (phases
-18-20 none), and every tile DFT, forward and inverse, only in its specialised
+(4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 19, 20, 21) and read right
+after it; each path must launch its own kernels and none of the others
+(phases 18-21 none), and every tile DFT, forward and inverse, only in its specialised
 form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
@@ -405,7 +422,7 @@ from repro_torch.kernels.dft_tile import (  # noqa: E402
 from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
 from repro_torch.data import DataConfig, lm_batch  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.launch import batcher, serve  # noqa: E402
+from repro_torch.launch import batcher, dryrun, serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import shardings as SH  # noqa: E402
@@ -583,7 +600,11 @@ def expect_counts(what, got, want):
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
+EMITTED = {}                 # phase -> its last record, for later phases
+
+
 def emit(phase, **fields):
+    EMITTED[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -4973,6 +4994,192 @@ def lm_mesh_phase():
     return counts
 
 
+# --------------------------------------------------------------------------
+# Phase 21: the dry-run (repro_torch.launch.dryrun)
+# --------------------------------------------------------------------------
+
+DRYRUN_SLACK = 0.05          # a busy time may beat its bound by this share
+# the full-width cells traced on the fake production mesh: (arch, shape,
+# variant)
+DRYRUN_PRODUCTION = (("qwen3-14b", "decode_32k", ""),
+                     ("deepseek-v2-lite-16b", "decode_32k", "ep"))
+
+
+def _flag(args, name):
+    return args[args.index(name) + 1]
+
+
+def dryrun_runs():
+    """Phases 18-20's full-width runs as dry-run cells, each with the
+    arch, batch, lengths, kind and parameter dtype that the phase runs:
+    {phase record: (arch, ShapeCell, variant, build options, the key of
+    its busy time, the key of its peak)}.  A served cache holds the
+    prompt, the generated tokens, the meta tokens and 8 slots
+    (``serve.generate``; phase 18 profiles a decode step over the same)."""
+    arch = _flag(LM_FULL_ARGS, "--arch")
+    B, Sp, gen = (int(_flag(LM_FULL_ARGS, f)) for f in
+                  ("--batch", "--prompt-len", "--gen"))
+    serve_len = Sp + gen + (get_config(arch).n_meta_tokens or 0) + 8
+    train_arch = _flag(LM_TRAIN_FULL_ARGS, "--arch")
+    tB, tS = (int(_flag(LM_TRAIN_FULL_ARGS, f)) for f in ("--batch",
+                                                          "--seq"))
+    mesh_len = LM_MESH_PROMPT + LM_MESH_GEN + 8
+    f32 = dict(param_dtype=torch.float32)
+    return {
+        "lm_serve_full": (arch, ShapeCell("serve", serve_len, B, "decode"),
+                          "", f32, "decode_step_profile",
+                          "serve_peak_bytes"),
+        # launch.train's step: no flash attention, no bf16 grads
+        "lm_train_full": (train_arch, ShapeCell("train", tS, tB, "train"),
+                          "", dict(f32, use_flash=False, grad_bf16=False),
+                          "step_profile", "peak_bytes"),
+        "lm_mesh_full": (LM_MESH_ARCH, ShapeCell("serve", mesh_len,
+                                                 LM_MESH_BATCH, "decode"),
+                         "ep", f32, "decode_step_profile", "peak_bytes"),
+    }
+
+
+def _dryrun_fields(rec):
+    return {k: rec[k] for k in (
+        "collectives", "collective_ops", "flops_per_device",
+        "argument_size_in_bytes", "temp_size_in_bytes",
+        "output_size_in_bytes", "analytic_flops", "analytic_bytes",
+        "roofline", "model_flops", "useful_flops_ratio", "n_devices",
+        "lower_s", "n_ops")}
+
+
+def dryrun_child(smoke=False):
+    """Phase 21 in this (child) process: phases 18-20's runs dry-run on a
+    fake (1, 1) mesh, and ``DRYRUN_PRODUCTION`` on the fake (16, 16) one
+    (``smoke``: their small forms).  No kernel may launch."""
+    zero_counts()
+    runs = {}
+    for name, (arch, cell, variant, build, _, _) in dryrun_runs().items():
+        runs[name] = dict(_dryrun_fields(dryrun.dry_run(
+            arch, cell, variant=variant, mesh_shape=(1, 1), smoke=smoke,
+            **build)), arch=arch, shape=dataclasses.asdict(cell),
+            variant=variant)
+    production = []
+    for arch, shape, variant in DRYRUN_PRODUCTION:
+        rec = dryrun.run_cell(arch, shape, False, tempfile.mkdtemp(),
+                              force=True, verbose=False, variant=variant,
+                              smoke=smoke)
+        production.append({k: rec[k] for k in rec if k != "traceback"})
+        if rec["status"] == "ok":
+            # the expert-parallel MoE exchanges twice a MoE layer where the
+            # experts divide the model axis (else the TP-MoE serves)
+            cfg = get_config(arch, smoke=smoke)
+            ep = variant == "ep" and cfg.n_experts % 16 == 0
+            production[-1] = dict(_dryrun_fields(rec), **{
+                k: rec[k] for k in ("arch", "shape", "mesh", "status")},
+                want_all_to_alls=2 * (cfg.n_layers - cfg.first_dense) * ep)
+    return {"runs": runs, "production": production,
+            "launches": read_counts()}
+
+
+def _op_counts(ops):
+    """Collective op counts by the op's name without its namespace, as
+    ``comm_counts`` names ``CommDebugMode``'s."""
+    return {k.split(".")[1]: n for k, n in ops.items() if n}
+
+
+def dryrun_readings(r, phases):
+    """For each of phases 18-20 (``phases``: their records by name): the
+    dry-run's collectives a step against the phase's own (phase 20's
+    ``CommDebugMode`` counts over its short run, divided by its steps;
+    none for phases 18 and 19, which run plain tensors), its per-rank
+    peak estimate against the phase's ``max_memory_allocated``, and its
+    roofline bound against the phase's measured busy time."""
+    rows = {}
+    for name, (arch, cell, variant, _, busy_key,
+               peak_key) in dryrun_runs().items():
+        d, ph = r["runs"][name], phases[name]
+        want = {}
+        if "collectives" in ph:
+            want = {k: n / ph["short_steps"]
+                    for k, n in ph["collectives"].items()}
+        busy_s = ph[busy_key]["busy_ms"] / 1e3
+        bound_s = d["roofline"]["bound_s"]
+        rows[name] = {
+            "arch": arch, "kind": cell.kind, "variant": variant,
+            "collectives": _op_counts(d["collective_ops"]),
+            "phase_collectives": want,
+            "peak_bytes": d["temp_size_in_bytes"],
+            "phase_peak_bytes": ph[peak_key], "phase_peak_key": peak_key,
+            "peak_ratio": d["temp_size_in_bytes"] / ph[peak_key],
+            "bound_ms": bound_s * 1e3, "dominant": d["roofline"]["dominant"],
+            "busy_ms": busy_s * 1e3, "bound_share": bound_s / busy_s,
+            "trace_s": d["lower_s"]}
+        if name == "lm_mesh_full":
+            rows[name]["moe_layers"] = ph["moe_layers"]
+    return rows
+
+
+def check_dryrun(r, rows):
+    """The gates of phase 21: no kernel launched; each run's collectives a
+    step exactly the phase's (and phase 20's exactly 2 all-to-alls a MoE
+    layer); no measured busy time under its bound by more than
+    ``DRYRUN_SLACK`` (only a wrong count can make it so); every production
+    cell ``ok``, its expert-parallel one with exactly 2 expert all-to-alls
+    a MoE layer and the other with none."""
+    expect_counts("dryrun", r["launches"], {})
+    for name, row in rows.items():
+        if row["collectives"] != row["phase_collectives"]:
+            raise AssertionError(
+                f"dry-run of {name}: collectives a step {row['collectives']}"
+                f", the phase ran {row['phase_collectives']}")
+        if "moe_layers" in row and row["collectives"] != {
+                "alltoall_base_": 2 * row["moe_layers"]}:
+            raise AssertionError(
+                f"dry-run of {name}: {row['collectives']}, want 2 "
+                f"all-to-alls a MoE layer ({row['moe_layers']})")
+        if row["busy_ms"] < (1 - DRYRUN_SLACK) * row["bound_ms"]:
+            raise AssertionError(
+                f"{name}: measured busy {row['busy_ms']:.3f} ms beats its "
+                f"roofline bound {row['bound_ms']:.3f} ms by more than "
+                f"{DRYRUN_SLACK:.0%}: the dry-run's count is wrong")
+    for rec in r["production"]:
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run {rec['arch']} x {rec['shape']} x "
+                                 f"{rec['mesh']}: {rec.get('error')}")
+        a2a = _op_counts(rec["collective_ops"]).get("alltoall_base_", 0)
+        if a2a != rec["want_all_to_alls"]:
+            raise AssertionError(
+                f"dry-run {rec['arch']} x {rec['mesh']}: {a2a} expert "
+                f"all-to-alls, want {rec['want_all_to_alls']} (2 a MoE "
+                "layer through the expert-parallel MoE)")
+
+
+DRYRUN_CHILD = r"""
+import json
+import chip_smoke as smoke
+print("dryrun " + json.dumps(smoke.dryrun_child()))
+"""
+
+
+def dryrun_phase():
+    """Phase 21: phases 18-20's full-width runs and two production cells
+    dry-run in a child process (no device work), held against what those
+    phases measured."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_CHILD], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"phase dryrun exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    r = json.loads(next(ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("dryrun "))[len("dryrun "):])
+    rows = dryrun_readings(r, EMITTED)
+    check_dryrun(r, rows)
+    emit("dryrun", runs=rows, production=r["production"],
+         slack=DRYRUN_SLACK, command_s=seconds, launches=r["launches"],
+         nvidia_smi=nvidia_smi())
+    return r["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -5070,6 +5277,7 @@ def main():
     lm_counts = lm_serve_phase()
     train_lm_counts = lm_train_phase()
     mesh_lm_counts = lm_mesh_phase()
+    dryrun_phase()
 
     # launches: the main paths together (slice, rect, train, trainer,
     # serve_trace, tune, plan_artifacts, sharded, sharded_train,

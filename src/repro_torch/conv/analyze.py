@@ -96,19 +96,46 @@ from torch.utils._pytree import tree_flatten, tree_map
 
 COLLECTIVES = ("all_to_all", "psum", "ppermute", "all_gather")
 
-# (namespace, op) -> (the reference's name, the argument whose tensors
-# enter the collective)
+# (namespace, op) -> (plan-lint's name: the reference's, or the op's own;
+# the argument whose tensors enter the collective, for plan-lint; the HLO
+# kind that ``launch.roofline`` counts it as, or None; the argument that
+# holds its result, or None where the op returns it)
 _COLLECTIVE_OPS = {
-    ("c10d", "alltoall_base_"): ("all_to_all", 1),
-    ("c10d", "alltoall_"): ("all_to_all", 1),
-    ("c10d", "allreduce_"): ("psum", 0),
-    ("c10d", "allreduce_coalesced_"): ("psum", 0),
-    ("c10d", "allgather_"): ("all_gather", 1),
-    ("c10d", "_allgather_base_"): ("all_gather", 1),
-    ("c10d", "allgather_coalesced_"): ("all_gather", 1),
-    ("c10d", "allgather_into_tensor_coalesced_"): ("all_gather", 1),
-    ("c10d", "send"): ("ppermute", 0),
-    ("c10d", "recv_"): ("ppermute", 0),
+    ("c10d", "alltoall_base_"): ("all_to_all", 1, "all-to-all", 0),
+    ("c10d", "alltoall_"): ("all_to_all", 1, "all-to-all", 0),
+    ("c10d", "allreduce_"): ("psum", 0, "all-reduce", 0),
+    ("c10d", "allreduce_coalesced_"): ("psum", 0, "all-reduce", 0),
+    ("c10d", "allgather_"): ("all_gather", 1, "all-gather", 0),
+    ("c10d", "_allgather_base_"): ("all_gather", 1, "all-gather", 0),
+    ("c10d", "allgather_coalesced_"): ("all_gather", 1, "all-gather", 0),
+    ("c10d", "allgather_into_tensor_coalesced_"): ("all_gather", 1,
+                                                   "all-gather", 0),
+    ("c10d", "send"): ("ppermute", 0, "collective-permute", 0),
+    ("c10d", "recv_"): ("ppermute", 0, "collective-permute", 0),
+    ("c10d", "reduce_scatter_"): ("c10d.reduce_scatter_", 0,
+                                  "reduce-scatter", 0),
+    ("c10d", "_reduce_scatter_base_"): ("c10d._reduce_scatter_base_", 0,
+                                        "reduce-scatter", 0),
+    ("c10d", "reduce_scatter_tensor_coalesced_"): (
+        "c10d.reduce_scatter_tensor_coalesced_", 0, "reduce-scatter", 0),
+    ("_c10d_functional", "all_gather_into_tensor"): (
+        "_c10d_functional.all_gather_into_tensor", 0, "all-gather", None),
+    ("_c10d_functional", "all_gather_into_tensor_coalesced"): (
+        "_c10d_functional.all_gather_into_tensor_coalesced", 0,
+        "all-gather", None),
+    ("_c10d_functional", "all_reduce"): (
+        "_c10d_functional.all_reduce", 0, "all-reduce", None),
+    ("_c10d_functional", "all_reduce_coalesced"): (
+        "_c10d_functional.all_reduce_coalesced", 0, "all-reduce", None),
+    ("_c10d_functional", "reduce_scatter_tensor"): (
+        "_c10d_functional.reduce_scatter_tensor", 0, "reduce-scatter", None),
+    ("_c10d_functional", "reduce_scatter_tensor_coalesced"): (
+        "_c10d_functional.reduce_scatter_tensor_coalesced", 0,
+        "reduce-scatter", None),
+    ("_c10d_functional", "all_to_all_single"): (
+        "_c10d_functional.all_to_all_single", 0, "all-to-all", None),
+    ("_dtensor", "shard_dim_alltoall"): (
+        "_dtensor.shard_dim_alltoall", 0, "all-to-all", None),
 }
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
 _NOT_COLLECTIVES = {("_c10d_functional", "wait_tensor")}
@@ -128,19 +155,13 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
-class _Walk(TorchDispatchMode):
-    """Records every op dispatched while it is active: the op count, f64
-    on any input or output, the collectives with their bytes and operand
-    dtypes, and the live storage bytes (``inputs`` at the start, each op
-    output's storage from its op until it is freed)."""
+class LiveBytes:
+    """A tally of live storage bytes (of a rank's local tensors): the
+    ``inputs`` at the start, each tracked tensor's storage from then until
+    it is freed (a ``weakref.finalize`` on the storage), views and in-place
+    results never twice; ``peak`` the most at once."""
 
     def __init__(self, inputs):
-        super().__init__()
-        self.n_ops = 0
-        self.has_f64 = False
-        self.collectives = dict.fromkeys(COLLECTIVES, 0)
-        self.collective_dtypes: Dict[str, Dict[str, int]] = {}
-        self.collective_bytes = 0
         self.live = 0
         self.peak = 0
         self._storages: set = set()
@@ -162,6 +183,22 @@ class _Walk(TorchDispatchMode):
         self._storages.discard(key)
         self.live -= nbytes
 
+
+class _Walk(LiveBytes, TorchDispatchMode):
+    """Records every op dispatched while it is active: the op count, f64
+    on any input or output, the collectives with their bytes and operand
+    dtypes, and the live storage bytes (``LiveBytes``: each op output's
+    storage from its op until it is freed)."""
+
+    def __init__(self, inputs):
+        TorchDispatchMode.__init__(self)
+        LiveBytes.__init__(self, inputs)
+        self.n_ops = 0
+        self.has_f64 = False
+        self.collectives = dict.fromkeys(COLLECTIVES, 0)
+        self.collective_dtypes: Dict[str, Dict[str, int]] = {}
+        self.collective_bytes = 0
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
@@ -178,7 +215,7 @@ class _Walk(TorchDispatchMode):
         return out
 
     def _collective(self, ns, name, args) -> None:
-        kind, arg = _COLLECTIVE_OPS.get((ns, name), (f"{ns}.{name}", 0))
+        kind, arg = _COLLECTIVE_OPS.get((ns, name), (f"{ns}.{name}", 0))[:2]
         self.collectives[kind] = self.collectives.get(kind, 0) + 1
         operands = _tensors(args[arg])
         self.collective_bytes += _nbytes(operands)

@@ -69,7 +69,8 @@ def make_mesh(shape, axis_names, device_type=None):
     the first ranks of the started process group, in row-major order.
     ``device_type=None`` means ``cuda`` and raises without a GPU; a
     ``cuda`` mesh needs an NCCL group (gloo would stage every collective
-    of card tensors through the host)."""
+    of card tensors through the host), or a ``fake`` one, which runs no
+    collective and needs no GPU (the dry-run's)."""
     from torch.distributed.device_mesh import DeviceMesh
     shape, axis_names = tuple(map(int, shape)), tuple(axis_names)
     if len(shape) != len(axis_names):
@@ -84,7 +85,8 @@ def make_mesh(shape, axis_names, device_type=None):
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a started process group "
                            "(start_process_group)")
-    if device_type == "cuda" and "nccl" not in dist.get_backend():
+    if device_type == "cuda" and "nccl" not in dist.get_backend() \
+            and dist.get_backend() != "fake":
         raise RuntimeError(
             f"a cuda mesh needs an NCCL process group, found "
             f"{dist.get_backend()!r}: start_process_group() on the GPU, or "
@@ -101,15 +103,18 @@ def make_mesh(shape, axis_names, device_type=None):
                       mesh_dim_names=axis_names)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     """Single pod: 16x16 = 256 ranks (data, model).  Multi-pod: 2 pods =
     512 ranks (pod, data, model); ``pod`` x ``data`` is the DP domain.
     Built on the started process group, which must hold that many ranks
-    (else ``RuntimeError``): on the GPU over NCCL, else on host ranks."""
+    (else ``RuntimeError``).  ``device_type=None``: on the GPU over NCCL,
+    else on host ranks; the dry-run asks for ``cuda`` on its fake group."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    host = dist.is_initialized() and "nccl" not in dist.get_backend()
-    return make_mesh(shape, axes, device_type="cpu" if host else None)
+    if device_type is None:
+        host = dist.is_initialized() and "nccl" not in dist.get_backend()
+        device_type = "cpu" if host else None
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def make_host_mesh(n_data: int, n_model: int):

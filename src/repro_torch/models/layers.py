@@ -16,6 +16,7 @@ the JAX package's trees leaf for leaf). Conventions:
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -28,7 +29,11 @@ from repro_torch.fake import is_fake
 from repro_torch.models.common import ModelConfig
 from repro_torch.parallel.act_sharding import (P, axis_sizes, constrain,
                                                dp_axes, is_dtensor, local_of,
-                                               on_blocks, placements)
+                                               merge_heads, on_blocks,
+                                               on_head_blocks,
+                                               on_local_blocks, placements,
+                                               project_heads,
+                                               repeat_heads, split_heads)
 
 NEG_INF = -2.3819763e38   # most-negative bf16-representable
 
@@ -253,14 +258,16 @@ def _static_zero_window(window) -> bool:
     return isinstance(window, int) and window == 0
 
 
+@on_head_blocks
 def attend_full(q, k, v, *, q_positions, kv_positions, window=0,
-                softcap=0.0, causal=True, kv_len=None):
+                softcap=0.0, causal=True, kv_len=None, lse=False):
     """Materialised-score attention, head-expanded layout.
 
     q, k, v: (B, H, S, hd) — GQA kv heads are pre-expanded to H by the
     caller.  window: 0 / static int / 0-d tensor (a per-layer window;
     HUGE_WINDOW disables it in effect).  kv_len: optional (B,) valid cache
-    length for decode.
+    length for decode.  ``lse``: return (the float32 output, the scores'
+    log-sum-exp (B, H, Sq)), for a merge with other keys' results.
     """
     hd = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
@@ -278,6 +285,8 @@ def attend_full(q, k, v, *, q_positions, kv_positions, window=0,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    if lse:
+        return out, torch.logsumexp(s, dim=-1)
     return out.to(v.dtype)
 
 
@@ -289,6 +298,7 @@ def _pick_block(S, pref):
     return b
 
 
+@on_head_blocks
 def attend_flash(q, k, v, *, q_positions, kv_positions, window=0,
                  softcap=0.0, causal=True, q_block=512, kv_block=512):
     """Online-softmax blocked attention.
@@ -426,12 +436,9 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, window,
     H, Hkv = cfg.padded_heads, cfg.padded_kv
     G = H // Hkv
     cdt = x.dtype
-    q = constrain(torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt)),
-                  "heads")
-    k = constrain(torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt)),
-                  "heads")
-    v = constrain(torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt)),
-                  "heads")
+    q = constrain(project_heads(x, p["wq"].to(cdt)), "heads")
+    k = constrain(project_heads(x, p["wk"].to(cdt)), "heads")
+    v = constrain(project_heads(x, p["wv"].to(cdt)), "heads")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -442,7 +449,7 @@ def attn_forward(p, x, cfg: ModelConfig, *, positions, window,
     v = v.transpose(1, 2)
 
     def expand(t):                                   # kv -> H heads
-        return torch.repeat_interleave(t, G, dim=1) if G > 1 else t
+        return repeat_heads(t, G) if G > 1 else t
 
     softcap = cfg.softcap_attn
     fn = attend_flash if use_flash else attend_full
@@ -533,7 +540,7 @@ def mla_forward(p, x, cfg: ModelConfig, *, positions, theta,
     B, S, d = x.shape
     H, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_dim
     cdt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(cdt))
+    q = project_heads(x, p["w_q"].to(cdt))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope(q_rope, positions, theta)
     c_kv = torch.einsum("bsd,dl->bsl", x, p["w_dkv"].to(cdt))
@@ -643,7 +650,10 @@ def _moe_group(xt, p, cfg: ModelConfig, cap: int):
     flat_w = topw.reshape(-1)
     order = torch.argsort(flat_e, stable=True)        # as jnp.argsort
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
-    counts = torch.bincount(se, minlength=E)
+    # bincount's integers, at a static shape (``torch.bincount`` has no
+    # meta kernel, and the dry-run traces this on meta tensors)
+    counts = torch.zeros(E, dtype=se.dtype, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(Tg * K, device=dev) - starts[se]
     keep = pos < cap
@@ -703,7 +713,7 @@ def _moe_forward_mesh(p, x, cfg: ModelConfig):
     on its block of the experts' d_ff (``w1``/``w2`` on their last dim,
     ``w3`` on -2, as ``param_specs`` places them), so the ``w3`` product
     is a partial sum over ``model``, reduced once (the "wFFT" of MoE).
-    ``torch.bincount``, ``argsort`` and the index scatters have no DTensor
+    The expert count, ``argsort`` and the index scatters have no DTensor
     strategy: they run on the local blocks, as the reference's do under
     its vmap."""
     from torch.distributed.tensor import DTensor, Partial
@@ -832,6 +842,25 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk):
     return y.to(xh.dtype), h
 
 
+_X_ROLES = {"b": 0, "h": 2, "p": 3}          # (B, S, H, P)
+_STATE_ROLES = {"b": 0, "h": 1, "p": 2}      # (B, H, P, N)
+
+
+def _ssm_steps(xh, dt, A, Bm, Cm, h):
+    """The stepwise recurrence (decode) over the S new tokens (usually 1)
+    from state ``h``: h' = h * exp(dt A) + dt B (x) x ; y = C . h'.
+    Returns (y (B, S, H, P) float32, the last state)."""
+    ys = []
+    for t in range(xh.shape[1]):
+        x_t, dt_t = xh[:, t].float(), dt[:, t]        # (B,H,P), (B,H)
+        B_t, C_t = Bm[:, t].float(), Cm[:, t].float()  # (B,N)
+        dec = torch.exp(dt_t * A[None, :])            # (B,H)
+        upd = torch.einsum("bh,bn,bhp->bhpn", dt_t, B_t, x_t)
+        h = h * dec[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", C_t, h))
+    return torch.stack(ys, dim=1), h
+
+
 def mamba_forward(p, x, cfg: ModelConfig, *, state=None):
     """Mamba2 mixer. x: (B, S, d).
     state: None (train) or dict(ssm (B,H,P,N) f32, conv_x/conv_B/conv_C).
@@ -853,34 +882,28 @@ def mamba_forward(p, x, cfg: ModelConfig, *, state=None):
     Bm, cB = _causal_conv1d(Bm, p["conv_B"], cs.get("conv_B"))
     Cm, cC = _causal_conv1d(Cm, p["conv_C"], cs.get("conv_C"))
     xi, Bm, Cm = TF.silu(xi), TF.silu(Bm), TF.silu(Cm)
-    xh = xi.reshape(B, S, H, Pd)
+    xh = split_heads(xi, H)                           # (B, S, H, Pd)
 
-    if state is None:
-        y, _ = ssd_chunked(xh, dt, A, Bm, Cm,
-                           chunk=_pick_block(S, cfg.ssm_chunk))
-        new_state = None
-    elif S >= 8:
-        # prefill: chunked SSD from zero state, carry the final state out.
-        y, hT = ssd_chunked(xh, dt, A, Bm, Cm,
-                            chunk=_pick_block(S, cfg.ssm_chunk))
-        new_state = {"ssm": hT, "conv_x": cx, "conv_B": cB, "conv_C": cC}
+    # every (batch, head, channel) runs apart: on a mesh, on each rank's
+    # block of them (``on_local_blocks``)
+    roles = (_X_ROLES, {"b": 0, "h": 2}, {"h": 0}, {"b": 0}, {"b": 0})
+    if state is None or S >= 8:
+        # train, or prefill: chunked SSD from zero state, the final state
+        # carried out
+        y, hT = on_local_blocks(
+            functools.partial(ssd_chunked, chunk=_pick_block(
+                S, cfg.ssm_chunk)), (xh, dt, A, Bm, Cm), roles,
+            (_X_ROLES, _STATE_ROLES))
     else:
-        # stepwise recurrence (decode): h' = h * exp(dt A) + dt B (x) ;
-        # y = C . h' — over the S new tokens (usually S == 1).
-        h = cs["ssm"]
-        ys = []
-        for t in range(S):
-            x_t, dt_t = xh[:, t].float(), dt[:, t]        # (B,H,P), (B,H)
-            B_t, C_t = Bm[:, t].float(), Cm[:, t].float()  # (B,N)
-            dec = torch.exp(dt_t * A[None, :])            # (B,H)
-            upd = torch.einsum("bh,bn,bhp->bhpn", dt_t, B_t, x_t)
-            h = h * dec[..., None, None] + upd
-            ys.append(torch.einsum("bn,bhpn->bhp", C_t, h))
-        y = torch.stack(ys, dim=1).to(cdt)                # (B,S,H,P)
-        new_state = {"ssm": h, "conv_x": cx, "conv_B": cB, "conv_C": cC}
+        y, hT = on_local_blocks(_ssm_steps, (xh, dt, A, Bm, Cm, cs["ssm"]),
+                                roles + (_STATE_ROLES,),
+                                (_X_ROLES, _STATE_ROLES))
+        y = y.to(cdt)
+    new_state = None if state is None else {
+        "ssm": hT, "conv_x": cx, "conv_B": cB, "conv_C": cC}
 
     y = y + xh * p["D"].to(cdt)[None, None, :, None]
-    y = y.reshape(B, S, di)
+    y = merge_heads(y)                                # (B, S, di)
     y = rms_norm(y * TF.silu(z), p["out_norm"])
     return y @ p["w_out"].to(cdt), new_state
 

@@ -27,7 +27,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.parallel.act_sharding import (axis_sizes, carried,
-                                               constrain, current_mesh)
+                                               constrain, current_mesh,
+                                               whole_groups)
 
 HUGE_WINDOW = 1 << 30
 
@@ -206,11 +207,16 @@ def _tree_index(tree, u):
 def _unstack(tree, n):
     """The ``n`` unit trees of a stacked tree, each leaf taken apart with
     one ``unbind(0)``: its backward is one ``stack``, where indexing each
-    unit would backpropagate a full-size zero tensor a unit."""
+    unit would backpropagate a full-size zero tensor a unit.  A leaf that
+    the FSDP rule splits along its stacking dim (a ``DTensor``, which
+    cannot unbind a split dim) is first gathered along it, every unit's
+    slice in one all-gather: the reference's scan slices such a leaf a
+    unit at a time, and GSPMD gathers each slice; the bytes are the same,
+    and the backward adds one reduce-scatter to the ``stack``."""
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][u] for k in tree} for u in range(n)]
-    return tree.unbind(0)
+    return whole_groups(tree, 1, 0).unbind(0)
 
 
 def remat_call(remat, fn, *args):

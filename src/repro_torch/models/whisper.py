@@ -17,7 +17,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.lm import (_dtype, _positions, _tree_index,
                                    _unstack, remat_call)
-from repro_torch.parallel.act_sharding import constrain
+from repro_torch.parallel.act_sharding import constrain, project_heads
 
 
 def sinusoid_posemb(length: int, d: int, device=None):
@@ -70,7 +70,7 @@ def init_whisper_params(cfg: ModelConfig, gen: torch.Generator):
 # --------------------------------------------------------------------------
 
 def _proj(x, w):
-    return torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype)).transpose(1, 2)
+    return project_heads(x, w.to(x.dtype)).transpose(1, 2)
 
 
 def _proj_qkv(p, xq, xkv):

@@ -31,6 +31,8 @@ axes is ``Shard`` on each of them, major to minor, as JAX lays it out.
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 import threading
 
 import torch
@@ -174,6 +176,242 @@ def on_blocks(fn, x, dims):
     return DTensor.from_local(fn(x.to_local()), x.device_mesh, places,
                               run_check=False, shape=x.shape,
                               stride=x.stride())
+
+
+def _block(t, mesh, places, grads=None):
+    """This rank's block of ``t`` (a plain tensor counts as replicated)
+    laid out as ``places``, differentiably (``grads``: the gradient's
+    placements, the block's by default)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, places).to_local(grad_placements=grads)
+
+
+def _placed(block, mesh, places, shape):
+    """The ``DTensor`` of global ``shape`` whose block on this rank is
+    ``block``, laid out as ``places``."""
+    from torch.distributed.tensor import DTensor
+    from torch._prims_common import make_contiguous_strides_for
+    return DTensor.from_local(block.contiguous(), mesh, places,
+                              run_check=False, shape=shape,
+                              stride=make_contiguous_strides_for(shape))
+
+
+def on_head_blocks(fn):
+    """``fn(q, k, v, **kw)``, an attention over (batch, heads, seq, dim)
+    in which every (batch, head) is computed apart, run on each rank's
+    block when ``q`` is a ``DTensor``: q, k and v are laid out alike, split
+    over the mesh dims that split q's batch or heads dim and whole on the
+    others; a tensor keyword that has the batch dim first (positions,
+    lengths) is cut to the rank's rows; the result takes q's layout.  The
+    reference's GSPMD keeps such a body shard-local.  On ``DTensor`` the
+    body's einsums would fold a batch and a heads dim split over two mesh
+    dims into one, which torch 2.11's ``DTensor`` refuses.
+
+    Keys split over a mesh dim (a decode step's cache, split on its
+    sequence where the kv heads do not divide the model axis) stay split
+    there when ``fn`` takes ``lse`` and no gradient is taken: each rank
+    attends over its keys (``kv_positions`` cut alike) and the partial
+    results merge by their log-sum-exps over that dim (flash-decoding:
+    the query moves, not the cache)."""
+    split_keys = "lse" in inspect.signature(fn).parameters
+
+    @functools.wraps(fn)
+    def run(q, k, v, **kw):
+        if not is_dtensor(q):
+            return fn(q, k, v, **kw)
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh = q.device_mesh
+        seq = set()
+        if split_keys and is_dtensor(k) and not torch.is_grad_enabled():
+            seq = {i for i, pl in enumerate(k.placements)
+                   if isinstance(pl, Shard) and pl.dim == 2}
+        places = [Replicate() if i in seq or not (
+            isinstance(pl, Shard) and pl.dim in (0, 1)) else pl
+            for i, pl in enumerate(q.placements)]
+        kv_places = [Shard(2) if i in seq else pl
+                     for i, pl in enumerate(places)]
+        rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                for pl in places]
+        kv_rows = [Shard(1) if i in seq else pl for i, pl in enumerate(rows)]
+
+        def local(t, places):
+            return _block(t, mesh, places)
+
+        def placed(t, places, shape):
+            return _placed(t, mesh, places, shape)
+
+        B = q.shape[0]
+        kw = {n: local(t, kv_rows if n == "kv_positions" else rows)
+              if isinstance(t, torch.Tensor) and t.ndim and t.shape[0] == B
+              else t for n, t in kw.items()}
+        q_, k_, v_ = local(q, places), local(k, kv_places), local(v, kv_places)
+        shape = (*q.shape[:-1], v.shape[-1])
+        if not seq:
+            return placed(fn(q_, k_, v_, **kw), places, shape)
+        out, lse = fn(q_, k_, v_, lse=True, **kw)
+        stat = tuple(q.shape[:-1])
+        partial = [Partial("max") if i in seq else pl
+                   for i, pl in enumerate(places)]
+        top = local(placed(lse, partial, stat), places)
+        w = torch.exp(lse - top)
+        partial = [Partial() if i in seq else pl for i, pl in enumerate(places)]
+        num = local(placed(out * w[..., None], partial, shape), places)
+        den = local(placed(w, partial, stat), places)
+        return placed((num / den[..., None]).to(v.dtype), places, shape)
+    return run
+
+
+def reduced(x):
+    """``x`` with every partial placement of a ``DTensor`` reduced (a
+    partial max or sum made whole); a plain tensor as it is.  torch 2.11's
+    ``DTensor`` cannot turn a partial max into a partial sum, as an op on
+    a max over a split dim may ask."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+    places = [Replicate() if isinstance(pl, Partial) else pl
+              for pl in x.placements]
+    if places == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, places)
+
+
+def on_local_blocks(fn, args, roles, out_roles):
+    """``fn(*args)``, a body whose results are computed apart along some
+    dims (each a role: a batch, heads, a head's channels), run on each
+    rank's block when ``args[0]`` is a ``DTensor``.  ``roles[i]`` maps each
+    role of ``args[i]`` to its dim (``None`` for an argument passed as it
+    is).  A mesh dim that splits ``args[0]`` along one of its roles splits
+    every argument along that role, or leaves it whole where it has none;
+    every other dim is whole.  ``out_roles`` lays the results (a tuple)
+    out alike.  The reference's GSPMD keeps such a body shard-local; on
+    ``DTensor`` its einsums would fold dims split over two mesh dims into
+    one, which torch 2.11's ``DTensor`` refuses."""
+    lead = args[0]
+    if not is_dtensor(lead):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = lead.device_mesh
+    role_of = {d: role for role, d in roles[0].items()}
+    split = [role_of.get(pl.dim) if isinstance(pl, Shard) else None
+             for pl in lead.placements]
+    sizes = {role: lead.shape[d] for role, d in roles[0].items()}
+
+    def places(r):
+        return [Shard(r[role]) if role in r else Replicate()
+                for role in split]
+
+    def local(t, r):
+        # a block read whole by ranks that compute other blocks of a role
+        # it lacks gets a partial-sum gradient over them (``local_of``)
+        if r is None:
+            return t
+        grads = [Partial() if role is not None and role not in r else pl
+                 for role, pl in zip(split, places(r))]
+        return _block(t, mesh, places(r), grads)
+
+    outs = fn(*(local(a, r) for a, r in zip(args, roles)))
+    placed = []
+    for o, r in zip(outs, out_roles):
+        dim_role = {d: role for role, d in r.items()}
+        shape = tuple(sizes[dim_role[d]] if d in dim_role else n
+                      for d, n in enumerate(o.shape))
+        placed.append(_placed(o, mesh, places(r), shape))
+    return tuple(placed)
+
+
+def whole_groups(y, groups: int, dim: int):
+    """``y`` laid out so that every mesh dim that splits its dimension
+    ``dim`` splits it into whole groups of ``groups`` (heads, say): a mesh
+    dim whose size (times those before it) does not divide ``groups`` is
+    gathered, so ``groups=1`` makes ``dim`` whole on every rank.  The
+    parameters' rules split a heads dim only so (``launch/shardings.py``
+    ``_leaf_spec``), but ``DTensor`` may split a product's heads, or its
+    flat heads x k dim, unevenly over any mesh dim, or lay a gradient out
+    so, and a view across an uneven split (or an unbind of a split dim)
+    raises.  A plain tensor is ``y`` itself."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    split = 1
+    places = []
+    for i, pl in enumerate(y.placements):
+        if isinstance(pl, Shard) and pl.dim == dim % y.ndim:
+            if groups % (split * y.device_mesh.size(i)) == 0:
+                split *= y.device_mesh.size(i)
+            else:
+                pl = Replicate()
+        places.append(pl)
+    if places == list(y.placements):
+        return y
+    return y.redistribute(y.device_mesh, places)
+
+
+class _SplitHeads(torch.autograd.Function):
+    """Dimension ``dim`` (of heads * k) viewed as (heads, k), whose
+    backward merges the gradient's with ``merge_heads``: ``DTensor`` lays
+    a gradient out as it sees fit, and a plain view's backward would view
+    it whatever its layout."""
+
+    @staticmethod
+    def forward(ctx, y, heads, dim):
+        ctx.dim = dim
+        return y.unflatten(dim, (heads, -1))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return merge_heads(grad, ctx.dim), None, None
+
+
+class _MergeHeads(torch.autograd.Function):
+    """Dimensions (dim, dim + 1) of (heads, k) viewed as one, whose
+    backward splits the gradient's with ``split_heads``."""
+
+    @staticmethod
+    def forward(ctx, y, dim):
+        ctx.heads, ctx.dim = y.shape[dim], dim
+        return y.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_heads(grad, ctx.heads, ctx.dim), None
+
+
+def split_heads(y, heads: int, dim: int = -1):
+    """``y`` with dimension ``dim`` (of heads * k) viewed as (heads, k);
+    on a ``DTensor``, laid out first by ``whole_groups``, and so is its
+    gradient before the backward's view."""
+    dim %= y.ndim
+    if not is_dtensor(y):
+        return y.unflatten(dim, (heads, -1))
+    return _SplitHeads.apply(whole_groups(y, heads, dim), heads, dim)
+
+
+def merge_heads(y, dim: int = -2):
+    """``y`` with dimensions ``dim`` and ``dim + 1`` (heads, k) viewed as
+    one of heads * k; on a ``DTensor``, laid out first by
+    ``whole_groups``, and so is its gradient before the backward's view."""
+    dim %= y.ndim
+    if not is_dtensor(y):
+        return y.flatten(dim, dim + 1)
+    return _MergeHeads.apply(whole_groups(y, y.shape[dim], dim), dim)
+
+
+def repeat_heads(t, n: int, dim: int = 1):
+    """Each head of dimension ``dim`` repeated ``n`` times in place
+    (``torch.repeat_interleave``), the heads merged by ``merge_heads``."""
+    shape = list(t.shape)
+    shape.insert(dim + 1, n)
+    return merge_heads(t.unsqueeze(dim + 1).expand(shape), dim)
+
+
+def project_heads(x, w):
+    """The ``"bsd,dhk->bshk"`` projection of ``x`` (..., d) by ``w``
+    (d, heads, k): a flat product, its heads split by ``split_heads``."""
+    return split_heads(x @ merge_heads(w), w.shape[-2])
 
 
 # --------------------------------------------------------------------------

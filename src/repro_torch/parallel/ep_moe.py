@@ -95,7 +95,9 @@ def _ep_body(w_router, w1, w2, w3, x, *, cfg: ModelConfig, n_ranks: int,
     flat_w = topw.reshape(-1)
     order = torch.argsort(flat_e, stable=True)        # as jnp.argsort
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
-    counts = torch.bincount(se, minlength=E)
+    # bincount's integers at a static shape, as ``layers._moe_group``
+    counts = torch.zeros(E, dtype=se.dtype, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(Tl * K, device=dev) - starts[se]
     keep = pos < cap

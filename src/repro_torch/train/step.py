@@ -27,6 +27,7 @@ from repro_torch.models import whisper as WH
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                placed_like, tree_leaves, tree_map,
                                tree_unflatten)
+from repro_torch.parallel.act_sharding import reduced
 
 
 def cross_entropy(logits, labels, *, z_loss=1e-4, mask=None):
@@ -37,7 +38,7 @@ def cross_entropy(logits, labels, *, z_loss=1e-4, mask=None):
     ``DTensor`` on a mesh) sharded: the label's log-prob is a masked sum
     over V (a reduction that shards, as the reference's one-hot einsum),
     not a gather along the sharded dim, which would gather the vocab."""
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    m = reduced(torch.amax(logits, dim=-1, keepdim=True)).detach()
     shifted = logits - m
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
     vocab = torch.arange(logits.shape[-1], device=logits.device)

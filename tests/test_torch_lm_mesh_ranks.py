@@ -14,7 +14,12 @@ one JAX process; all at once):
   FSDP off and on, on the reference's weights carried across: against
   the port's local step and the reference's sharded step;
 - sharded serving: deepseek's prefill and greedy decode steps, the
-  TP-MoE and the EP MoE (where nothing drops), against the local run."""
+  TP-MoE and the EP MoE (where nothing drops), against the local run;
+- the layout faults that the dry-run found at full width, each at the
+  smallest form and mesh that showed it (``W.VARIANT_MESH``): a train step
+  with FSDP against the reference's sharded step and the port's local one;
+- the dry-run's collective counts of the sharded train step on a fake
+  (2, 2) mesh against what ``CommDebugMode`` saw on the gloo ranks."""
 import json
 import os
 import subprocess
@@ -50,6 +55,12 @@ def spawned(tmp_path_factory):
         jax.random.PRNGKey(0))
     torch.save(C.carry(params, W.qwen3_variant(tget_config)),
                tmp / "qwen3.pt")
+    for name in W.VARIANT_MESH:
+        jcfg = W.variant(jget_config, name)
+        params, _ = jax.jit(lambda k: init_train_state(jcfg, k))(
+            jax.random.PRNGKey(0))
+        torch.save(C.carry(params, W.variant(tget_config, name)),
+                   tmp / f"{name}.pt")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), HERE]), OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
@@ -120,16 +131,33 @@ def test_ep_moe_gradient_matches_the_local_moe(spawned, tag):
 @pytest.mark.parametrize("tag", MESH_TAGS)
 def test_sharded_train_step_matches_local_and_reference(spawned, tag, fsdp):
     ours, theirs = spawned
-    o = ours[tag]
     key = f"train/fsdp{fsdp}"
+    _check_step(ours[tag], key, "train/local", theirs,
+                f"train/{tag}/{key[6:]}")
+
+
+@pytest.mark.parametrize("name", list(W.VARIANT_MESH))
+def test_layout_fault_forms_step_as_the_reference(spawned, name):
+    """kv2, ssm6 and fsdp0 (``W.VARIANT_MESH``) raised in the port's
+    sharded step before its repairs (``act_sharding.split_heads``/
+    ``merge_heads``, ``lm._unstack``)."""
+    ours, theirs = spawned
+    tag = "x".join(map(str, W.VARIANT_MESH[name]))
+    _check_step(ours[tag], f"variant/{name}/mesh", f"variant/{name}/local",
+                theirs, f"variant/{name}")
+
+
+def _check_step(o, key, local_key, theirs, ref_key):
+    """The sharded step ``key`` of the port's rank 0 outputs ``o`` against
+    its local step ``local_key`` and the reference's ``ref_key``: loss,
+    mu (the grads) and the new parameters."""
     assert o["facts"][key]["placed_as_specs"]
-    C.assert_close(o[f"{key}/loss"], o["train/local/loss"], LOCAL_TOL,
+    C.assert_close(o[f"{key}/loss"], o[f"{local_key}/loss"], LOCAL_TOL,
                    "loss vs the local step")
-    C.assert_close(o[f"{key}/loss"], theirs[f"train/{tag}/{key[6:]}/loss"],
+    C.assert_close(o[f"{key}/loss"], theirs[f"{ref_key}/loss"],
                    JAX_TOL, "loss vs the reference's sharded step")
-    local = {n: _tree(o, f"train/local/{n}") for n in ("mu", "params")}
-    ref = {n: _tree(theirs, f"train/{tag}/{key[6:]}/{n}")
-           for n in ("mu", "params")}
+    local = {n: _tree(o, f"{local_key}/{n}") for n in ("mu", "params")}
+    ref = {n: _tree(theirs, f"{ref_key}/{n}") for n in ("mu", "params")}
     got = {n: _tree(o, f"{key}/{n}") for n in ("mu", "params")}
     for n in ("mu", "params"):
         assert sorted(got[n]) == sorted(local[n]) == sorted(ref[n])
@@ -180,3 +208,47 @@ def test_sharded_serving_matches_local(spawned, tag, case):
         C.assert_close(o[f"serve/{case}/mesh/{i}"],
                        o[f"serve/{case}/local/{i}"], C.TOL,
                        f"serve {case} step {i}")
+
+
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+def test_dryrun_counts_what_the_gloo_ranks_ran(spawned, device_type):
+    """The train step of the qwen3 variant with FSDP, dry-run on a fake
+    (2, 2) mesh of ``device_type``: on a ``cpu`` mesh its collectives are
+    the ones ``CommDebugMode`` saw on the four gloo ranks, op for op; on a
+    ``cuda`` mesh, where ``DTensor`` plans what NCCL runs, each all-gather
+    that a ``cpu`` mesh runs with a chunk in place of an all-to-all is
+    that all-to-all."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import ShapeCell
+    seen = spawned[0]["2x2"]["facts"]["train/fsdp1"]["comm"]
+    rec = dryrun.dry_run(W.qwen3_variant(tget_config),
+                         ShapeCell("t", W.TRAIN_SEQ, W.TRAIN_BATCH, "train"),
+                         mesh_shape=(2, 2), device_type=device_type,
+                         use_flash=False, grad_bf16=False)
+    ops = {k.split(".")[1]: n for k, n in rec["collective_ops"].items()}
+    assert sum(rec["collectives"]["counts"].values()) == sum(ops.values())
+    if device_type == "cpu":
+        assert ops == seen
+        return
+    a2a = ops.pop("shard_dim_alltoall")
+    assert a2a > 0 and rec["collectives"]["counts"]["all-to-all"] == a2a
+    ops["all_gather_into_tensor"] += a2a
+    assert ops == seen
+
+
+@pytest.mark.parametrize("tag", MESH_TAGS)
+def test_sharded_serving_merges_split_keys(spawned, tag):
+    """The kv2 form served on the mesh against the local run: at (1, 4)
+    its 2 kv heads do not divide the model axis, so the cache is split on
+    its sequence (``cache_specs``) and each decode step's attention runs
+    on the ranks' keys and merges them by their log-sum-exps
+    (``act_sharding.on_head_blocks``); at (2, 2) the heads split."""
+    o = spawned[0][tag]
+    facts = o["facts"]["serve/kv2"]
+    assert facts["tokens_equal"]
+    split_seq = tag == "1x4"
+    assert facts["k_spec"] == [None, "data", None if split_seq else "model",
+                               "model" if split_seq else None, None]
+    for i in range(W.SERVE_STEPS + 1):
+        C.assert_close(o[f"serve/kv2/mesh/{i}"], o[f"serve/kv2/local/{i}"],
+                       C.TOL, f"serve kv2 step {i}")

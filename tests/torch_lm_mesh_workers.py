@@ -4,10 +4,11 @@ on a mesh, or the JAX package on four host devices.
     python torch_lm_mesh_workers.py torch <dir> <rank> <n_data>x<n_model>
     python torch_lm_mesh_workers.py jax <dir>
 
-``<dir>`` holds the input the test wrote (``qwen3.pt``: the reference's
-qwen3 variant weights carried into the port's tree; both sides draw the
-MoE weights and inputs from numpy seeds) and receives the outputs: rank
-0's ``torch_<mesh>.npz`` and ``torch_<mesh>.json``, and ``jax.npz``."""
+``<dir>`` holds the input the test wrote (``qwen3.pt`` and ``<variant>.pt``:
+the reference's weights of the qwen3 variant and of each ``VARIANT_MESH``
+form, carried into the port's tree; both sides draw the MoE weights and
+inputs from numpy seeds) and receives the outputs: rank 0's
+``torch_<mesh>.npz`` and ``torch_<mesh>.json``, and ``jax.npz``."""
 import dataclasses
 import json
 import os
@@ -40,6 +41,31 @@ def qwen3_variant(get_config):
     return dataclasses.replace(
         get_config("qwen3-14b", smoke=True), n_heads=8, n_kv=4, pad_heads=8,
         d_model=128, head_dim=16, d_ff=256, dtype="float32")
+
+
+# the smallest forms that showed each layout fault of the sharded train
+# step, and the mesh that shows it (each a train step with FSDP and flash
+# attention, as the dry-run's, against the reference's sharded step and
+# the port's local one):
+#   kv2: 2 kv heads on a model axis of 4 (``DTensor`` split the flash
+#        step's k/v gradient's flat heads x head_dim over it, and the
+#        projections' unflatten raised; head_dim 128 makes it choose so);
+#   ssm6: 6 SSM heads (d_inner 96) on a model axis of 4 (the x heads'
+#        reshape raised);
+#   fsdp0: a conv weight (8 units, 4, 2048) that the FSDP rule splits on
+#        its stacking dim over "data" (the units' unbind raised).
+VARIANT_MESH = {"kv2": (1, 4), "ssm6": (1, 4), "fsdp0": (2, 2)}
+
+
+def variant(get_config, name):
+    if name == "kv2":
+        return dataclasses.replace(qwen3_variant(get_config), n_kv=2,
+                                   head_dim=128)
+    mamba = dataclasses.replace(get_config("mamba2-2.7b", smoke=True),
+                                dtype="float32")
+    if name == "ssm6":
+        return dataclasses.replace(mamba, d_model=48)
+    return dataclasses.replace(mamba, n_layers=8, ssm_expand=32)
 
 
 def moe_config(get_config, name):
@@ -116,6 +142,26 @@ def jax_main(out_dir):
     out["train/local/loss"] = np.asarray(m_loc["loss"])
     out.update({f"train/local/params{k}": v
                 for k, v in keyed(p_loc).items()})
+    for name, shape in VARIANT_MESH.items():
+        vcfg = variant(get_config, name)
+        p0, o0 = jax.jit(lambda k: init_train_state(vcfg, k))(
+            jax.random.PRNGKey(0))
+        mesh = make_mesh(shape, ("data", "model"))
+        pspec = JSH.named(mesh, JSH.param_specs(vcfg, p0, mesh, fsdp=True))
+        ospec = {"mu": pspec, "nu": pspec, "step": JSH.named(mesh, JP())}
+        bspec = JSH.named(mesh, JSH.batch_specs(vcfg, cell, mesh))
+        vbatch = {k: jnp.asarray(v)
+                  for k, v in batch_arrays(vcfg.vocab).items()}
+        step = jax.jit(make_train_step(vcfg, opt_cfg, use_flash=True),
+                       in_shardings=(pspec, ospec, bspec),
+                       out_shardings=(pspec, ospec, None))
+        with activation_sharding(mesh):
+            p1, o1, m1 = step(p0, o0, vbatch)
+        out[f"variant/{name}/loss"] = np.asarray(m1["loss"])
+        out.update({f"variant/{name}/params{k}": v
+                    for k, v in keyed(p1).items()})
+        out.update({f"variant/{name}/mu{k}": v
+                    for k, v in keyed(o1["mu"]).items()})
     for shape in MESHES:
         tag = "x".join(map(str, shape))
         mesh = make_mesh(shape, ("data", "model"))
@@ -236,9 +282,10 @@ def torch_main(out_dir, rank, shape):
         out.update({f"train/local/mu{k}": v
                     for k, v in keyed(o_loc["mu"]).items()})
     cell = ShapeCell("t", TRAIN_SEQ, TRAIN_BATCH, "train")
-    for fsdp in (False, True):
+
+    def sharded_step(key, cfg, params, batch, fsdp, use_flash=False):
+        step = make_train_step(cfg, AdamWConfig(**OPT), use_flash=use_flash)
         pspecs = SH.param_specs(cfg, params, mesh, fsdp=fsdp)
-        key = f"train/fsdp{int(fsdp)}"
         with CommDebugMode() as comm, activation_sharding(mesh):
             p1, o1, m1 = step(SH.place(mesh, pspecs, params),
                               SH.place(mesh, SH.opt_specs(pspecs),
@@ -256,8 +303,56 @@ def torch_main(out_dir, rank, shape):
         out.update({f"{key}/params{k}": v for k, v in keyed(p1).items()})
         out.update({f"{key}/mu{k}": v for k, v in keyed(o1["mu"]).items()})
 
-    # ---- sharded serving: deepseek's prefill and greedy decode ---------
+    for fsdp in (False, True):
+        sharded_step(f"train/fsdp{int(fsdp)}", cfg, params, batch, fsdp)
+
+    # ---- the layout faults' smallest forms, each on its mesh -----------
+    for name, vshape in VARIANT_MESH.items():
+        if vshape != shape:
+            continue
+        vcfg = variant(get_config, name)
+        vparams = torch.load(os.path.join(out_dir, f"{name}.pt"))
+        vbatch = {k: torch.from_numpy(v)
+                  for k, v in batch_arrays(vcfg.vocab).items()}
+        if rank == 0:
+            p_loc, o_loc, m_loc = make_train_step(
+                vcfg, AdamWConfig(**OPT), use_flash=True)(
+                vparams, adamw_init(vparams), vbatch)
+            out[f"variant/{name}/local/loss"] = m_loc["loss"].numpy()
+            out.update({f"variant/{name}/local/params{k}": v
+                        for k, v in keyed(p_loc).items()})
+            out.update({f"variant/{name}/local/mu{k}": v
+                        for k, v in keyed(o_loc["mu"]).items()})
+        sharded_step(f"variant/{name}/mesh", vcfg, vparams, vbatch, True,
+                     use_flash=True)
+
+    # ---- sharded serving: the kv2 form, whose 2 kv heads do not divide a
+    # model axis of 4, so its cache is split on its sequence and a decode
+    # step merges the ranks' keys by their log-sum-exps ------------------
     rng = np.random.default_rng(3)
+    cfg = variant(get_config, "kv2")
+    params = LM.init_lm_params(cfg, torch.Generator().manual_seed(0))
+    prompts = torch.tensor(rng.integers(1, cfg.vocab,
+                                        (SERVE_BATCH, SERVE_PROMPT)))
+    local = serve.generate(cfg, params, prompts, SERVE_STEPS + 1)
+    placed = SH.place(mesh, SH.param_specs(cfg, params, mesh, fsdp=False),
+                      params)
+    with CommDebugMode() as comm:
+        meshed = serve.generate(cfg, placed, prompts, SERVE_STEPS + 1,
+                                mesh=mesh)
+    k_spec = SH.cache_specs(cfg, ShapeCell(
+        "serve", SERVE_PROMPT + SERVE_STEPS + 9, SERVE_BATCH, "decode"),
+        mesh)["u0"]["k"]
+    facts["serve/kv2"] = {
+        "k_spec": list(k_spec),
+        "comm": {str(k).split(".")[1]: c for k, c in
+                 comm.get_comm_counts().items() if c},
+        "tokens_equal": bool(torch.equal(local.tokens, meshed.tokens))}
+    for i, (a, b) in enumerate(zip(meshed.steps, local.steps)):
+        out[f"serve/kv2/mesh/{i}"] = a.numpy()
+        out[f"serve/kv2/local/{i}"] = b.numpy()
+
+    # ---- sharded serving: deepseek's prefill and greedy decode ---------
     for name, changes in SERVE_CASES.items():
         cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b",
                                              smoke=True),
