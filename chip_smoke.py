@@ -358,18 +358,34 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               roofline bound (H100 peaks) over the phase's measured busy
               time, reported; a busy time under its bound by more than
               ``DRYRUN_SLACK`` fails (only a wrong count can do that);
-              (b) qwen3-14b ``decode_32k`` and deepseek-v2-lite-16b
-              ``decode_32k --variant ep`` at full width on the fake
+              (b) qwen3-14b ``decode_32k``, deepseek-v2-lite-16b
+              ``decode_32k --variant ep``, hymba-1.5b ``train_4k`` and
+              whisper-small ``train_4k`` at full width on the fake
               (16, 16) mesh: status ok, exactly 2 expert all-to-alls a
-              MoE layer through EP, their trace seconds
+              MoE layer through EP, qwen3-14b's decode step moving at
+              most ``DRYRUN_DECODE_BYTES`` of collectives a rank, their
+              trace seconds
+ 22. mesh_numerics  sharded values under this machine's torch, on its CPU
+              (no device work, no kernel): four gloo ranks a mesh shape,
+              child processes, step the smallest forms of the layout
+              faults (``MESH_NUMERICS_FORMS``: 2 kv heads and 6 SSM heads
+              at (1, 4); mamba2's FSDP-split stacked conv leaf, whisper-
+              small's small form and mixtral's through the expert-
+              parallel MoE at (2, 2)), each a train step with FSDP and
+              flash attention against the same step on plain tensors on
+              rank 0 (loss, grad_norm, mu, nu within
+              ``MESH_NUMERICS_TOL``), and serve the kv2 form at (1, 4)
+              (its cache split on its sequence) against local: every
+              step's logits within the same tolerance, equal tokens; the
+              torch version and each largest difference printed
 
 and then the ``kernels`` summary line (all seven kernels), the card's name
 and power limit as ``nvidia-smi`` gives them, and the final ``{"ok": true,
 ...}`` line.  The launch counters are set to 0 right before each main path
 (4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 17, 18, 19, 20, 21) and read right
 after it; each path must launch its own kernels and none of the others
-(phases 18-21 none), and every tile DFT, forward and inverse, only in its specialised
-form.
+(phases 18-21 none; phase 22's ranks hold no card), and every tile DFT,
+forward and inverse, only in its specialised form.
 
 Float32 references run in full float32: TF32 is off for matmuls and cuDNN.
 """
@@ -5002,7 +5018,13 @@ DRYRUN_SLACK = 0.05          # a busy time may beat its bound by this share
 # the full-width cells traced on the fake production mesh: (arch, shape,
 # variant)
 DRYRUN_PRODUCTION = (("qwen3-14b", "decode_32k", ""),
-                     ("deepseek-v2-lite-16b", "decode_32k", "ep"))
+                     ("deepseek-v2-lite-16b", "decode_32k", "ep"),
+                     ("hymba-1.5b", "train_4k", ""),
+                     ("whisper-small", "train_4k", ""))
+# qwen3-14b's decode step on the (16, 16) mesh: its collective bytes a
+# rank.  The host's torch moved 0.13 GB, the card's 1.57 GB while the
+# embedding lookup gathered the whole vocab-split table (``take_rows``)
+DRYRUN_DECODE_BYTES = 0.2e9
 
 
 def _flag(args, name):
@@ -5121,7 +5143,8 @@ def check_dryrun(r, rows):
     layer); no measured busy time under its bound by more than
     ``DRYRUN_SLACK`` (only a wrong count can make it so); every production
     cell ``ok``, its expert-parallel one with exactly 2 expert all-to-alls
-    a MoE layer and the other with none."""
+    a MoE layer and the others with none; qwen3-14b's decode step moving
+    at most ``DRYRUN_DECODE_BYTES`` a rank."""
     expect_counts("dryrun", r["launches"], {})
     for name, row in rows.items():
         if row["collectives"] != row["phase_collectives"]:
@@ -5143,6 +5166,12 @@ def check_dryrun(r, rows):
             raise AssertionError(f"dry-run {rec['arch']} x {rec['shape']} x "
                                  f"{rec['mesh']}: {rec.get('error')}")
         a2a = _op_counts(rec["collective_ops"]).get("alltoall_base_", 0)
+        moved = rec["collectives"]["total_bytes"]
+        if (rec["arch"], rec["shape"]) == ("qwen3-14b", "decode_32k") and \
+                not moved <= DRYRUN_DECODE_BYTES:
+            raise AssertionError(
+                f"dry-run qwen3-14b x decode_32k: {moved / 1e9:.3f} GB of "
+                f"collectives a rank, over {DRYRUN_DECODE_BYTES / 1e9} GB")
         if a2a != rec["want_all_to_alls"]:
             raise AssertionError(
                 f"dry-run {rec['arch']} x {rec['mesh']}: {a2a} expert "
@@ -5158,7 +5187,7 @@ print("dryrun " + json.dumps(smoke.dryrun_child()))
 
 
 def dryrun_phase():
-    """Phase 21: phases 18-20's full-width runs and two production cells
+    """Phase 21: phases 18-20's full-width runs and four production cells
     dry-run in a child process (no device work), held against what those
     phases measured."""
     t0 = time.perf_counter()
@@ -5178,6 +5207,294 @@ def dryrun_phase():
          slack=DRYRUN_SLACK, command_s=seconds, launches=r["launches"],
          nvidia_smi=nvidia_smi())
     return r["launches"]
+
+
+# --------------------------------------------------------------------------
+# Phase 22: sharded values on gloo ranks, under this machine's torch
+# --------------------------------------------------------------------------
+
+# a sharded step against the same step on plain tensors (the local
+# tolerance of tests/test_torch_lm_mesh_ranks.py), of the largest |value|
+MESH_NUMERICS_TOL = 1e-5
+MESH_NUMERICS_BATCH, MESH_NUMERICS_SEQ = 4, 16
+MESH_NUMERICS_OPT = dict(lr=1e-3, total_steps=5)
+MESH_NUMERICS_SERVE = (4, 11, 4)        # batch, prompt length, decode steps
+MESH_NUMERICS_TIMEOUT = 240             # seconds for all ranks
+# the smallest forms that showed each layout fault of a sharded train step
+# (tests/torch_lm_mesh_workers.py's), each with FSDP and flash attention on
+# the mesh that shows it: "kv2" 2 kv heads of head_dim 128 on a model axis
+# of 4; "ssm6" 6 SSM heads on it; "fsdp0" a mamba2 conv weight (8 units,
+# 4, 2048) that FSDP splits on its stacking dim; "whisper" whisper-small's
+# small form at d_model 256 and 256 decoder positions (FSDP splits d_model
+# of its tied table and positions); "moe_ep" mixtral's through the
+# expert-parallel MoE (nothing drops at capacity_factor 8); "qwen3"
+# tests/test_distributed.py's qwen3 variant
+MESH_NUMERICS_FORMS = (("kv2", (1, 4)), ("ssm6", (1, 4)), ("fsdp0", (2, 2)),
+                       ("whisper", (2, 2)), ("moe_ep", (2, 2)))
+# served on the mesh against local, with equal greedy tokens: at (1, 4)
+# the kv2 form's cache is split on its sequence, and a decode step merges
+# the ranks' keys by their log-sum-exps
+MESH_NUMERICS_SERVED = (("kv2", (1, 4)),)
+
+
+def mesh_form(name):
+    """The float32 small form ``name`` of phase 22."""
+    qwen = dataclasses.replace(
+        get_config("qwen3-14b", smoke=True), n_heads=8, n_kv=4, pad_heads=8,
+        d_model=128, head_dim=16, d_ff=256, dtype="float32")
+    mamba = dataclasses.replace(get_config("mamba2-2.7b", smoke=True),
+                                dtype="float32")
+    forms = {
+        "qwen3": lambda: qwen,
+        "kv2": lambda: dataclasses.replace(qwen, n_kv=2, head_dim=128),
+        "ssm6": lambda: dataclasses.replace(mamba, d_model=48),
+        "fsdp0": lambda: dataclasses.replace(mamba, n_layers=8,
+                                             ssm_expand=32),
+        "whisper": lambda: dataclasses.replace(
+            get_config("whisper-small", smoke=True), dtype="float32",
+            d_model=256, head_dim=64, max_dec_len=256),
+        "moe_ep": lambda: dataclasses.replace(
+            get_config("mixtral-8x7b", smoke=True), dtype="float32",
+            moe_ep=True, capacity_factor=8.0),
+    }
+    return forms[name]()
+
+
+def mesh_numerics_batch(cfg):
+    """A train batch of the form (tests/torch_lm_mesh_workers.py's
+    ``batch_arrays``; whisper's frames and decoder tokens beside it)."""
+    rng = np.random.default_rng(SEED)
+    B, S = MESH_NUMERICS_BATCH, MESH_NUMERICS_SEQ
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S)),
+         "labels": rng.integers(0, cfg.vocab, (B, S))}
+    if cfg.encdec:
+        b = {"frames": rng.standard_normal((B, 24, cfg.d_model))
+             .astype(np.float32),
+             "tokens": rng.integers(0, cfg.vocab, (B, 8)),
+             "labels": rng.integers(0, cfg.vocab, (B, 8))}
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def mesh_numerics_step(name, mesh, rank):
+    """One train step (AdamW, FSDP, flash attention) of form ``name`` on
+    ``mesh`` against the same step on plain tensors on rank 0: the
+    scaled differences of loss, grad_norm, mu and nu, and the collectives
+    ``CommDebugMode`` saw."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    cfg = mesh_form(name)
+    init = WH.init_whisper_params if cfg.encdec else LM.init_lm_params
+    params = init(cfg, torch.Generator().manual_seed(SEED))
+    batch = mesh_numerics_batch(cfg)
+    step = make_lm_step(cfg, AdamWConfig(**MESH_NUMERICS_OPT),
+                        use_flash=True)
+    cell = ShapeCell("train", MESH_NUMERICS_SEQ, MESH_NUMERICS_BATCH,
+                     "train")
+    pspecs = SH.param_specs(cfg, params, mesh, fsdp=True)
+    bspecs = SH.batch_specs(cfg, cell, mesh)
+    t0 = time.perf_counter()
+    with CommDebugMode() as comm, activation_sharding(mesh):
+        mp, mo, mm = step(SH.place(mesh, pspecs, params),
+                          SH.place(mesh, SH.opt_specs(pspecs),
+                                   adamw_init(params)),
+                          SH.place(mesh, {k: bspecs[k] for k in batch},
+                                   batch))
+    seconds = time.perf_counter() - t0
+    placed_as_specs = all(
+        tuple(t.placements) == SH.placements(s, mesh, t.ndim)
+        for t, s in zip(torch.utils._pytree.tree_leaves(mp),
+                        torch.utils._pytree.tree_leaves(
+                            pspecs, is_leaf=lambda x: isinstance(x, P))))
+    mp, mo, mm = whole((mp, mo, mm))
+    out = {"collectives": comm_counts(comm), "seconds": seconds,
+           "placed_as_specs": placed_as_specs, "finite": finite_tree(mp)}
+    if rank == 0:
+        hp, ho, hm = step(params, adamw_init(params), batch)
+        out["vs_local"] = {
+            "loss": rel_scalar(mm["loss"], hm["loss"]),
+            "grad_norm": rel_scalar(mm["grad_norm"], hm["grad_norm"]),
+            "mu": scaled_tree_err(mo["mu"], ho["mu"]),
+            "nu": scaled_tree_err(mo["nu"], ho["nu"])}
+    return out
+
+
+def mesh_numerics_serve(name, mesh):
+    """Form ``name`` served (prefill and greedy decode) on ``mesh``, its
+    parameters placed without FSDP, against the local run: every step's
+    logits (scaled), equal tokens, and the collectives."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    cfg = mesh_form(name)
+    B, Sp, steps = MESH_NUMERICS_SERVE
+    params = LM.init_lm_params(cfg, torch.Generator().manual_seed(SEED))
+    prompts = torch.tensor(np.random.default_rng(SEED).integers(
+        1, cfg.vocab, (B, Sp)))
+    local = serve.generate(cfg, params, prompts, steps + 1)
+    placed = SH.place(mesh, SH.param_specs(cfg, params, mesh, fsdp=False),
+                      params)
+    with CommDebugMode() as comm:
+        meshed = serve.generate(cfg, placed, prompts, steps + 1, mesh=mesh)
+    k_spec = SH.cache_specs(cfg, ShapeCell("serve", Sp + steps + 9, B,
+                                           "decode"), mesh)["u0"]["k"]
+    return {"k_spec": list(k_spec), "collectives": comm_counts(comm),
+            "steps_vs_local": [lm_scaled_err(a, b) for a, b in
+                               zip(meshed.steps, local.steps)],
+            "tokens_equal": bool(torch.equal(local.tokens, meshed.tokens))}
+
+
+@contextlib.contextmanager
+def mesh_numerics_fault(name):
+    """A planted fault of phase 22 (``None``: none): ``unreduced`` takes
+    a per-rank body's partial-sum gradient as reduced without reducing
+    it (``act_sharding._Block``)."""
+    if not name:
+        yield
+        return
+    if name != "unreduced":
+        raise ValueError(name)
+    from torch.distributed.tensor import Replicate
+    from repro_torch.parallel import act_sharding
+    sound = act_sharding._Block.backward
+
+    def unreduced(ctx, grad):
+        g = act_sharding._placed(grad, ctx.mesh, tuple(
+            Replicate() if pl.is_partial() else pl for pl in ctx.grads),
+            ctx.shape)
+        return g.redistribute(ctx.mesh, ctx.target), None, None
+    act_sharding._Block.backward = staticmethod(unreduced)
+    try:
+        yield
+    finally:
+        act_sharding._Block.backward = sound
+
+
+def mesh_numerics_rank(out_dir, rank, shape, trains, served):
+    """A gloo rank of phase 22 on a mesh of ``shape``: each of the forms
+    ``trains`` stepped and ``served`` served; rank 0 writes the record
+    (an error of a form is recorded with its traceback, and the next form
+    runs: every rank meets the same error at the same op).  A name
+    ``form!fault`` runs the form under ``mesh_numerics_fault(fault)``."""
+    import traceback
+    torch.set_num_threads(1)
+    tag = "x".join(map(str, shape))
+    tmesh.start_process_group("gloo", rank=rank,
+                              world_size=shape[0] * shape[1],
+                              store_path=os.path.join(out_dir,
+                                                      f"store{tag}"))
+    rec = {"torch": torch.__version__, "mesh": list(shape), "train": {},
+           "serve": {}}
+    try:
+        mesh = tmesh.make_host_mesh(*shape)
+        for kind, names, run in (
+                ("train", trains, lambda n: mesh_numerics_step(n, mesh,
+                                                               rank)),
+                ("serve", served, lambda n: mesh_numerics_serve(n, mesh))):
+            for name in names:
+                form, _, fault = name.partition("!")
+                try:
+                    with mesh_numerics_fault(fault):
+                        rec[kind][name] = run(form)
+                except Exception as e:
+                    rec[kind][name] = {
+                        "error": f"{type(e).__name__}: {e}"[:2000],
+                        "traceback": traceback.format_exc()[-6000:]}
+    finally:
+        tmesh.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(out_dir, f"rank0_{tag}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+MESH_NUMERICS_RANK = r"""
+import json, sys
+import chip_smoke as smoke
+smoke.mesh_numerics_rank(*json.loads(sys.argv[1]))
+"""
+
+
+def mesh_numerics_child(forms=MESH_NUMERICS_FORMS,
+                        served=MESH_NUMERICS_SERVED):
+    """Phase 22's ranks: four gloo ranks a mesh shape (all shapes at
+    once), each a child process of this machine's torch on its CPU;
+    returns {mesh tag: rank 0's record}."""
+    from repro_torch.launch import env as launch_env
+    out_dir = tempfile.mkdtemp(prefix="mesh_numerics_")
+    shapes = sorted({s for _, s in forms} | {s for _, s in served})
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               **launch_env.rank_env(4 * len(shapes)))
+    procs = []
+    for shape in shapes:
+        args = [[n for n, s in forms if s == shape],
+                [n for n, s in served if s == shape]]
+        for rank in range(shape[0] * shape[1]):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MESH_NUMERICS_RANK,
+                 json.dumps([out_dir, rank, list(shape)] + args)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=MESH_NUMERICS_TIMEOUT)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    failed = [log[-3000:] for p, log in zip(procs, logs) if p.returncode]
+    if failed:
+        raise AssertionError("phase mesh_numerics: a rank exited non-zero:"
+                             "\n" + "\n\n".join(failed))
+    recs = {}
+    for shape in shapes:
+        tag = "x".join(map(str, shape))
+        with open(os.path.join(out_dir, f"rank0_{tag}.json")) as f:
+            recs[tag] = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return recs
+
+
+def mesh_numerics_misses(recs, tol=MESH_NUMERICS_TOL):
+    """Every miss of phase 22's records: an error, a difference beyond
+    ``tol``, parameters not placed as their specs or not finite, greedy
+    tokens that differ."""
+    misses = []
+    for tag, rec in recs.items():
+        for kind in ("train", "serve"):
+            for name, r in rec[kind].items():
+                where = f"{kind} {name} at {tag}"
+                if "error" in r:
+                    misses.append(f"{where}: {r['error']}")
+                    continue
+                diffs = (r["vs_local"] if kind == "train" else
+                         dict(enumerate(r["steps_vs_local"])))
+                worst = max(diffs.values())
+                if not worst <= tol:
+                    misses.append(f"{where}: {diffs} beyond {tol}")
+                if kind == "train" and not (r["placed_as_specs"]
+                                            and r["finite"]):
+                    misses.append(f"{where}: parameters placed as specced "
+                                  f"{r['placed_as_specs']}, finite "
+                                  f"{r['finite']}")
+                if kind == "serve" and not r["tokens_equal"]:
+                    misses.append(f"{where}: greedy tokens differ")
+    return misses
+
+
+def mesh_numerics_phase():
+    """Phase 22: the sharded train steps of the layout faults' smallest
+    forms and a sharded serve, on four gloo ranks a mesh under this
+    machine's torch, each against the same run on plain tensors."""
+    t0 = time.perf_counter()
+    recs = mesh_numerics_child()
+    seconds = time.perf_counter() - t0
+    misses = mesh_numerics_misses(recs)
+    if misses:
+        raise AssertionError("phase mesh_numerics:\n" + "\n".join(misses))
+    rows = {f"{kind} {name} {tag}": (
+        max(r["vs_local"].values()) if kind == "train"
+        else max(r["steps_vs_local"]))
+        for tag, rec in recs.items() for kind in ("train", "serve")
+        for name, r in rec[kind].items()}
+    emit("mesh_numerics", torch=next(iter(recs.values()))["torch"],
+         backend="gloo", tol=MESH_NUMERICS_TOL, max_diff=rows,
+         records=recs, command_s=seconds, nvidia_smi=nvidia_smi())
 
 
 def main():
@@ -5278,6 +5595,7 @@ def main():
     train_lm_counts = lm_train_phase()
     mesh_lm_counts = lm_mesh_phase()
     dryrun_phase()
+    mesh_numerics_phase()
 
     # launches: the main paths together (slice, rect, train, trainer,
     # serve_trace, tune, plan_artifacts, sharded, sharded_train,

@@ -28,6 +28,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.parallel.act_sharding import (axis_sizes, carried,
                                                constrain, current_mesh,
+                                               grad_placed, take_rows,
                                                whole_groups)
 
 HUGE_WINDOW = 1 << 30
@@ -280,7 +281,7 @@ def _dtype(cfg: ModelConfig):
 def _embed(params, cfg: ModelConfig, tokens, img_embeds=None,
            prepend_meta=False):
     cdt = _dtype(cfg)
-    x = params["embed"][tokens].to(cdt)
+    x = take_rows(params["embed"], tokens).to(cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
                              dtype=torch.float32).to(cdt)
@@ -295,7 +296,7 @@ def _embed(params, cfg: ModelConfig, tokens, img_embeds=None,
 
 def _logits(params, cfg: ModelConfig, x):
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    w = (params["embed"].T if cfg.tie_embeddings
+    w = (grad_placed(params["embed"]).T if cfg.tie_embeddings
          else params["lm_head"]).to(x.dtype)
     logits = constrain((x @ w).float(), "logits")
     if cfg.softcap_final:

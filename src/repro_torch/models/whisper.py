@@ -17,7 +17,8 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.lm import (_dtype, _positions, _tree_index,
                                    _unstack, remat_call)
-from repro_torch.parallel.act_sharding import constrain, project_heads
+from repro_torch.parallel.act_sharding import (constrain, grad_placed,
+                                               project_heads, take_rows)
 
 
 def sinusoid_posemb(length: int, d: int, device=None):
@@ -118,7 +119,7 @@ def encode(params, cfg: ModelConfig, frames):
 
 def _dec_logits(params, cfg, x):
     x = L.apply_norm(x, params["dec_norm"], cfg.norm)
-    return (x @ params["embed"].T.to(x.dtype)).float()
+    return (x @ grad_placed(params["embed"]).T.to(x.dtype)).float()
 
 
 def decode_train(params, cfg: ModelConfig, enc_out, tokens):
@@ -126,7 +127,7 @@ def decode_train(params, cfg: ModelConfig, enc_out, tokens):
     cdt = _dtype(cfg)
     B, S = tokens.shape
     T = enc_out.shape[1]
-    x = params["embed"][tokens].to(cdt) \
+    x = take_rows(params["embed"], tokens).to(cdt) \
         + params["dec_posemb"][:S].to(cdt)[None]
     dpos = _positions(B, S, 0, tokens.device)
     epos = _positions(B, T, 0, tokens.device)
@@ -182,7 +183,7 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
     cdt = _dtype(cfg)
     B = tokens.shape[0]
     pos = int(pos)
-    x = params["embed"][tokens].to(cdt) \
+    x = take_rows(params["embed"], tokens).to(cdt) \
         + L.cache_slice(params["dec_posemb"], pos, 1, 0).to(cdt)[None]
     dev = tokens.device
     dpos = _positions(B, 1, pos, dev)

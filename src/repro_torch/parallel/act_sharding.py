@@ -145,17 +145,15 @@ def local_of(t, mesh, spec, partial_over=()):
     counts as replicated) and its local tensor taken.  Along the mesh
     dims of ``partial_over`` the ranks compute different parts of the
     body's output, so where the block is replicated along one its
-    gradient is a partial sum over those ranks (``grad_placements``)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    gradient is a partial sum over those ranks, reduced in the backward
+    (``_Block``)."""
+    from torch.distributed.tensor import Partial, Replicate
     places = placements(spec, mesh, t.ndim)
-    if not is_dtensor(t):
-        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
     names, sizes = axis_names(mesh), axis_sizes(mesh)
     grads = [Partial() if names[i] in partial_over and sizes[names[i]] > 1
              and isinstance(pl, Replicate) else pl
              for i, pl in enumerate(places)]
-    return t.redistribute(mesh, places).to_local(grad_placements=grads)
+    return _block(t, mesh, places, grads)
 
 
 def on_blocks(fn, x, dims):
@@ -180,13 +178,54 @@ def on_blocks(fn, x, dims):
 
 def _block(t, mesh, places, grads=None):
     """This rank's block of ``t`` (a plain tensor counts as replicated)
-    laid out as ``places``, differentiably (``grads``: the gradient's
-    placements, the block's by default)."""
+    laid out as ``places``, differentiably (``grads``: the placements of
+    the block's gradient, the block's by default; see ``_Block``)."""
     from torch.distributed.tensor import DTensor, Replicate
     if not is_dtensor(t):
         t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    return t.redistribute(mesh, places).to_local(grad_placements=grads)
+    grads = tuple(places if grads is None else grads)
+    if tuple(t.placements) == tuple(places) == grads:
+        return t.to_local()
+    return _Block.apply(t, tuple(places), grads)
+
+
+def _grad_layout(places) -> tuple:
+    """The layout of the gradient of a tensor laid out as ``places``: a
+    partial placement taken as replicated, as ``DTensor``'s own backward
+    takes it."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if pl.is_partial() else pl for pl in places)
+
+
+def _laid_out(t, places):
+    """The ``DTensor`` ``t`` redistributed to ``places`` where it is not
+    laid out so."""
+    if tuple(t.placements) == tuple(places):
+        return t
+    return t.redistribute(t.device_mesh, places)
+
+
+class _Block(torch.autograd.Function):
+    """The local block of the ``DTensor`` ``t`` laid out as ``places``.
+    Its gradient, a block laid out as ``grads`` (a partial sum along a
+    mesh dim whose ranks compute other parts of a per-rank body), is
+    reduced in the backward, explicitly, to ``t``'s own layout.  So no
+    partial sum leaves the body into ``DTensor``'s autograd, and no
+    backward asks a split gradient to become a partial sum, which torch
+    2.11's ``DTensor`` refuses (``redistribute from S(1) to P(sum) not
+    supported yet``)."""
+
+    @staticmethod
+    def forward(ctx, t, places, grads):
+        ctx.mesh, ctx.grads, ctx.shape = t.device_mesh, grads, t.shape
+        ctx.target = _grad_layout(t.placements)
+        return t.redistribute(t.device_mesh, places).to_local()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _laid_out(_placed(grad, ctx.mesh, ctx.grads, ctx.shape),
+                         ctx.target), None, None
 
 
 def _placed(block, mesh, places, shape):
@@ -277,6 +316,91 @@ def reduced(x):
     if places == list(x.placements):
         return x
     return x.redistribute(x.device_mesh, places)
+
+
+def grad_placed(t):
+    """``t`` itself, whose gradient is laid out as ``t`` (a partial sum
+    reduced, explicitly, to ``t``'s own layout) before it meets the
+    gradients of ``t``'s other uses: where a weight is used twice (a tied
+    embedding's lookup and logits), torch 2.11's ``DTensor`` would sum a
+    split gradient with a partial one by making the split one partial,
+    which it refuses.  A plain tensor is ``t``."""
+    if not is_dtensor(t):
+        return t
+    return _Constrained.apply(t, _grad_layout(t.placements))
+
+
+def take_rows(table, idx):
+    """``table[idx]``: the rows of ``table`` (rows, ...) at the integer
+    tensor ``idx``.  On a ``DTensor`` table each rank looks up its own
+    block of rows (``_TakeRows``), as the reference's GSPMD does a gather
+    from a row-split table: the table gathered only along the mesh dims
+    that split its other dims (FSDP), ``idx`` whole along those that split
+    its rows; a row a rank lacks reads 0 there, and the output, summed
+    over those dims, is laid out as ``idx``.  No ``DTensor`` index op runs
+    (torch 2.11's strategy for the backward's ``index_put`` raises, and
+    its strategy for the forward gathers the whole table)."""
+    if not is_dtensor(table):
+        return table[idx]
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(idx):
+        idx = DTensor.from_local(idx, table.device_mesh,
+                                 [Replicate()] * table.device_mesh.ndim,
+                                 run_check=False)
+    return _TakeRows.apply(table, idx)
+
+
+class _TakeRows(torch.autograd.Function):
+    """``take_rows`` on local blocks.  The backward adds each output row's
+    gradient into the rank's block of rows (``index_add_``): a partial sum
+    along the mesh dims that split ``idx`` (other ranks saw other
+    indices), reduced explicitly to the table's own layout (a
+    reduce-scatter where FSDP splits the table's other dims)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        mesh = table.device_mesh
+        rows = {i for i, pl in enumerate(table.placements)
+                if isinstance(pl, Shard) and pl.dim == 0}
+        t_places = tuple(pl if i in rows else Replicate()
+                         for i, pl in enumerate(table.placements))
+        out_places = tuple(pl if isinstance(pl, Shard) and i not in rows
+                           else Replicate()
+                           for i, pl in enumerate(idx.placements))
+        block = table.redistribute(mesh, t_places).to_local()
+        ids = idx.redistribute(mesh, out_places).to_local().long()
+        (n, *_), (lo, *_) = compute_local_shape_and_global_offset(
+            table.shape, mesh, t_places)
+        hit = (ids >= lo) & (ids < lo + n)
+        rel = torch.where(hit, ids - lo, 0)
+        mask = hit.reshape(*hit.shape, *(1,) * (block.ndim - 1))
+        out = torch.where(mask, block[rel], 0)
+        shape = (*idx.shape, *table.shape[1:])
+        out = _placed(out, mesh, tuple(Partial() if i in rows else pl
+                                       for i, pl in enumerate(out_places)),
+                      shape)
+        out = _laid_out(out, out_places)
+        ctx.save_for_backward(rel, mask)
+        ctx.mesh, ctx.out_places, ctx.block_shape = mesh, out_places, \
+            block.shape
+        ctx.table_shape = table.shape
+        ctx.grads = tuple(Partial() if isinstance(pl, Shard) else t_pl
+                          for pl, t_pl in zip(out_places, t_places))
+        ctx.target = _grad_layout(table.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        rel, mask = ctx.saved_tensors
+        g = _laid_out(grad, ctx.out_places).to_local()
+        g = torch.where(mask, g, 0).reshape(-1, *ctx.block_shape[1:])
+        rows = torch.zeros(ctx.block_shape, dtype=g.dtype, device=g.device)
+        rows.index_add_(0, rel.reshape(-1), g)
+        return _laid_out(_placed(rows, ctx.mesh, ctx.grads, ctx.table_shape),
+                         ctx.target), None
 
 
 def on_local_blocks(fn, args, roles, out_roles):
@@ -393,11 +517,14 @@ def split_heads(y, heads: int, dim: int = -1):
 def merge_heads(y, dim: int = -2):
     """``y`` with dimensions ``dim`` and ``dim + 1`` (heads, k) viewed as
     one of heads * k; on a ``DTensor``, laid out first by
-    ``whole_groups``, and so is its gradient before the backward's view."""
+    ``whole_groups`` with ``k`` whole (a weight's k may be split by FSDP,
+    and torch 2.11's ``DTensor`` cannot flatten two split dims), and so is
+    its gradient before the backward's view."""
     dim %= y.ndim
     if not is_dtensor(y):
         return y.flatten(dim, dim + 1)
-    return _MergeHeads.apply(whole_groups(y, y.shape[dim], dim), dim)
+    y = whole_groups(whole_groups(y, y.shape[dim], dim), 1, dim + 1)
+    return _MergeHeads.apply(y, dim)
 
 
 def repeat_heads(t, n: int, dim: int = 1):
@@ -520,7 +647,25 @@ def constrain(x, kind: str):
     want = placements(_spec(kind, x, mesh, dp, model_axis), mesh, x.ndim)
     if tuple(x.placements) == want:
         return x
-    return x.redistribute(mesh, want)
+    return _Constrained.apply(x, want)
+
+
+class _Constrained(torch.autograd.Function):
+    """``x`` laid out as ``places``, and so is its gradient: GSPMD's
+    sharding constraint binds the cotangent too, so a gradient does not
+    carry into the body before it a layout that ``DTensor`` chose after
+    it (torch 2.11's ``DTensor`` cannot flatten two split dims, as an
+    einsum's or a matmul's backward may ask of such a layout)."""
+
+    @staticmethod
+    def forward(ctx, x, places):
+        ctx.places = places
+        y = _laid_out(x, places)
+        return y.view_as(y) if y is x else y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _laid_out(grad, ctx.places), None
 
 
 def is_dtensor(x) -> bool:

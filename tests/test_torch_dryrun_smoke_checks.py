@@ -3,8 +3,9 @@ dry-runs at the small forms (phases 18-20's runs on a fake (1, 1) mesh,
 the two production cells on the fake (16, 16) one), held against phase
 records of the shape phases 18-20 emit, and each gate failing on a planted
 fault: a collective count off by one, another collective, a busy time
-under its bound, a production cell that failed, an EP trace short of its
-all-to-alls, a kernel launch."""
+under its bound, a production cell that failed (a decode or a train
+cell), an EP trace short of its all-to-alls, qwen3-14b's decode step
+moving more than ``DRYRUN_DECODE_BYTES`` a rank, a kernel launch."""
 import copy
 import importlib.util
 import pathlib
@@ -55,9 +56,12 @@ def test_child_passes_its_gates_on_the_host(child):
     for row in rows.values():
         assert row["bound_share"] == pytest.approx(0.5)
         assert row["peak_ratio"] == pytest.approx(0.5)
-    assert [(p["arch"], p["mesh"], p["status"]) for p in child["production"]
-            ] == [("qwen3-14b", "pod256", "ok"),
-                  ("deepseek-v2-lite-16b", "pod256__ep", "ok")]
+    assert [(p["arch"], p["shape"], p["mesh"], p["status"])
+            for p in child["production"]] == [
+        ("qwen3-14b", "decode_32k", "pod256", "ok"),
+        ("deepseek-v2-lite-16b", "decode_32k", "pod256__ep", "ok"),
+        ("hymba-1.5b", "train_4k", "pod256", "ok"),
+        ("whisper-small", "train_4k", "pod256", "ok")]
     assert all(p["lower_s"] > 0 for p in child["production"])
 
 
@@ -89,10 +93,25 @@ def test_each_gate_fails_on_a_planted_fault(child):
                             "mesh": "pod256", "status": "fail",
                             "error": "RuntimeError: planted"}
     fails(r=bad)
-    for i in (0, 1):
+    for i in range(len(child["production"])):
         bad = copy.deepcopy(child)
         bad["production"][i]["want_all_to_alls"] += 2
         fails(r=bad)
+    # a train cell failed; qwen3-14b's decode moving the card's 1.57 GB a
+    # rank (the gathered table), or just over the gate
+    for i in (2, 3):
+        bad = copy.deepcopy(child)
+        bad["production"][i] = dict(bad["production"][i], status="fail",
+                                    error="RuntimeError: planted")
+        fails(r=bad)
+    for moved in (1.57e9, smoke.DRYRUN_DECODE_BYTES * 1.01):
+        bad = copy.deepcopy(child)
+        bad["production"][0]["collectives"]["total_bytes"] = moved
+        fails(r=bad)
+    bad = copy.deepcopy(child)
+    bad["production"][0]["collectives"]["total_bytes"] = \
+        smoke.DRYRUN_DECODE_BYTES
+    smoke.check_dryrun(bad, smoke.dryrun_readings(bad, _phases(bad)))
     # a kernel launched
     bad = copy.deepcopy(child)
     bad["launches"] = dict(bad["launches"], cgemm=1)

@@ -140,7 +140,9 @@ def test_sharded_train_step_matches_local_and_reference(spawned, tag, fsdp):
 def test_layout_fault_forms_step_as_the_reference(spawned, name):
     """kv2, ssm6 and fsdp0 (``W.VARIANT_MESH``) raised in the port's
     sharded step before its repairs (``act_sharding.split_heads``/
-    ``merge_heads``, ``lm._unstack``)."""
+    ``merge_heads``, ``lm._unstack``); whisper, the embedding lookup
+    (``act_sharding.take_rows``), the tied logits (``grad_placed``) and
+    the flatten of two split dims (``constrain``) under torch 2.11."""
     ours, theirs = spawned
     tag = "x".join(map(str, W.VARIANT_MESH[name]))
     _check_step(ours[tag], f"variant/{name}/mesh", f"variant/{name}/local",

@@ -53,11 +53,22 @@ def qwen3_variant(get_config):
 #   ssm6: 6 SSM heads (d_inner 96) on a model axis of 4 (the x heads'
 #        reshape raised);
 #   fsdp0: a conv weight (8 units, 4, 2048) that the FSDP rule splits on
-#        its stacking dim over "data" (the units' unbind raised).
-VARIANT_MESH = {"kv2": (1, 4), "ssm6": (1, 4), "fsdp0": (2, 2)}
+#        its stacking dim over "data" (the units' unbind raised);
+#   whisper: whisper-small's small form at d_model 256 and 256 decoder
+#        positions, whose FSDP split of d_model (the tied embedding and
+#        the positions) laid the decoder's stream out split on its
+#        sequence and d_model, and an attention output's gradient split
+#        on (batch, sequence), which torch 2.11's ``DTensor`` cannot
+#        flatten.
+VARIANT_MESH = {"kv2": (1, 4), "ssm6": (1, 4), "fsdp0": (2, 2),
+                "whisper": (2, 2)}
 
 
 def variant(get_config, name):
+    if name == "whisper":
+        return dataclasses.replace(
+            get_config("whisper-small", smoke=True), dtype="float32",
+            d_model=256, head_dim=64, max_dec_len=256)
     if name == "kv2":
         return dataclasses.replace(qwen3_variant(get_config), n_kv=2,
                                    head_dim=128)
@@ -95,6 +106,18 @@ def batch_arrays(vocab):
     rng = np.random.default_rng(0)
     return {"tokens": rng.integers(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)),
             "labels": rng.integers(0, vocab, (TRAIN_BATCH, TRAIN_SEQ))}
+
+
+def variant_batch(cfg):
+    """A variant's train batch: ``batch_arrays``, or whisper's frames and
+    decoder tokens."""
+    if not cfg.encdec:
+        return batch_arrays(cfg.vocab)
+    rng = np.random.default_rng(0)
+    return {"frames": rng.standard_normal((TRAIN_BATCH, 24, cfg.d_model))
+            .astype(np.float32),
+            "tokens": rng.integers(0, cfg.vocab, (TRAIN_BATCH, 8)),
+            "labels": rng.integers(0, cfg.vocab, (TRAIN_BATCH, 8))}
 
 
 def flat(tree, keystr, leaves_with_path):
@@ -150,8 +173,7 @@ def jax_main(out_dir):
         pspec = JSH.named(mesh, JSH.param_specs(vcfg, p0, mesh, fsdp=True))
         ospec = {"mu": pspec, "nu": pspec, "step": JSH.named(mesh, JP())}
         bspec = JSH.named(mesh, JSH.batch_specs(vcfg, cell, mesh))
-        vbatch = {k: jnp.asarray(v)
-                  for k, v in batch_arrays(vcfg.vocab).items()}
+        vbatch = {k: jnp.asarray(v) for k, v in variant_batch(vcfg).items()}
         step = jax.jit(make_train_step(vcfg, opt_cfg, use_flash=True),
                        in_shardings=(pspec, ospec, bspec),
                        out_shardings=(pspec, ospec, None))
@@ -313,7 +335,7 @@ def torch_main(out_dir, rank, shape):
         vcfg = variant(get_config, name)
         vparams = torch.load(os.path.join(out_dir, f"{name}.pt"))
         vbatch = {k: torch.from_numpy(v)
-                  for k, v in batch_arrays(vcfg.vocab).items()}
+                  for k, v in variant_batch(vcfg).items()}
         if rank == 0:
             p_loc, o_loc, m_loc = make_train_step(
                 vcfg, AdamWConfig(**OPT), use_flash=True)(
