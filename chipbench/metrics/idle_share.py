@@ -1,0 +1,8 @@
+"""Idle share of the device: one minus the union of the device operations'
+intervals over the traced window's wall time, in %."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.ops:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
