@@ -64,6 +64,7 @@ import torch
 
 from repro_torch.conv import stages
 from repro_torch.conv.epilogue import ACTIVATIONS, activation_vjp, bias_grad
+from repro_torch.core.trace import span
 
 
 def _pipeline(plan):
@@ -161,28 +162,41 @@ def _grads(plan, k, x, z, dy, bias, residual, need):
     mesh."""
     need_x, need_k, need_bias, need_res = need
     ep = plan.epilogue
+    dx = dk = dbias = None
     if plan.mesh is None:
         # activation grad first: the conv-output cotangent dz drives all
-        dz = dy if z is None else activation_vjp(ep, z, dy)
-        return (
-            _dx_via_transposed_plan(plan, k, dz).to(x.dtype)
-            if need_x else None,
-            _dk_direct(plan, x, dz, k.dtype) if need_k else None,
-            bias_grad(dz).to(bias.dtype) if need_bias else None,
-            dz.to(residual.dtype) if need_res else None)
+        dz = dy
+        if z is not None:
+            with span("vjp/act"):
+                dz = activation_vjp(ep, z, dy)
+        if need_x:
+            with span("vjp/dx"):
+                dx = _dx_via_transposed_plan(plan, k, dz).to(x.dtype)
+        if need_k:
+            with span("vjp/dk"):
+                dk = _dk_direct(plan, x, dz, k.dtype)
+        if need_bias:
+            with span("vjp/dbias"):
+                dbias = bias_grad(dz).to(bias.dtype)
+        return dx, dk, dbias, dz.to(residual.dtype) if need_res else None
     sh = stages._shard(plan)
     # the rank's block of dz, zero-padded (padded rows and channels carry
     # zero cotangent), and dz as a DTensor placed like the output
     dzb = stages.output_block(plan, dy, sh)
     if z is not None:
-        dzb = activation_vjp(ep, stages.output_block(plan, z, sh), dzb)
+        with span("vjp/act"):
+            dzb = activation_vjp(ep, stages.output_block(plan, z, sh), dzb)
     dz = stages._global_output(plan, dzb, sh, dzb.dtype)
-    return (
-        _like(x, _dx_via_transposed_plan(plan, k, dz)) if need_x else None,
-        stages.grad_kernel(plan, x, dzb, sh, k.dtype) if need_k else None,
-        stages.grad_bias(plan, dzb, sh).to(bias.dtype)
-        if need_bias else None,
-        _like(residual, dz) if need_res else None)
+    if need_x:
+        with span("vjp/dx"):
+            dx = _like(x, _dx_via_transposed_plan(plan, k, dz))
+    if need_k:
+        with span("vjp/dk"):
+            dk = stages.grad_kernel(plan, x, dzb, sh, k.dtype)
+    if need_bias:
+        with span("vjp/dbias"):
+            dbias = stages.grad_bias(plan, dzb, sh).to(bias.dtype)
+    return dx, dk, dbias, _like(residual, dz) if need_res else None
 
 
 class _PipelineConv(torch.autograd.Function):

@@ -49,6 +49,7 @@ from repro_torch.conv import stages
 from repro_torch.conv.epilogue import apply_epilogue
 from repro_torch.conv.registry import register_backend, register_schedule
 from repro_torch.core import fftconv as F
+from repro_torch.core.trace import span
 
 
 def _cuda_cgemm_fn(plan):
@@ -63,10 +64,11 @@ def _tile_bias(bias, spec, like):
     """One bias scalar per output tile, in (B, C', X, Dl) order: the
     channel's bias broadcast over the tile indices (zeros without one)."""
     B, Co, X, Dl = spec.B, spec.Cout, spec.X, spec.D
-    b = bias if bias is not None else torch.zeros(
-        (Co,), dtype=like.dtype, device=like.device)
-    return b.to(like.dtype)[None, :, None, None].expand(
-        B, Co, X, Dl).reshape(-1).contiguous()
+    with span("copy/planes"):
+        b = bias if bias is not None else torch.zeros(
+            (Co,), dtype=like.dtype, device=like.device)
+        return b.to(like.dtype)[None, :, None, None].expand(
+            B, Co, X, Dl).reshape(-1).contiguous()
 
 
 def _cuda_fused_inverse(Zr, Zi, spec, epilogue, bias, *, tiles=None):

@@ -42,7 +42,7 @@ Every pipeline exposes the prepare/execute split:
   ``full(plan, x, k)``    the one-shot path: stage 2 inline.
 
 Stage-op invocations are counted when they run, through the thread-local
-context manager::
+context manager (``repro_torch.core.trace``, re-exported here)::
 
     with stage_trace() as counts:
         plan(x, k)
@@ -65,11 +65,8 @@ network's output into a plain tensor counts as ``"output_gather"``
 """
 from __future__ import annotations
 
-import collections
-import contextlib
 import dataclasses
 import functools
-import threading
 from typing import Any
 
 import torch
@@ -79,93 +76,10 @@ import torch.nn.functional as TF
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core import fftconv as F
 from repro_torch.core.cgemm import cgemm
+from repro_torch.core.trace import (  # noqa: F401  (re-exported)
+    _count, _tls, active_traces, counted_in, isolated_trace, span,
+    stage_trace)
 from repro_torch.conv.epilogue import Epilogue, apply_epilogue
-
-
-# --------------------------------------------------------------------------
-# Stage-op counters (thread-safe, context-managed)
-# --------------------------------------------------------------------------
-
-_tls = threading.local()                 # per-thread stack of active traces
-_open: set = set()                       # ids of the traces still active
-
-
-def _count(name, n: int = 1) -> None:
-    for counter in getattr(_tls, "stack", ()):
-        counter[name] += n
-
-
-@contextlib.contextmanager
-def stage_trace():
-    """Scoped, thread-local stage-op counter.
-
-    Counts only the stage ops run by *this* thread while the context is
-    active, so concurrent callers don't bleed into each other, and those
-    of the backward pass of a plan whose forward ran inside it, in
-    whatever thread autograd runs it (``counted_in``).  Nested traces each
-    observe the ops run inside them.
-    """
-    counts: collections.Counter = collections.Counter()
-    stack = _stack()
-    stack.append(counts)
-    _open.add(id(counts))
-    try:
-        yield counts
-    finally:
-        _open.discard(id(counts))
-        _remove(stack, counts)
-
-
-@contextlib.contextmanager
-def isolated_trace():
-    """A ``stage_trace`` that the traces already active in this thread do
-    not see: the static analyzer counts what a plan would run without it
-    counting as run."""
-    outer = _stack()
-    _tls.stack = []
-    try:
-        with stage_trace() as counts:
-            yield counts
-    finally:
-        _tls.stack = outer
-
-
-def _stack() -> list:
-    stack = getattr(_tls, "stack", None)
-    if stack is None:
-        stack = _tls.stack = []
-    return stack
-
-
-def _remove(stack, counts) -> None:
-    # remove by IDENTITY: two traces may hold equal contents
-    for i in range(len(stack) - 1, -1, -1):
-        if stack[i] is counts:
-            del stack[i]
-            break
-
-
-def active_traces() -> tuple:
-    """The traces this thread's stage ops count in now."""
-    return tuple(getattr(_tls, "stack", ()))
-
-
-@contextlib.contextmanager
-def counted_in(traces):
-    """Within the block this thread's stage ops count in ``traces`` too,
-    those of them still active and not counting here already.  Autograd
-    runs the backward pass of CUDA tensors in a thread of its own: the
-    plan-level VJP counts its ops in the traces that were active at the
-    forward (``active_traces()``) and still are."""
-    stack = _stack()
-    extra = [c for c in traces
-             if id(c) in _open and not any(c is t for t in stack)]
-    stack.extend(extra)
-    try:
-        yield
-    finally:
-        for c in extra:
-            _remove(stack, c)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -179,15 +93,17 @@ def _dtype_name(dtype: torch.dtype) -> str:
 def stage_input_transform(x, spec: ConvSpec, spectrum: str = "rect",
                           tile_rfft=None, tile_fft=None):
     _count("input_transform")
-    return F.input_transform(x, spec, spectrum=spectrum, tile_rfft=tile_rfft,
-                             tile_fft=tile_fft)
+    with span("stage/input"):
+        return F.input_transform(x, spec, spectrum=spectrum,
+                                 tile_rfft=tile_rfft, tile_fft=tile_fft)
 
 
 def stage_kernel_transform(k, spec: ConvSpec, spectrum: str = "rect",
                            tile_rfft=None, tile_fft=None):
     _count("kernel_transform")
-    return F.kernel_transform(k, spec, spectrum=spectrum,
-                              tile_rfft=tile_rfft, tile_fft=tile_fft)
+    with span("stage/kernel"):
+        return F.kernel_transform(k, spec, spectrum=spectrum,
+                                  tile_rfft=tile_rfft, tile_fft=tile_fft)
 
 
 def stage_cgemm(Dr, Di, Gr, Gi, *, three_m: bool, cgemm_fn=None):
@@ -200,7 +116,8 @@ def stage_cgemm(Dr, Di, Gr, Gi, *, three_m: bool, cgemm_fn=None):
             (int(Dr.shape[-2]), int(Gr.shape[-1]), int(Dr.shape[-1]))))
     mm = cgemm_fn if cgemm_fn is not None else functools.partial(
         cgemm, three_m=three_m)
-    return mm(Dr, Di, Gr, Gi)
+    with span("stage/cgemm"):
+        return mm(Dr, Di, Gr, Gi)
 
 
 def stage_output_inverse(Zr, Zi, spec: ConvSpec, *, epilogue: Epilogue = None,
@@ -219,12 +136,13 @@ def stage_output_inverse(Zr, Zi, spec: ConvSpec, *, epilogue: Epilogue = None,
     the epilogue.
     """
     _count("output_inverse")
-    if (inverse_fn is not None and epilogue is not None
-            and not epilogue.is_noop and not epilogue.residual):
-        return inverse_fn(Zr, Zi, spec, epilogue, bias)
-    y = F.output_inverse(Zr, Zi, spec, spectrum=spectrum,
-                         tile_irfft=tile_irfft, tile_ifft=tile_ifft)
-    return apply_epilogue(y, epilogue, bias=bias, residual=residual)
+    with span("stage/inverse"):
+        if (inverse_fn is not None and epilogue is not None
+                and not epilogue.is_noop and not epilogue.residual):
+            return inverse_fn(Zr, Zi, spec, epilogue, bias)
+        y = F.output_inverse(Zr, Zi, spec, spectrum=spectrum,
+                             tile_irfft=tile_irfft, tile_ifft=tile_ifft)
+        return apply_epilogue(y, epilogue, bias=bias, residual=residual)
 
 
 def _maybe_cast(pair, dtype):
@@ -378,11 +296,12 @@ def _pack(pair, n: int, dtype=None):
     through the CGEMM to stage 4, which drops them."""
     a, b = pair
     P = a.shape[0]
-    out = a.new_empty((2, P + (-P) % n) + tuple(a.shape[1:]),
-                      dtype=dtype or a.dtype)
-    out[0, :P] = a
-    out[1, :P] = b
-    out[:, P:] = 0
+    with span("copy/pack"):
+        out = a.new_empty((2, P + (-P) % n) + tuple(a.shape[1:]),
+                          dtype=dtype or a.dtype)
+        out[0, :P] = a
+        out[1, :P] = b
+        out[:, P:] = 0
     return out
 
 

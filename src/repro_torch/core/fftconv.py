@@ -27,6 +27,7 @@ from repro_torch.core.dft import (
     rfft2_tiles, irfft2_tiles, fft2_full_tiles, ifft2_full_tiles,
     pack_half_spectrum, unpack_half_spectrum,
 )
+from repro_torch.core.trace import span
 
 
 # --------------------------------------------------------------------------
@@ -136,7 +137,10 @@ def _tiles_to_spectrum(tiles, spec: ConvSpec, spectrum: str,
 def input_transform(x, spec: ConvSpec, *, dtype=torch.float32,
                     spectrum: str = "rect", tile_rfft=None, tile_fft=None):
     """Stage 1: I -> D (P, M, C) as (real, imag)."""
-    patches = extract_tiles(x.to(dtype), spec)         # (B, C, X, Dl, d, d)
+    with span("copy/tiles"):
+        patches = extract_tiles(x.to(dtype), spec)     # (B, C, X, Dl, d, d)
+        if tile_rfft is not None or tile_fft is not None:
+            patches = patches.contiguous()             # what a tile kernel reads
     Tr, Ti = _tiles_to_spectrum(patches, spec, spectrum, tile_rfft,
                                 tile_fft)
     P = Tr.shape[-1]                                   # == freq_count(...)
@@ -144,7 +148,8 @@ def input_transform(x, spec: ConvSpec, *, dtype=torch.float32,
     def to_pmc(T):                                     # (B, C, X, Dl, P)
         T = T.permute(4, 0, 2, 3, 1)                   # (P, B, X, Dl, C)
         return T.reshape(P, spec.M, spec.C).contiguous()
-    return to_pmc(Tr), to_pmc(Ti)
+    with span("copy/spectra"):
+        return to_pmc(Tr), to_pmc(Ti)
 
 
 # --------------------------------------------------------------------------
@@ -155,14 +160,16 @@ def kernel_transform(k, spec: ConvSpec, *, dtype=torch.float32,
                      spectrum: str = "rect", tile_rfft=None, tile_fft=None):
     """Stage 2: K -> G (P, C, C') as (real, imag); imag is conjugated."""
     d = spec.delta
-    kp = TF.pad(k.to(dtype), (0, d - spec.kw, 0, d - spec.kh))
+    with span("copy/kernel"):
+        kp = TF.pad(k.to(dtype), (0, d - spec.kw, 0, d - spec.kh))
     Tr, Ti = _tiles_to_spectrum(kp, spec, spectrum, tile_rfft,
                                 tile_fft)              # (C', C, P)
     P = Tr.shape[-1]                                   # == freq_count(...)
 
     def to_pcc(T):                                     # the kernels' layout
         return T.permute(2, 1, 0).reshape(P, spec.C, spec.Cout).contiguous()
-    return to_pcc(Tr), to_pcc(-Ti)                     # conj: F*(K)
+    with span("copy/kernel"):
+        return to_pcc(Tr), to_pcc(-Ti)                 # conj: F*(K)
 
 
 # --------------------------------------------------------------------------
@@ -181,7 +188,8 @@ def z_to_rect_planes(Z, spec: ConvSpec):
     output tile in (B, C', X, Dl) order: what the rect ``dft_tile`` inverse
     kernels read.  Rows past ``spec.P`` (padding) are dropped."""
     d, dh = spec.delta, spec.delta_h
-    return z_to_tiles(Z[:spec.P], spec).reshape(-1, d, dh).contiguous()
+    with span("copy/planes"):
+        return z_to_tiles(Z[:spec.P], spec).reshape(-1, d, dh).contiguous()
 
 
 def z_to_flat_tiles(Z, spec: ConvSpec, P: int):
@@ -198,16 +206,18 @@ def z_to_tile_planes(Z, spec: ConvSpec, P: int):
     """(P', M, C') flat frequency layout -> contiguous (n, P) planes, one
     row per output tile in (B, C', X, Dl) order: what the ``dft_tile``
     inverse kernels read."""
-    return z_to_flat_tiles(Z, spec, P).reshape(-1, P).contiguous()
+    with span("copy/planes"):
+        return z_to_flat_tiles(Z, spec, P).reshape(-1, P).contiguous()
 
 
 def assemble_output_tiles(y, spec: ConvSpec):
     """Inverse-transformed tiles (B, C', X, Dl, d, d) -> O (B, C', Ho, Wo)
     (overlap-save crop + spatial reassembly)."""
-    y = y[..., :spec.t_h, :spec.t_w]
-    y = y.permute(0, 1, 2, 4, 3, 5).reshape(
-        spec.B, spec.Cout, spec.X * spec.t_h, spec.D * spec.t_w)
-    return y[:, :, :spec.Ho, :spec.Wo]
+    with span("copy/assemble"):
+        y = y[..., :spec.t_h, :spec.t_w]
+        y = y.permute(0, 1, 2, 4, 3, 5).reshape(
+            spec.B, spec.Cout, spec.X * spec.t_h, spec.D * spec.t_w)
+        return y[:, :, :spec.Ho, :spec.Wo]
 
 
 def output_inverse(Zr, Zi, spec: ConvSpec, *, spectrum: str = "rect",

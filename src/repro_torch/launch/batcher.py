@@ -80,6 +80,7 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.core.trace import span
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import RankDecisions
 
@@ -244,11 +245,12 @@ class _EagerExecutor:
 
     def __call__(self, parts, rows):
         _check_rows(parts, self.x_shape)
-        if rows < self.x_shape[0]:
-            parts = parts + [parts[0].new_zeros(
-                (self.x_shape[0] - rows,) + self.x_shape[1:])]
-        x = parts[0] if len(parts) == 1 else torch.cat(parts)
-        with torch.inference_mode():
+        with span("serve/copy_in"):
+            if rows < self.x_shape[0]:
+                parts = parts + [parts[0].new_zeros(
+                    (self.x_shape[0] - rows,) + self.x_shape[1:])]
+            x = parts[0] if len(parts) == 1 else torch.cat(parts)
+        with torch.inference_mode(), span("serve/replay"):
             return self._forward(self._prepared, x)
 
 
@@ -290,13 +292,15 @@ class _GraphExecutor:
     def __call__(self, parts, rows):
         _check_rows(parts, self.x_shape)
         self.warm()
-        off = 0
-        for p in parts:
-            self.static_x[off:off + p.shape[0]].copy_(p)
-            off += p.shape[0]
-        if rows < self.x_shape[0]:
-            self.static_x[rows:].zero_()
-        self.graph.replay()
+        with span("serve/copy_in"):
+            off = 0
+            for p in parts:
+                self.static_x[off:off + p.shape[0]].copy_(p)
+                off += p.shape[0]
+            if rows < self.x_shape[0]:
+                self.static_x[rows:].zero_()
+        with span("serve/replay"):
+            self.graph.replay()
         self.replays += 1
         return self.static_y
 
@@ -665,10 +669,12 @@ class ServeEngine:
         takes rank 0's word: another rank's queue may hold requests)."""
         n = 0
         while True:
-            reqs = self._form_batch(force=force)
-            if reqs is None:
-                return n
-            self._run_batch(reqs)
+            with span("serve/batch"):
+                with span("serve/form"):
+                    reqs = self._form_batch(force=force)
+                if reqs is None:
+                    return n
+                self._run_batch(reqs)
             n += 1
             if not self._queue:
                 # nothing left to form; on a mesh every rank's queue is
@@ -695,14 +701,17 @@ class ServeEngine:
         ex = self._executor(key, replica)      # replan: builds here
         y = ex([r.x for r in reqs], rows)
         off = 0
-        for r in reqs:
-            if self._collect:
-                # a copy: a graph's output is overwritten by its next replay
-                self.results[r.rid] = y[off:off + r.rows].clone()
-                self.placements[r.rid] = (label, replica, off)
-            off += r.rows
+        with span("serve/copy_out"):
+            for r in reqs:
+                if self._collect:
+                    # a copy: a graph's output is overwritten by its next
+                    # replay
+                    self.results[r.rid] = y[off:off + r.rows].clone()
+                    self.placements[r.rid] = (label, replica, off)
+                off += r.rows
         if self.timing == "per-batch":
-            _sync(self.device)
+            with span("serve/sync"):
+                _sync(self.device)
         t1 = self._clock()
         self._replica_batches[replica] += 1
         self._t_last_done = t1

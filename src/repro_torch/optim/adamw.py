@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from repro_torch.core.trace import span
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -118,32 +120,33 @@ def _leaves_like(tree, n, what):
 def adamw_update(grads, state, params, cfg: AdamWConfig):
     """One AdamW step: returns ``(new_params, new_state, {"lr",
     "grad_norm"})``; nothing is updated in place."""
-    step = state["step"] + 1
-    lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    with span("optim/adamw"):
+        step = state["step"] + 1
+        lr = cosine_lr(cfg, step)
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
-    t = step.to(torch.float32)
-    bc1 = 1 - cfg.b1 ** t
-    bc2 = 1 - cfg.b2 ** t
+        t = step.to(torch.float32)
+        bc1 = 1 - cfg.b1 ** t
+        bc2 = 1 - cfg.b2 ** t
 
-    flat_p = tree_leaves(params)
-    n = len(flat_p)
-    flat_g = _leaves_like(grads, n, "grads")
-    flat_m = _leaves_like(state["mu"], n, "mu")
-    flat_v = _leaves_like(state["nu"], n, "nu")
-    new_p, mu, nu = [], [], []
-    for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
-        g = (g * scale).float()
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mh, vh = m / bc1, v / bc2
-        p_new = p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                          + cfg.weight_decay * p)
-        new_p.append(placed_like(p_new.to(p.dtype), p))
-        mu.append(placed_like(m, p))
-        nu.append(placed_like(v, p))
-    return (tree_unflatten(params, new_p),
-            {"mu": tree_unflatten(params, mu),
-             "nu": tree_unflatten(params, nu), "step": step},
-            {"lr": lr, "grad_norm": gnorm})
+        flat_p = tree_leaves(params)
+        n = len(flat_p)
+        flat_g = _leaves_like(grads, n, "grads")
+        flat_m = _leaves_like(state["mu"], n, "mu")
+        flat_v = _leaves_like(state["nu"], n, "nu")
+        new_p, mu, nu = [], [], []
+        for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
+            g = (g * scale).float()
+            m = cfg.b1 * m + (1 - cfg.b1) * g
+            v = cfg.b2 * v + (1 - cfg.b2) * g * g
+            mh, vh = m / bc1, v / bc2
+            p_new = p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                              + cfg.weight_decay * p)
+            new_p.append(placed_like(p_new.to(p.dtype), p))
+            mu.append(placed_like(m, p))
+            nu.append(placed_like(v, p))
+        return (tree_unflatten(params, new_p),
+                {"mu": tree_unflatten(params, mu),
+                 "nu": tree_unflatten(params, nu), "step": step},
+                {"lr": lr, "grad_norm": gnorm})
