@@ -15,7 +15,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               library call's and the least time the card could take
               (``bound_ms``); the tile DFTs' rows (forward and inverse)
               name the kernel form the wrapper launched (``form``, which
-              must be the specialised one at these shapes) and give the
+              must be the specialised one at these shapes, and for stage 1
+              of the forward tile DFT the image form: ``image_rfft_cuda``
+              on the card image, held to the plain composed stage 1 and
+              bit for bit to the tile form's composed stage 1) and give the
               achieved TB/s and the device time of the kernel and of the
               library call (``device_ms``, ``library_device_ms``: taken
               after every other timing, so these rows come out last); each
@@ -119,7 +122,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               per-slab shapes and pinned tile row against its plain
               version (``CGEMM_TOL``), and so is the CGEMM of each
               configuration's training forward and dx plans (phase 12's);
-              and the forward tile DFT (stages 1 and 2), the fused inverse
+              and the forward tile DFT (stage 1 in the image form on each
+              slab's image, stage 2), the fused inverse
               and the plain inverse at the tile counts each rank runs in
               those plans, slab by slab, against their plain versions
               (``FORWARD_TOL``, ``INVERSE_TOL``).  Reported, not gated: each
@@ -423,6 +427,8 @@ from repro_torch.conv.analyze import main as analyze_main  # noqa: E402
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core import fft_conv2d_pallas  # noqa: E402
 from repro_torch.core.dft import compact_layout, num_freq_real  # noqa: E402
+from repro_torch.core import fftconv as FC  # noqa: E402
+from repro_torch.core.conv_spec import ConvSpec  # noqa: E402
 from repro_torch.core.fftconv import freq_count  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     quickstart, serve_batcher, train_cnn_fftconv)
@@ -431,7 +437,7 @@ from repro_torch.kernels.cgemm import (  # noqa: E402
     cgemm_cuda, cgemm_ref, choose_variant, operand_variant,
     shape_for_blocks)
 from repro_torch.kernels.dft_tile import (  # noqa: E402
-    tile_fft_cuda, tile_fft_ref, tile_ifft_cuda, tile_ifft_epilogue_cuda,
+    image_rfft_cuda, tile_fft_cuda, tile_fft_ref, tile_ifft_cuda, tile_ifft_epilogue_cuda,
     tile_ifft_epilogue_ref, tile_ifft_ref, tile_irfft_cuda,
     tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, tile_irfft_ref,
     tile_rfft_cuda, tile_rfft_ref)
@@ -825,18 +831,20 @@ def device_ms(fn, reps=20):
     return device_profile(lambda: [fn() for _ in range(reps)])[1] / reps / 1e3
 
 
-def form_launch(wrapper, *args, **kw):
+def form_launch(wrapper, *args, want="specialised", counter=None, **kw):
     """One launch of a tile DFT wrapper at a main path's shape, which must
-    take the specialised form there: the wrapper's per-form count names
-    the form it launched, and an inverse's per-value count the tiles a
-    block it launched at (``tiles=``, else the default)."""
-    before = dict(wrapper.form_launches)
+    take the form ``want`` there (the specialised, or the image form of
+    stage 1): the per-form count of ``counter`` (the wrapper's own unless
+    given) names the form it launched, and an inverse's per-value count
+    the tiles a block it launched at (``tiles=``, else the default)."""
+    counter = counter or wrapper
+    before = dict(counter.form_launches)
     tiles_before = dict(getattr(wrapper, "tiles_launches", {}))
     out = wrapper(*args, **kw)
-    form = [f for f, c in wrapper.form_launches.items() if c != before[f]]
-    if form != ["specialised"]:
+    form = [f for f, c in counter.form_launches.items() if c != before[f]]
+    if form != [want]:
         raise AssertionError(f"{wrapper.__name__} launched form {form} on "
-                             f"{tuple(args[0].shape)}, not the specialised")
+                             f"{tuple(args[0].shape)}, not the {want}")
     if tiles_before:
         moved = [t for t, c in wrapper.tiles_launches.items()
                  if c != tiles_before[t]]
@@ -861,6 +869,11 @@ def device_calls(row, d=16):
     kernel, n = row["kernel"], row["shape"][0]
     dh = d // 2 + 1
     tiles = row.get("tiles")
+    if row.get("form") == "image":
+        spec = ConvSpec(**row["spec"])
+        x = torch.randn(tuple(row["image"]), device="cuda")
+        return (lambda: image_rfft_cuda(x, spec),
+                lambda: library_stage1(x, spec))
     if kernel in ("tile_rfft", "tile_fft"):
         x = torch.randn((n, d, d), device="cuda")
         if kernel == "tile_rfft":
@@ -914,15 +927,74 @@ def device_times(rows):
 
 
 def check_forward(layers, gen):
-    """The forward tile DFT at every stage-1 and every stage-2 tile count
-    of the served trunk (stage 2 runs in every prepare and, for the
-    forward's and the dx plan's kernels, twice a training step).  The
-    rows are emitted by ``device_times``."""
-    cases = [(name, "stage1", spec.B * spec.C * spec.X * spec.D)
-             for name, spec in layers]
-    cases += [(name, "stage2", spec.Cout * spec.C) for name, spec in layers]
-    return [forward_row(name, n, gen, stage=stage)
-            for name, stage, n in cases]
+    """The forward tile DFT at every stage 1 of the served trunk, in the
+    image form the main path runs there (``image_row``), and at every
+    stage-2 tile count in the tile form (stage 2 runs in every prepare
+    and, for the forward's and the dx plan's kernels, twice a training
+    step).  The rows are emitted by ``device_times``."""
+    rows = [image_row(name, spec, gen, stage="stage1")
+            for name, spec in layers]
+    return rows + [forward_row(name, spec.Cout * spec.C, gen, stage="stage2")
+                   for name, spec in layers]
+
+
+def library_stage1(x, spec, d=16):
+    """Stage 1 composed around the library's tile DFT: the pad and tile
+    copy, ``torch.fft.rfft2`` and the ``store`` gather, the permute."""
+    store = compact_layout(d, x.device)[0].long()
+
+    def rfft(t, delta):
+        Z = torch.fft.rfft2(t).reshape(t.shape[0], -1).index_select(1, store)
+        return Z.real, Z.imag
+    return FC.input_transform(x, spec, spectrum="real", tile_rfft=rfft)
+
+
+def image_row(name, spec, gen, d=16, **extra):
+    """Stage 1 in the image form (``image_rfft_cuda``: the tiles read from
+    a card image of ``spec``'s (B, C, H, W), the spectra written as the
+    (P, M, C) planes) against the plain composed stage 1 (the pad and tile
+    copy, ``tile_rfft_ref``, the permute), and bit for bit against the
+    composed stage 1 on the tile form, which the image form replaces;
+    timed beside the plain version and ``library_stage1``.  Its bound is
+    the image read once and the spectra written once.  The row is emitted
+    by ``device_times``."""
+    P = num_freq_real(d)
+    n = spec.M * spec.C
+    x = torch.randn((spec.B, spec.C, spec.H, spec.W), generator=gen,
+                    device="cuda")
+    (Dr, Di), form = form_launch(image_rfft_cuda, x, spec, want="image",
+                                 counter=tile_rfft_cuda)
+    Rr, Ri = FC.input_transform(x, spec, spectrum="real",
+                                tile_rfft=tile_rfft_ref)
+    Cr, Ci = FC.input_transform(x, spec, spectrum="real",
+                                tile_rfft=tile_rfft_cuda)
+    torch.cuda.synchronize()
+    err = max((Dr - Rr).abs().max().item(), (Di - Ri).abs().max().item())
+    scale = max(Rr.abs().max().item(), Ri.abs().max().item()) + 1e-9
+    if not err / scale <= FORWARD_TOL:
+        raise AssertionError(
+            f"image_rfft {name} {extra}: scaled error {err / scale:.3e} > "
+            f"{FORWARD_TOL}")
+    if not (torch.equal(Dr, Cr) and torch.equal(Di, Ci)):
+        raise AssertionError(f"image_rfft {name} {extra}: not bit for bit "
+                             f"the composed stage 1 on the tile form")
+    del Rr, Ri, Cr, Ci
+    ms = time_ms(lambda: image_rfft_cuda(x, spec))
+    plain_ms = time_ms(lambda: FC.input_transform(
+        x, spec, spectrum="real", tile_rfft=tile_rfft_ref))
+    library_ms = time_ms(lambda: library_stage1(x, spec))
+    dh = d // 2 + 1
+    nbytes = 4 * (x.numel() + 2 * n * P)
+    flops = n * (4 * d * d * dh + 8 * d * P)
+    b = bound(nbytes, flops, torch.float32)
+    return dict(kernel="tile_rfft", layer=name, shape=[n, d, P],
+                image=list(x.shape), spec=dataclasses.asdict(spec),
+                max_abs_err=err, scaled_err=err / scale,
+                equal_to_tile_form=True, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                library="pad + tile copy + torch.fft.rfft2 + index_select "
+                        "+ permute",
+                **form_fields(ms, form, b), **extra, **b)
 
 
 def forward_row(name, n, gen, d=16, **extra):
@@ -959,10 +1031,11 @@ def forward_row(name, n, gen, d=16, **extra):
 
 def dft_key(row):
     """What makes a compact tile DFT case: the kernel, the tile count, the
-    points a tile and the activation (None without one)."""
+    points a tile, the activation (None without one) and whether it is
+    the forward's image form."""
     n, a, b = row["shape"]
     return (row["kernel"], n, b if row["kernel"] == "tile_rfft" else a,
-            row.get("activation"))
+            row.get("activation"), row.get("form") == "image")
 
 
 def plain_inverse_row(name, n, P, gen, d=16, **extra):
@@ -2539,7 +2612,7 @@ def check_slab_dft(mesh, convs, gen, checked):
                                         or plan.replicate_kernel_transform)
         cases = [("tile_rfft", spec.Cout * spec.C // (1 if whole else n),
                   None, "stage2", None)]
-        for b in slabs:
+        for b in slabs:           # stage 1 in the image form
             cases.append(("tile_rfft", b * spec.C // n * tiles, None,
                           "stage1", b))
             cases.append((
@@ -2548,13 +2621,17 @@ def check_slab_dft(mesh, convs, gen, checked):
                 {"dx": None, "train": "none", "served": "relu"}[role],
                 "stage4", b))
         for kernel, count, act, stage, b in cases:
-            key = (kernel, count, P, act)
+            key = (kernel, count, P, act, stage == "stage1")
             if key in checked:
                 continue
             checked.add(key)
             extra = dict(schedule=schedule, overlap=overlap, role=role,
                          slab_batch=b, dx_plan=role == "dx")
-            if kernel == "tile_rfft":
+            if stage == "stage1":
+                rows.append(image_row(name, stages._local_spec(
+                    spec, b, spec.C // n, spec.Cout), gen, stage=stage,
+                    **extra))
+            elif kernel == "tile_rfft":
                 rows.append(forward_row(name, count, gen, stage=stage,
                                         **extra))
             elif kernel == "tile_irfft":

@@ -18,8 +18,10 @@ Backends:
   fft-cuda   the same stage graph on the hand-written CUDA kernels: the
              hot CGEMM (``kernels/cgemm``) on every spectrum, and with
              the ``real`` spectrum, on every schedule, the ``dft_tile``
-             kernels for the tile transforms — stages 1 and 2 through the
-             forward tile DFT, stage 4 through the inverse with a
+             kernels for the tile transforms — stage 1 through the
+             forward tile DFT's image form (the tiles read from the image,
+             the spectra written in the CGEMM's layout: one pass), stage 2
+             through its tile form, stage 4 through the inverse with a
              bias/activation epilogue fused into its tail (the inverse never
              round-trips to device memory before the elementwise pass), or
              through the plain inverse followed by the epilogue when there
@@ -128,15 +130,19 @@ def _fft_cuda_pipeline(plan):
     if plan.spectrum == "real":
         # the dft_tile kernels read and write the compact layout; the
         # full-spectrum twin takes the composed stage ops.  Both inverses
-        # run at the plan's dft_bt tiles a block.
+        # run at the plan's dft_bt tiles a block; stage 1's image form
+        # runs only the specialised tile.
         from repro_torch.kernels.dft_tile import (
-            tile_irfft_cuda, tile_rfft_cuda)
+            image_rfft_cuda, tile_irfft_cuda, tile_rfft_cuda)
+        from repro_torch.kernels.dft_tile.ops import SPECIALISED_DELTA
         hooks = dict(
             inverse_fn=functools.partial(_cuda_fused_inverse_real,
                                          tiles=plan.dft_bt),
             tile_rfft=tile_rfft_cuda,
             tile_irfft=functools.partial(tile_irfft_cuda,
-                                         tiles=plan.dft_bt))
+                                         tiles=plan.dft_bt),
+            image_rfft=(image_rfft_cuda
+                        if plan.spec.delta == SPECIALISED_DELTA else None))
     return stages.pipeline_for(plan.schedule,
                                cgemm_fn=_cuda_cgemm_fn(plan), **hooks)
 

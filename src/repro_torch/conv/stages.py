@@ -25,8 +25,11 @@ it on each rank's C'/N output slab with the operands taken in blocks
 (zero extra collectives).  Backends may hand the pipeline tile kernels
 for the compact ``real`` layout (the CUDA ``dft_tile`` kernels):
 ``tile_rfft`` for the tile transforms of stages 1 and 2, ``tile_irfft``
-for an unfused stage 4, and a fused ``inverse_fn`` that runs the bias and
-activation inside the inverse transform.  The stage ops also take the
+for an unfused stage 4, a fused ``inverse_fn`` that runs the bias and
+activation inside the inverse transform, and ``image_rfft``, stage 1 in
+one kernel pass from the image to the (P, M, C) spectra (no tile copy, no
+permute; ``fftconv.input_transform`` says where it applies, and
+``tile_rfft`` runs stage 1 elsewhere).  The stage ops also take the
 ``rect`` layout's kernels, ``tile_fft`` and ``tile_ifft``, for direct
 callers of that layout (no plan uses it).
 
@@ -91,11 +94,12 @@ def _dtype_name(dtype: torch.dtype) -> str:
 # --------------------------------------------------------------------------
 
 def stage_input_transform(x, spec: ConvSpec, spectrum: str = "rect",
-                          tile_rfft=None, tile_fft=None):
+                          tile_rfft=None, tile_fft=None, image_rfft=None):
     _count("input_transform")
     with span("stage/input"):
         return F.input_transform(x, spec, spectrum=spectrum,
-                                 tile_rfft=tile_rfft, tile_fft=tile_fft)
+                                 tile_rfft=tile_rfft, tile_fft=tile_fft,
+                                 image_rfft=image_rfft)
 
 
 def stage_kernel_transform(k, spec: ConvSpec, spectrum: str = "rect",
@@ -160,14 +164,15 @@ class LocalPipeline:
     fused into stage 4; ``inverse_fn`` (CUDA backend) fuses it into the
     tile-inverse kernel tail itself.  ``tile_rfft`` / ``tile_irfft``
     (CUDA backend) run the tile transforms of stages 1, 2 and the unfused
-    stage 4."""
+    stage 4, and ``image_rfft`` stage 1 in one pass where it applies."""
 
     def __init__(self, cgemm_fn=None, inverse_fn=None, tile_rfft=None,
-                 tile_irfft=None):
+                 tile_irfft=None, image_rfft=None):
         self.cgemm_fn = cgemm_fn
         self.inverse_fn = inverse_fn
         self.tile_rfft = tile_rfft
         self.tile_irfft = tile_irfft
+        self.image_rfft = image_rfft
 
     def prepare(self, plan, k):
         return stage_kernel_transform(k, plan.spec, plan.spectrum,
@@ -176,7 +181,8 @@ class LocalPipeline:
     def execute(self, plan, x, G, bias=None, residual=None):
         spec = plan.spec
         Dr, Di = stage_input_transform(x, spec, plan.spectrum,
-                                       self.tile_rfft)
+                                       self.tile_rfft,
+                                       image_rfft=self.image_rfft)
         Gr, Gi = G
         Dr, Di = _maybe_cast((Dr, Di), plan.compute_dtype)
         Gr, Gi = _maybe_cast((Gr, Gi), plan.compute_dtype)
@@ -537,11 +543,12 @@ class _ShardedPipeline:
     operands (or the input as a ``DTensor`` placed like the output)."""
 
     def __init__(self, cgemm_fn=None, inverse_fn=None, tile_rfft=None,
-                 tile_irfft=None):
+                 tile_irfft=None, image_rfft=None):
         self.cgemm_fn = cgemm_fn
         self.inverse_fn = inverse_fn
         self.tile_rfft = tile_rfft
         self.tile_irfft = tile_irfft
+        self.image_rfft = image_rfft
 
     def execute(self, plan, x, G, bias=None, residual=None):
         return self._run(plan, x, bias, residual, G=G)
@@ -636,7 +643,8 @@ class NfftPipeline(_ShardedPipeline):
 
     def _stage1_and_boundary1(self, x, plan, spec, sh):
         sp1 = _local_spec(spec, x.shape[0], x.shape[1], spec.Cout)
-        D = stage_input_transform(x, sp1, plan.spectrum, self.tile_rfft)
+        D = stage_input_transform(x, sp1, plan.spectrum, self.tile_rfft,
+                                  image_rfft=self.image_rfft)
         # Boundary a2a #1 (tuple partitioning): (P, M, C/N) -> (P/N, M, C)
         return _boundary_a2a(_pack(D, sh.n_model, plan.compute_dtype),
                              sh.group, 0, 2, sh.n_model)
@@ -697,8 +705,8 @@ class WfftPipeline(_ShardedPipeline):
         """Stage 1 + the partial (C-sharded contraction) CGEMM of one
         slab, and its all-reduce issued; G enters already cast."""
         sp1 = _local_spec(spec, x.shape[0], x.shape[1], spec.Cout)
-        Dr, Di = stage_input_transform(x, sp1, plan.spectrum,
-                                       self.tile_rfft)   # (P, M, C/N)
+        Dr, Di = stage_input_transform(                # (P, M, C/N)
+            x, sp1, plan.spectrum, self.tile_rfft, image_rfft=self.image_rfft)
         Dr, Di = _maybe_cast((Dr, Di), plan.compute_dtype)
         Z = stage_cgemm(Dr, Di, Gr, Gi, three_m=plan.three_m,
                         cgemm_fn=self.cgemm_fn)       # partial sums
@@ -721,5 +729,6 @@ PIPELINES = {"local": LocalPipeline, "nfft": NfftPipeline,
 
 
 def pipeline_for(schedule: str, cgemm_fn=None, inverse_fn=None,
-                 tile_rfft=None, tile_irfft=None):
-    return PIPELINES[schedule](cgemm_fn, inverse_fn, tile_rfft, tile_irfft)
+                 tile_rfft=None, tile_irfft=None, image_rfft=None):
+    return PIPELINES[schedule](cgemm_fn, inverse_fn, tile_rfft, tile_irfft,
+                               image_rfft)

@@ -108,7 +108,8 @@ def _tiles_to_spectrum(tiles, spec: ConvSpec, spectrum: str,
     matmuls (and the gather): ``tile_rfft`` (the ``spectrum="real"``
     layout only) ``(tiles (n, delta, delta), delta=) -> two (n, P_real)
     planes``; ``tile_fft`` (``spectrum="rect"`` only) ``(tiles, delta=) ->
-    two (n, delta, delta//2 + 1) planes``.
+    two (n, delta, delta//2 + 1) planes``.  Stage 2 runs this way, and
+    stage 1 where ``input_transform`` has no ``image_rfft`` to take.
     """
     if tile_rfft is not None and spectrum != "real":
         raise ValueError(f"a tile_rfft kernel computes the compact 'real' "
@@ -135,8 +136,21 @@ def _tiles_to_spectrum(tiles, spec: ConvSpec, spectrum: str,
 
 
 def input_transform(x, spec: ConvSpec, *, dtype=torch.float32,
-                    spectrum: str = "rect", tile_rfft=None, tile_fft=None):
-    """Stage 1: I -> D (P, M, C) as (real, imag)."""
+                    spectrum: str = "rect", tile_rfft=None, tile_fft=None,
+                    image_rfft=None):
+    """Stage 1: I -> D (P, M, C) as (real, imag).
+
+    ``image_rfft`` ``(x (B, C, H, W), spec) -> D`` is stage 1 in one pass:
+    a kernel that reads the tiles from the image and writes the spectra in
+    the (P, M, C) layout.  It computes the compact layout from a float32
+    image (its backend hands it only to plans whose tiles it takes), and
+    runs where those hold; anything else takes the composed path: the
+    padded tiles (made contiguous for a tile kernel), their spectra
+    (``_tiles_to_spectrum``), the permute to (P, M, C).
+    """
+    if (image_rfft is not None and spectrum == "real"
+            and x.dtype == dtype == torch.float32):
+        return image_rfft(x, spec)
     with span("copy/tiles"):
         patches = extract_tiles(x.to(dtype), spec)     # (B, C, X, Dl, d, d)
         if tile_rfft is not None or tile_fft is not None:

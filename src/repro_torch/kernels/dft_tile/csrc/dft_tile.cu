@@ -1,8 +1,11 @@
 // Tile DFTs for Hopper (sm_90a): stages 1, 2 and 4 of FFT convolution, on
-// the compact spectrum="real" layout and on the rect rfft2 grid.  Six entry
+// the compact spectrum="real" layout and on the rect rfft2 grid.  Seven entry
 // points:
 //
 //   tile_rfft_f32             forward tile DFT + compact gather (stages 1, 2)
+//   tile_rfft_image_f32       stage 1 in one pass: the tiles read from the
+//                             NCHW image, the compact spectra written as
+//                             the CGEMM's (P, M, C) planes
 //   tile_irfft_f32            compact scatter + inverse tile DFT (stage 4)
 //   tile_irfft_epilogue_f32   the same inverse with bias + activation fused
 //   tile_fft_f32              forward tile DFT on the rect grid
@@ -36,6 +39,15 @@
 //     tile, B and the tile in per-warp shared buffers.  The launcher refuses
 //     a form it cannot run (the specialised one on other deltas or on
 //     misaligned planes): no silent fallback.
+// The specialised kernel has a third instantiation, the image form
+// (rfwd16_kernel<true, true>, entry tile_rfft_image_f32): stage 1 of a
+// conv without the tile copy before it or the permute after it.  It reads
+// each tile straight from the (B, C, H, W) input, any strides, zeros past
+// the image's edges (the overlap-save padding), and writes tile t = (m, c)
+// of the conv's M x C tiles to column t of the (P_real, M*C) planes, the
+// (P, M, C) layout the CGEMM reads.  The arithmetic is the specialised
+// form's, operation for operation: its spectra equal the composed path's
+// (pad, tile copy, tile_rfft_f32, permute) bit for bit.
 //
 // Replaces: src/repro/kernels/dft_tile/kernel.py:_rfwd_kernel (compact,
 // wrapped there by dft_tile/ops.py:tile_rfft_pallas) and :_fwd_kernel
@@ -43,7 +55,9 @@
 //
 // Bound on an H100.  Per 16x16 tile the compact form reads 1,024 B and
 // writes 2 x 130 floats (1,040 B); the rect form writes 2 x 144 floats
-// (1,152 B).  The specialised form does about 8.2k FMAs a tile (16 kFLOP,
+// (1,152 B); the image form reads the image once (t_h x t_w of a tile's
+// 256 points are its own, the overlap its neighbours', from L2) and writes
+// 1,040 B a tile.  The specialised form does about 8.2k FMAs a tile (16 kFLOP,
 // 8 per byte), under the card's float32 ridge of 20 (67 TFLOP/s / 3.35
 // TB/s), so it is bound by bytes: stage 1 of a served VGG forward at
 // 224x224, batch 4 (156,672 tiles, 323 MB compact, 341 MB rect) is bounded
@@ -249,6 +263,25 @@ __global__ void __launch_bounds__(kWarps * 32)
 //    16-byte (rect) or 8-byte (compact) stores.
 // About 8.2k FMAs a tile (4.1k a stage), 2 barriers a block, and per tile 4
 // 16-byte shared stores and 16 8-byte loads for the transpose.
+//
+// The image form (kImage) changes only the load and the store; stages 1
+// and 2 are the lines above, so its spectra are the other forms' bit for
+// bit.
+//  Load: the tiles' rows lie anywhere in the image and off 16 bytes (t_w is
+//    14 or 12), so the block loads them together: thread (q, 0) finds tile
+//    t0 + q = (m, c), m = (b, xi, dl), its origin, row xi*t_h - pad_h and
+//    column dl*t_w - pad_w, and that point's offset; then in 16 steps of
+//    half a tile the block loads the 8 tiles, a thread a point, 16 lanes a
+//    row (runs of 64 B along w), every load issued before the first store
+//    to shared; a point off the image reads 0.0f (what the pad gave the
+//    tile copy).  The points go to the rows of sb that stage 1 then reads
+//    in 16-byte loads, and each thread's B row overwrites its own tile row.
+//  Store: tile t of the conv is column t of each (P, M*C) plane, so for
+//    each point p the block's 8 tiles are one run of 32 B at p*M*C + t0; a
+//    warp stores 4 points' runs, reading sor/soi across tiles.
+// One barrier a block more than the other forms (the tile origins).  At
+// 16 tiles a block (64-byte runs) stage 1 of the Table-I sweep at batch 64
+// took 2.83 ms against 2.80 at 8 on an H100: it does not pay.
 constexpr int kD16 = 16;
 constexpr int kDh16 = kD16 / 2 + 1;
 constexpr int kTiles16 = 8;                       // tiles per block,
@@ -262,6 +295,17 @@ constexpr int kTile16 = kD16 * kRow16 + 16;  // 336 = 16 mod 32: two tiles'
 struct Tables16 {              // F_half = F[0:9], row-major, float32
   float re[kDh16][kD16];
   float im[kDh16][kD16];
+};
+
+// Where the image form finds its tiles: the input's strides (in floats)
+// and extents, the tile grid, the tile steps (valid outputs a tile) and
+// the padding.  Unread by the other instantiations.
+struct Image16 {
+  long long sb, sc, sh, sw;
+  int C, H, W;
+  int X, Dl;
+  int th, tw;
+  int ph, pw;
 };
 
 // Index of rect point (u, v) in the compact layout at delta 16
@@ -318,11 +362,12 @@ __device__ __forceinline__ void unit16(const Tables16& tab,
   }
 }
 
-template <bool kGather>
+template <bool kGather, bool kImage = false>
 __global__ void __launch_bounds__(kThreads16)
     rfwd16_kernel(const float* __restrict__ x, float* __restrict__ tr,
                   float* __restrict__ ti,
-                  const __grid_constant__ Tables16 tab, long long n) {
+                  const __grid_constant__ Tables16 tab, long long n,
+                  const __grid_constant__ Image16 img) {
   constexpr int P = kGather ? 130 : kD16 * kDh16;
   constexpr int V = P % 4 == 0 ? 4 : 2;          // floats per vector store
   __shared__ __align__(16) float sb[kTiles16 * kTile16];
@@ -339,7 +384,60 @@ __global__ void __launch_bounds__(kThreads16)
 
   // stage 1: B[h][v], v = 0..8 real parts, v = 1..7 imaginary parts
   float xr[kD16];
-  if (t0 + q1 < n) {
+  if constexpr (kImage) {
+    // each tile's origin (row, column) in the image and the offset of its
+    // point (0, 0) from x; a tile past n lies below the image
+    __shared__ long long org[kTiles16];
+    __shared__ int2 rc0[kTiles16];
+    if (h == 0) {
+      const long long t = t0 + q1;
+      int r0 = img.H, c0 = 0;
+      long long off = 0;
+      if (t < n) {
+        const long long m = t / img.C;
+        const long long bx = m / img.Dl;
+        const long long b = bx / img.X;
+        r0 = (int)(bx - b * img.X) * img.th - img.ph;
+        c0 = (int)(m - bx * img.Dl) * img.tw - img.pw;
+        off = b * img.sb + (t - m * img.C) * img.sc + r0 * img.sh +
+              c0 * img.sw;
+      }
+      org[q1] = off;
+      rc0[q1] = make_int2(r0, c0);
+    }
+    __syncthreads();
+    // kSteps steps of kRows rows of one tile, a thread a point, 16 lanes a
+    // row; every load is issued before the first store to sb
+    constexpr int kRows = kThreads16 / kD16;
+    constexpr int kSteps = kTiles16 * kD16 / kRows;
+    const int w = threadIdx.x % kD16, r = threadIdx.x / kD16;
+    const long long o = r * img.sh + w * img.sw;
+    float v[kSteps];
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int q = st * kRows / kD16, h0 = st * kRows % kD16;
+      const int2 p0 = rc0[q];
+      const bool in = (unsigned)(p0.x + h0 + r) < (unsigned)img.H &&
+                      (unsigned)(p0.y + w) < (unsigned)img.W;
+      v[st] = in ? __ldg(x + org[q] + h0 * img.sh + o) : 0.f;
+    }
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int q = st * kRows / kD16, h0 = st * kRows % kD16;
+      sb[q * kTile16 + (h0 + r) * kRow16 + w] = v[st];
+    }
+    __syncthreads();
+    const float4* row =
+        reinterpret_cast<const float4*>(sb + q1 * kTile16 + h * kRow16);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 v = row[k];
+      xr[4 * k] = v.x;
+      xr[4 * k + 1] = v.y;
+      xr[4 * k + 2] = v.z;
+      xr[4 * k + 3] = v.w;
+    }
+  } else if (t0 + q1 < n) {
     const float4* row =
         reinterpret_cast<const float4*>(x + (t0 + q1) * kD16 * kD16) + h * 4;
 #pragma unroll
@@ -403,6 +501,18 @@ __global__ void __launch_bounds__(kThreads16)
   }
   __syncthreads();
 
+  if constexpr (kImage) {
+    // tile t is column t of the (P, n) planes: the block's tiles are one
+    // run a point, 16 points a step
+    const int q = threadIdx.x % kTiles16;
+    if (t0 + q < n)
+      for (int p = threadIdx.x / kTiles16; p < P;
+           p += kThreads16 / kTiles16) {
+        tr[p * n + t0 + q] = sor[q * P + p];
+        ti[p * n + t0 + q] = soi[q * P + p];
+      }
+    return;
+  }
   // the block's rows are consecutive in each plane
   const long long left = n - t0;
   const int tiles = left < kTiles16 ? (int)left : kTiles16;
@@ -843,7 +953,30 @@ int launch_rfwd16(const void* x, void* tr, void* ti, const void* tables,
   memcpy(&tab, tables, sizeof tab);
   rfwd16_kernel<kGather><<<(unsigned)blocks, kThreads16, 0, stream>>>(
       static_cast<const float*>(x), static_cast<float*>(tr),
-      static_cast<float*>(ti), tab, n);
+      static_cast<float*>(ti), tab, n, Image16{});
+  return (int)cudaGetLastError();
+}
+
+// Stage 1 in the image form: the B x C x H x W input at x (strides in
+// floats) -> the (P_real, M*C) planes tr, ti, M = B * X * Dl tiles of
+// steps th x tw from padding (ph, pw); F_half from the host table.
+int launch_rfwd16_image(const void* x, void* tr, void* ti, int B,
+                        const Image16& img, const void* tables,
+                        cudaStream_t stream) {
+  if (tables == nullptr || B <= 0 || img.C <= 0 || img.H <= 0 ||
+      img.W <= 0 || img.X <= 0 || img.Dl <= 0 || img.th <= 0 ||
+      img.tw <= 0 || img.ph < 0 || img.pw < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * img.X * img.Dl * img.C;
+  // one block per 8 tiles, as the specialised form: no loop
+  const long long blocks = (n + kTiles16 - 1) / kTiles16;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaGetLastError();  // start from a clean error state
+  Tables16 tab;
+  memcpy(&tab, tables, sizeof tab);
+  rfwd16_kernel<true, true><<<(unsigned)blocks, kThreads16, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<float*>(tr),
+      static_cast<float*>(ti), tab, n, img);
   return (int)cudaGetLastError();
 }
 
@@ -988,6 +1121,16 @@ extern "C" int tile_rfft_f32(const void* x, void* tr, void* ti,
                              void* stream) {
   return launch_forward<true>(x, tr, ti, fr, fi, fhr, fhi, store, n, P, delta,
                               form, tables, stream);
+}
+
+extern "C" int tile_rfft_image_f32(const void* x, void* tr, void* ti,
+                                   long long sb, long long sc, long long sh,
+                                   long long sw, int B, int C, int H, int W,
+                                   int X, int Dl, int th, int tw, int ph,
+                                   int pw, const void* tables, void* stream) {
+  const Image16 img{sb, sc, sh, sw, C, H, W, X, Dl, th, tw, ph, pw};
+  return launch_rfwd16_image(x, tr, ti, B, img, tables,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tile_irfft_f32(const void* zr, const void* zi, void* y,

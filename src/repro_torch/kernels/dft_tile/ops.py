@@ -4,6 +4,9 @@ convolution).
 On the compact ``spectrum="real"`` layout, the one ``fft-cuda`` plans run:
 
 - ``tile_rfft_cuda``: forward tile DFT + compact gather (stages 1 and 2).
+- ``image_rfft_cuda``: stage 1 in one pass at delta 16, the same kernel
+  reading its tiles from the (B, C, H, W) image and writing the CGEMM's
+  (P, M, C) planes: no tile copy before it, no permute after it.
 - ``tile_irfft_cuda``: compact scatter + inverse tile DFT (stage 4 with no
   fusable epilogue: the dx plans of training, residual epilogues).
 - ``tile_irfft_epilogue_cuda``: the same inverse with bias + activation
@@ -25,15 +28,19 @@ analyzer's, ``repro_torch.fake``) gets fake outputs of the plain
 version's shapes and dtypes once the contract is checked: nothing is
 built, launched or counted.
 
-The forward kernel has two forms, and ``choose_form`` picks one from the
-tile size and the tile tensor's alignment: ``specialised`` (delta 16, the
-tile of every plan path: rows and columns in registers, the DFT table
-passed by value to the launch, 16-byte row loads) and ``generic`` (any
-delta <= 32, or tiles whose data pointer is off 16 bytes).  The inverse
-kernel has the same two forms, and ``choose_inverse_form`` picks one from
-the tile size, the planes' and the output's alignment and the row stride:
-``specialised`` (delta 16: columns and then rows in registers, Finv and W
-by value, the compact scatter compiled in) and ``generic``.  The form only
+The forward kernel has two forms on a tile batch, and ``choose_form``
+picks one from the tile size and the tile tensor's alignment:
+``specialised`` (delta 16, the tile of every plan path: rows and columns
+in registers, the DFT table passed by value to the launch, 16-byte row
+loads) and ``generic`` (any delta <= 32, or tiles whose data pointer is
+off 16 bytes).  A third, ``image``, is the specialised form reading the
+image's tiles in place: ``image_rfft_cuda`` launches it, on any strides,
+and counts it as ``tile_rfft_cuda``'s (``form_launches["image"]``).  The
+inverse kernel has the same two forms, and ``choose_inverse_form`` picks
+one from the tile size, the planes' and the output's alignment and the
+row stride: ``specialised`` (delta 16: columns and then rows in
+registers, Finv and W by value, the compact scatter compiled in) and
+``generic``.  The form only
 changes the kernel: a CUDA tensor never falls back to the plain version.
 Each wrapper counts its launches by form in ``<wrapper>.form_launches``.
 
@@ -53,7 +60,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.dft import compact_layout, dft_mats, num_freq_real
+from repro_torch.core.fftconv import input_transform
 from repro_torch.fake import constant_cache, is_fake
 from repro_torch.kernels import _build
 from repro_torch.kernels.dft_tile.ref import (
@@ -80,6 +89,10 @@ _ARGTYPES = {
     # tiles, tables, stream
     "tile_irfft_epilogue_f32": [_P] * 10 + [ctypes.c_longlong]
     + [ctypes.c_int] * 5 + [_P, _P],
+    # x, tr, ti, sb, sc, sh, sw, B, C, H, W, X, Dl, th, tw, ph, pw, tables,
+    # stream
+    "tile_rfft_image_f32": [_P] * 3 + [ctypes.c_longlong] * 4
+    + [ctypes.c_int] * 10 + [_P, _P],
     # x, tr, ti, fr, fi, fhr, fhi, n, delta, form, tables, stream
     "tile_fft_f32": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int, _P, _P],
@@ -323,6 +336,47 @@ def tile_rfft_cuda(x, *, delta: int = 16):
     return Tr, Ti
 
 
+def image_rfft_cuda(x, spec: ConvSpec):
+    """Stage 1 in one pass: the image ``x`` (B, C, H, W), float32, any
+    strides -> the compact spectra of its overlap-save tiles as two
+    (P_real, M, C) planes, the layout the CGEMM reads; ``spec.delta`` must
+    be 16.  The kernel loads each tile from the image (0.0 past its edges,
+    as the pad) and stores each spectrum into the planes' column of its
+    tile: the specialised form's arithmetic, so the planes equal the
+    composed stage 1 (pad, tile copy, ``tile_rfft_cuda``, permute) bit for
+    bit.  On a CPU tensor, that composed stage 1 with the plain version."""
+    name = "image_rfft"
+    if spec.delta != SPECIALISED_DELTA:
+        raise ValueError(f"{name} runs at delta {SPECIALISED_DELTA}, got "
+                         f"{spec.delta}")
+    if tuple(x.shape) != (spec.B, spec.C, spec.H, spec.W):
+        raise ValueError(f"{name} wants the image (B, C, H, W) = "
+                         f"{(spec.B, spec.C, spec.H, spec.W)}, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes a float32 image")
+    P = num_freq_real(spec.delta)
+    if is_fake(x):
+        return (x.new_empty((P, spec.M, spec.C)),
+                x.new_empty((P, spec.M, spec.C)))
+    device = x.device
+    if device.type == "cpu":
+        return input_transform(x, spec, spectrum="real",
+                               tile_rfft=tile_rfft_cuda)
+    _cuda_device(name, device)
+    Dr = x.new_empty((P, spec.M, spec.C))
+    Di = x.new_empty((P, spec.M, spec.C))
+    if Dr.numel() == 0:
+        return Dr, Di
+    _launch("tile_rfft_image_f32", device, x.data_ptr(), Dr.data_ptr(),
+            Di.data_ptr(), *x.stride(), spec.B, spec.C, spec.H, spec.W,
+            spec.X, spec.D, spec.t_h, spec.t_w, spec.pad_h, spec.pad_w,
+            _forward_consts(spec.delta, device)[2])
+    tile_rfft_cuda.launches += 1
+    tile_rfft_cuda.form_launches["image"] += 1
+    return Dr, Di
+
+
 @constant_cache
 def _inverse_consts(delta, device):
     """The inverse launch's constant arguments, cached per device: the data
@@ -505,6 +559,7 @@ for _wrapper in (tile_rfft_cuda, tile_irfft_cuda, tile_irfft_epilogue_cuda,
                  tile_fft_cuda, tile_ifft_cuda, tile_ifft_epilogue_cuda):
     _wrapper.launches = 0
     _wrapper.form_launches = {GENERIC.name: 0, SPECIALISED.name: 0}
+tile_rfft_cuda.form_launches["image"] = 0       # image_rfft_cuda's
 for _wrapper in (tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_ifft_cuda,
                  tile_ifft_epilogue_cuda):
     _wrapper.tiles_launches = dict.fromkeys(INVERSE_TILES, 0)

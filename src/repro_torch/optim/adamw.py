@@ -1,5 +1,6 @@
 """AdamW + global-norm clipping + cosine schedule over a tree of tensors
-(``repro.optim.adamw`` twin, same math in float32).
+(``repro.optim.adamw`` twin, same math in float32, but for the global
+norm's sum of squares, which is taken in float64: see ``global_norm``).
 
 ``torch.optim.AdamW`` is not a twin: it has neither the global-norm clip
 nor this schedule.  A tree is nested dicts, lists and tuples of tensors,
@@ -103,9 +104,13 @@ def adamw_init(params):
 
 
 def global_norm(tree):
-    """L2 norm over every tensor of a tree, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """L2 norm over every tensor of a tree, as float32.  Each leaf's norm
+    is taken in float64: in float32 its sum of squares overflows once the
+    norm passes about 1.8e19, and the clip then scales every gradient to
+    0, a step that does nothing (the JAX twin's float32 sum does so)."""
+    return torch.sqrt(sum(
+        torch.linalg.vector_norm(x, dtype=torch.float64).square()
+        for x in tree_leaves(tree))).float()
 
 
 def _leaves_like(tree, n, what):

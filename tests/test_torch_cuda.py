@@ -13,10 +13,13 @@ variant of the kernel (each tile, each small-M row tile, cp.async and
 scalar loads), on operands offset from 16 bytes, and at a prepared slab's
 shape at P = 144; the forward tile DFTs (compact and
 rect, in both kernel forms, on aligned tiles and on a 4-byte-offset view)
-scaled atol 2e-5; the inverses and fused inverses (in both kernel forms,
-on aligned planes, on NaN-padded compact rows and on 4-byte-offset views)
-1e-4 absolute on unit-scale spectra; a whole conv, and its grads, 3e-4
-against cuDNN with TF32 off.  The serve engine's CUDA graphs (one per
+scaled atol 2e-5; the forward's image form (stage 1 in one pass) equal
+bit for bit to the composed stage 1 at every Table-I layer, a dx plan's
+geometry and strided views, and launched for every stage 1 of a plan;
+the inverses and fused inverses (in both kernel forms, on aligned planes,
+on NaN-padded compact rows and on 4-byte-offset views) 1e-4 absolute on
+unit-scale spectra; a whole conv, and its grads, 3e-4 against cuDNN with
+TF32 off.  The serve engine's CUDA graphs (one per
 replica and bucket) against the eager prepared forward of the same
 kernels and spectra: 1e-5 of the largest |y| (the same kernels run on the
 same operands).  Every row of the CGEMM's tile table pinned at each layer
@@ -48,16 +51,17 @@ from repro_torch.conv import (  # noqa: E402
 from repro_torch.conv.backends import _cuda_fused_inverse  # noqa: E402
 from repro_torch.core.dft import (  # noqa: E402
     compact_layout, dft_mats, num_freq_real)
-from repro_torch.core.fftconv import conv2d_direct, make_spec  # noqa: E402
+from repro_torch.core.fftconv import (  # noqa: E402
+    conv2d_direct, input_transform, make_spec)
 from repro_torch.kernels.cgemm import (  # noqa: E402
     cgemm_cuda, cgemm_ref, operand_variant)
 from repro_torch.kernels.cgemm.ops import (  # noqa: E402
     LARGE, SHAPES, SMALL, compiled_shapes, shape_smem_bytes)
 from repro_torch.kernels.dft_tile import (  # noqa: E402
-    tile_fft_cuda, tile_fft_ref, tile_ifft_cuda, tile_ifft_epilogue_cuda,
-    tile_ifft_epilogue_ref, tile_ifft_ref, tile_irfft_cuda,
-    tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref, tile_irfft_ref,
-    tile_rfft_cuda, tile_rfft_ref)
+    image_rfft_cuda, tile_fft_cuda, tile_fft_ref, tile_ifft_cuda,
+    tile_ifft_epilogue_cuda, tile_ifft_epilogue_ref, tile_ifft_ref,
+    tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_irfft_epilogue_ref,
+    tile_irfft_ref, tile_rfft_cuda, tile_rfft_ref)
 from repro_torch.kernels.dft_tile import ops as dft_ops  # noqa: E402
 from repro_torch.kernels.dft_tile.ops import (  # noqa: E402
     GENERIC, SPECIALISED, choose_form, choose_inverse_form)
@@ -551,6 +555,103 @@ def test_fft_cuda_plan_matches_cudnn(cuda):
     y0 = direct(x, k, bias=bias)
     scale = y0.abs().max().item()
     assert (y - y0).abs().max().item() / scale <= 3e-4
+
+
+# --------------------------------------------------------------------------
+# Stage 1 in one pass: the forward tile DFT's image form
+# --------------------------------------------------------------------------
+
+# (name, (B, C, H, W), kernel, padding, view): every Table-I layer at batch
+# 2 (Vconv1.1's C = 3, Aconv2's 5x5 at 27x27); a dx plan's stage 1 (dz at
+# the full-correlation padding kh - 1); M*C not a multiple of the 8 tiles
+# a block; inputs that are views (channels last, a crop, 4 bytes off)
+IMAGE_CASES = (
+    [(l.name, (2, l.C, l.H, l.W), l.kh, l.pad, None) for l in TABLE1]
+    + [("dx", (2, 128, 56, 56), 3, 2, None),
+       ("ragged", (1, 5, 27, 27), 5, 2, None),
+       ("last", (2, 64, 28, 28), 3, 1, "last"),
+       ("crop", (2, 32, 30, 26), 3, 1, "crop"),
+       ("offset", (1, 16, 20, 20), 3, 1, "offset")])
+
+
+def _image_view(shape, view, seed, device):
+    B, C, H, W = shape
+    if view == "crop":
+        return _rand((B, C, H + 3, W + 5), seed).to(device)[
+            :, :, 1:H + 1, 2:W + 2]
+    x = _rand(shape, seed).to(device)
+    if view == "last":
+        return x.to(memory_format=torch.channels_last)
+    if view == "offset":
+        return torch.empty(x.numel() + 1, device=device)[1:].view(
+            shape).copy_(x)
+    return x
+
+
+@pytest.mark.parametrize("name,shape,kh,pad,view", IMAGE_CASES,
+                         ids=[c[0] for c in IMAGE_CASES])
+def test_image_form_is_bitwise_the_composed_stage_1(cuda, name, shape, kh,
+                                                    pad, view):
+    """One launch of the image form gives the (P, M, C) spectra of the
+    composed stage 1 (pad and tile copy, ``tile_rfft_cuda``, permute) bit
+    for bit: the same arithmetic on the same points."""
+    x = _image_view(shape, view, sum(shape) + kh, cuda)
+    spec = make_spec(tuple(x.shape), (8, shape[1], kh, kh), padding=pad)
+    before = (tile_rfft_cuda.launches, dict(tile_rfft_cuda.form_launches))
+    Dr, Di = image_rfft_cuda(x, spec)
+    torch.cuda.synchronize()
+    forms = dict(before[1], image=before[1]["image"] + 1)
+    assert (tile_rfft_cuda.launches, tile_rfft_cuda.form_launches) == (
+        before[0] + 1, forms)
+    Rr, Ri = input_transform(x, spec, spectrum="real",
+                             tile_rfft=tile_rfft_cuda)
+    assert Dr.shape == Rr.shape == (num_freq_real(16), spec.M, spec.C)
+    assert torch.equal(Dr, Rr) and torch.equal(Di, Ri), name
+
+
+def _stage1_sites(fn, tmp_path):
+    """Names of the ``rt:`` spans entered while ``fn`` runs on the card
+    under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return {e["name"][3:] for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and e["name"].startswith("rt:")}
+
+
+def test_image_form_runs_every_stage_1(cuda, tmp_path):
+    """A prepared fft-cuda forward launches the image form once (stage 1)
+    and the tile form not at all; a training step (forward, then the dx
+    plan's stage 1 on dz) twice, and the tile form for the two stage 2s.
+    No stage-1 copy site is entered, so nothing launches under one."""
+    torch.backends.cudnn.allow_tf32 = False
+    ep = Epilogue(bias=True, activation="relu")
+    x, k, bias = (_rand((2, 16, 30, 30), 60).to(cuda),
+                  _rand((24, 16, 3, 3), 61).to(cuda),
+                  _rand((24,), 62).to(cuda))
+    plan = plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                     epilogue=ep)
+    prepared = plan.prepare(k)
+    steps = {
+        "forward": lambda: prepared(x, bias=bias),
+        "train": lambda: plan(*(t.clone().requires_grad_()
+                                for t in (x, k)), bias=bias).sum().backward()}
+    for what, fn in steps.items():
+        fn()                                   # warm: kernels built
+        before = dict(tile_rfft_cuda.form_launches)
+        sites = _stage1_sites(fn, tmp_path)
+        moved = {f: c - before[f]
+                 for f, c in tile_rfft_cuda.form_launches.items()}
+        want = ({"generic": 0, "specialised": 0, "image": 1}
+                if what == "forward" else
+                {"generic": 0, "specialised": 2, "image": 2})
+        assert moved == want, what
+        assert "stage/input" in sites, what
+        assert not sites & {"copy/tiles", "copy/spectra"}, (what, sites)
 
 
 # --------------------------------------------------------------------------

@@ -14,10 +14,15 @@ numpy inputs:
   in {5, 8, 15, 16}, n in {1, 7, 300}, the inverse also with the spectrum
   padded past P_real, 1e-4 (the forward relative to max|T|, whose entries
   grow with delta).
+- the forward's image form (stage 1 in one pass): its plain version is
+  the composed stage 1 bit for bit, and within 1e-4 of the JAX package's
+  stage 1, on strided images too.
 
 tests/test_torch_cuda.py holds the CUDA kernels themselves to these plain
 versions on the card.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -31,7 +36,8 @@ from repro.kernels.dft_tile import (
     tile_irfft_epilogue_pallas, tile_irfft_pallas, tile_rfft_pallas)
 from repro_torch.kernels.cgemm import cgemm_cuda
 from repro_torch.kernels.dft_tile import (
-    tile_irfft_cuda, tile_irfft_epilogue_cuda, tile_rfft_cuda)
+    image_rfft_cuda, tile_irfft_cuda, tile_irfft_epilogue_cuda,
+    tile_rfft_cuda)
 
 
 def _rand(shape, seed):
@@ -193,3 +199,96 @@ def test_tile_wrappers_refuse_what_the_kernels_do_not_take():
     tile_rfft_cuda(x)                   # CPU: the plain versions, no launch
     tile_irfft_cuda(zr, zi)
     assert (tile_rfft_cuda.launches, tile_irfft_cuda.launches) == before
+
+
+# --------------------------------------------------------------------------
+# kernel 3, image form: stage 1 in one pass (image -> (P, M, C) planes)
+# --------------------------------------------------------------------------
+
+# (B, C, H, W, kernel, padding, view): Vconv1.1's C=3, Aconv2's 5x5 at
+# 27x27, a dx plan's full-correlation padding, M*C not a multiple of 16,
+# and inputs that are views: channels last, and a crop of a larger image
+IMAGE_CASES = [(1, 3, 20, 20, 3, 1, None), (2, 4, 27, 27, 5, 2, None),
+               (1, 5, 13, 11, 3, 2, None), (2, 3, 9, 15, 3, 1, "last"),
+               (1, 2, 18, 18, 1, 0, "crop")]
+
+
+def _image(B, C, H, W, view, seed):
+    if view == "crop":
+        return torch.from_numpy(_rand((B, C, H + 3, W + 5), seed))[
+            :, :, 1:H + 1, 2:W + 2]
+    x = torch.from_numpy(_rand((B, C, H, W), seed))
+    return x.to(memory_format=torch.channels_last) if view else x
+
+
+@pytest.mark.parametrize("B,C,H,W,kh,pad,view", IMAGE_CASES)
+def test_image_rfft_plain_is_the_composed_stage_1(B, C, H, W, kh, pad, view):
+    """On the CPU the image form is the composed stage 1 (pad and tile
+    copy, the plain forward tile DFT, permute) bit for bit, which holds to
+    the JAX package's stage 1 on the compact layout."""
+    from repro.core import fftconv as jF
+    from repro.core.conv_spec import ConvSpec as JSpec
+    from repro_torch.core import fftconv as tF
+    x = _image(B, C, H, W, view, 300 + C)
+    spec = tF.make_spec(tuple(x.shape), (4, C, kh, kh), padding=pad)
+    before = (tile_rfft_cuda.launches, dict(tile_rfft_cuda.form_launches))
+    Dr, Di = image_rfft_cuda(x, spec)
+    assert (tile_rfft_cuda.launches,
+            tile_rfft_cuda.form_launches) == before     # nothing launched
+    Rr, Ri = tF.input_transform(x, spec, spectrum="real",
+                                tile_rfft=tile_rfft_cuda)
+    assert torch.equal(Dr, Rr) and torch.equal(Di, Ri)
+    assert tuple(Dr.shape) == (num_freq_real(16), spec.M, C)
+    Jr, Ji = jF.input_transform(jnp.asarray(x.contiguous().numpy()),
+                                JSpec(**dataclasses.asdict(spec)),
+                                spectrum="real")
+    for ours, theirs in ((Dr, Jr), (Di, Ji)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_image_rfft_refuses_what_the_kernel_does_not_take():
+    from repro_torch.core.fftconv import make_spec
+    x = torch.from_numpy(_rand((1, 2, 10, 10), 13))
+    spec = make_spec(tuple(x.shape), (3, 2, 3, 3), padding=1)
+    with pytest.raises(TypeError, match="float32"):
+        image_rfft_cuda(x.double(), spec)
+    with pytest.raises(ValueError, match="delta 16"):
+        image_rfft_cuda(x, make_spec(tuple(x.shape), (3, 2, 3, 3),
+                                     padding=1, delta=8))
+    with pytest.raises(ValueError, match="wants the image"):
+        image_rfft_cuda(x[:, :1], spec)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        image_rfft_cuda(x.to("meta"), spec)
+
+
+def test_image_rfft_on_fake_operands():
+    """A fake image (the analyzer's) gets fake planes of the (P, M, C)
+    shape, and nothing is built, launched or counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.fftconv import make_spec
+    spec = make_spec((2, 3, 30, 30), (4, 3, 3, 3), padding=1)
+    before = (tile_rfft_cuda.launches, dict(tile_rfft_cuda.form_launches))
+    with FakeTensorMode():
+        Dr, Di = image_rfft_cuda(torch.empty((2, 3, 30, 30)), spec)
+    assert tuple(Dr.shape) == tuple(Di.shape) == (130, spec.M, 3)
+    assert Dr.dtype == Di.dtype == torch.float32
+    assert (tile_rfft_cuda.launches, tile_rfft_cuda.form_launches) == before
+
+
+def test_argtypes_match_the_entry_points():
+    """Each ``dft_tile`` entry point's ctypes signature has the C one's
+    parameters, kind for kind (pointer, long long, int): a count off by
+    one passes every argument after it in the wrong register."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dft_tile import ops
+    src = _build.source("dft_tile").read_text()
+    entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+    kinds = {"*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+             "int": ctypes.c_int}
+    for name, argtypes in ops._ARGTYPES.items():
+        params = [p.strip() for p in entries[name].split(",")]
+        want = [next(kinds[k] for k in kinds if k in p) for p in params]
+        assert argtypes == want, name

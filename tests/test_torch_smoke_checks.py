@@ -478,26 +478,37 @@ def test_slab_dft_cases_are_the_sharded_plans_launches(monkeypatch, kernel):
     launched = set()
     real_rfft, real_irfft = dft_pkg.tile_rfft_cuda, dft_pkg.tile_irfft_cuda
     real_epilogue = dft_pkg.tile_irfft_epilogue_cuda
+    real_image = dft_pkg.image_rfft_cuda
 
     def rfft(x, *, delta):
         out = real_rfft(x, delta=delta)
-        launched.add(("tile_rfft", x.shape[0], out[0].shape[1], None))
+        launched.add(("tile_rfft", x.shape[0], out[0].shape[1], None, False))
+        return out
+
+    def image(x, spec):          # the forward kernel on the M*C tiles
+        out = real_image(x, spec)
+        launched.add(("tile_rfft", spec.M * spec.C, out[0].shape[0], None,
+                      True))
         return out
 
     def irfft(Zr, Zi, *, delta, tiles=None):
-        launched.add(("tile_irfft", *Zr.shape, None))
+        launched.add(("tile_irfft", *Zr.shape, None, False))
         return real_irfft(Zr, Zi, delta=delta, tiles=tiles)
 
     def epilogue(Zr, Zi, bias, *, activation="none", delta=16, tiles=None):
-        launched.add(("tile_irfft_epilogue", *Zr.shape, activation))
+        launched.add(("tile_irfft_epilogue", *Zr.shape, activation, False))
         return real_epilogue(Zr, Zi, bias, activation=activation,
                              delta=delta, tiles=tiles)
     monkeypatch.setattr(dft_pkg, "tile_rfft_cuda", rfft)
+    monkeypatch.setattr(dft_pkg, "image_rfft_cuda", image)
     monkeypatch.setattr(dft_pkg, "tile_irfft_cuda", irfft)
     monkeypatch.setattr(dft_pkg, "tile_irfft_epilogue_cuda", epilogue)
     P = dft_ops.num_freq_real(16)
     monkeypatch.setattr(smoke, "forward_row", lambda name, n, gen, **extra:
                         dict(kernel="tile_rfft", shape=[n, 16, P]))
+    monkeypatch.setattr(smoke, "image_row", lambda name, spec, gen, **extra:
+                        dict(kernel="tile_rfft", form="image",
+                             shape=[spec.M * spec.C, 16, P]))
     monkeypatch.setattr(smoke, "epilogue_row",
                         lambda name, n, P, act, gen, **extra:
                         dict(kernel="tile_irfft_epilogue", shape=[n, P, 16],
@@ -537,6 +548,32 @@ def test_slab_dft_cases_are_the_sharded_plans_launches(monkeypatch, kernel):
     assert len(held) == len(set(held)) and before.isdisjoint(held)
     assert launched <= before | set(held)
     assert held and set(held) <= launched
+
+
+@pytest.mark.parametrize("x_shape,k_shape,pad", [
+    ((2, 3, 20, 20), (4, 3, 3, 3), 1), ((1, 4, 27, 27), (2, 4, 5, 5), 2)])
+def test_library_stage1_is_the_composed_stage_1(x_shape, k_shape, pad):
+    """Phase 3's library stage 1 for the image form's rows (the tile DFT
+    by ``torch.fft.rfft2`` and the ``store`` gather) computes the composed
+    stage 1: the same (P, M, C) planes, to float32 rounding."""
+    from repro_torch.core import fftconv as FC
+    spec = FC.make_spec(x_shape, k_shape, padding=pad)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(x_shape)
+                         .astype(np.float32))
+    got = smoke.library_stage1(x, spec)
+    want = FC.input_transform(x, spec, spectrum="real")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (130, spec.M, spec.C)
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_dft_key_tells_the_image_form_apart():
+    """A stage-1 row in the image form and a tile-form row of as many
+    tiles are two cases, so that neither stands in for the other."""
+    tile = dict(kernel="tile_rfft", shape=[64, 16, 130])
+    image = dict(tile, form="image")
+    assert smoke.dft_key(tile) != smoke.dft_key(image)
+    assert smoke.dft_key(tile)[:4] == smoke.dft_key(image)[:4]
 
 
 def test_sharded_train_launch_and_collective_arithmetic():
@@ -635,6 +672,7 @@ def test_sharded_tune_launches_are_the_measured_candidates(monkeypatch,
         monkeypatch.setattr(pkg, attr, call)
     spy(cgemm_pkg, "cgemm_cuda", "cgemm")
     spy(dft_pkg, "tile_rfft_cuda", "tile_rfft")
+    spy(dft_pkg, "image_rfft_cuda", "tile_rfft")     # stage 1's form
     spy(dft_pkg, "tile_irfft_epilogue_cuda", "tile_irfft_epilogue")
     spy(dft_pkg, "tile_irfft_cuda", "tile_irfft")
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t.json"))

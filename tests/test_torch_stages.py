@@ -167,3 +167,80 @@ def test_geometry_matches_jax():
             assert spec.cgemm_flops(True, sp) == js.cgemm_flops(True, sp)
         assert spec.direct_flops() == js.direct_flops()
         assert spec.transform_flops() == js.transform_flops()
+
+
+def _hooked_input(x, spec, spectrum, dtype=torch.float32):
+    """Stage 1 with a recording ``image_rfft``: (result, calls)."""
+    calls = []
+
+    def image_rfft(x, spec):
+        calls.append(spec)
+        return tF.input_transform(x, spec, spectrum="real")
+    D = tF.input_transform(x, spec, dtype=dtype, spectrum=spectrum,
+                           image_rfft=image_rfft)
+    return D, calls
+
+
+@pytest.mark.parametrize("case", ["taken", "complex", "rect", "delta 8",
+                                  "float64 image", "float64 stage"])
+def test_input_transform_takes_the_image_hook_where_it_applies(case):
+    """Stage 1 hands the image to ``image_rfft`` for the compact layout on
+    a float32 image and stage, and composes itself otherwise, with the
+    same result; the ``fft-cuda`` backend hands the hook to delta-16 plans
+    alone (the image form's tile)."""
+    spec = _narrow("Aconv2", 2)
+    x = torch.from_numpy(_rand((spec.B, spec.C, spec.H, spec.W), 40))
+    if case == "delta 8":
+        from repro_torch.conv import plan_conv
+        from repro_torch.conv.registry import get_backend
+        k_shape = (spec.Cout, spec.C, spec.kh, spec.kw)
+        hooks = [get_backend("fft-cuda").make_pipeline(plan_conv(
+            x.shape, k_shape, padding=spec.pad_h, delta=delta,
+            backend="fft-cuda")).image_rfft for delta in (8, 16)]
+        assert hooks[0] is None and hooks[1] is not None
+        return
+    spectrum = case if case in ("complex", "rect") else "real"
+    dtype = torch.float64 if case == "float64 stage" else torch.float32
+    if case == "float64 image":
+        x = x.double()
+    D, calls = _hooked_input(x, spec, spectrum, dtype)
+    assert len(calls) == (case == "taken")
+    D0 = tF.input_transform(x, spec, dtype=dtype, spectrum=spectrum)
+    assert all(torch.equal(a, b) for a, b in zip(D, D0))
+
+
+@pytest.mark.parametrize("schedule", ["local", "nfft", "wfft"])
+def test_image_hook_leaves_stage_counts_and_outputs(schedule):
+    """An ``fft-cuda`` plan on the CPU with its pipeline's image hook and
+    without it: the same stage counts, CGEMM shapes and collectives, and
+    the same output bit for bit (the hook's plain form is the composed
+    stage 1)."""
+    from repro_torch.conv import Epilogue, plan_conv, stages
+    from repro_torch.conv.registry import get_backend
+    from repro_torch.launch import mesh as M
+    mesh = None
+    if schedule != "local":
+        M.start_process_group("gloo")
+        mesh = M.make_host_mesh(1, 1)
+    try:
+        x = torch.from_numpy(_rand((2, 3, 20, 20), 41))
+        k = torch.from_numpy(_rand((4, 3, 3, 3), 42))
+        b = torch.from_numpy(_rand((4,), 43))
+        plan = plan_conv(x.shape, k.shape, padding=1, backend="fft-cuda",
+                         epilogue=Epilogue(bias=True, activation="relu"),
+                         schedule=schedule, mesh=mesh)
+        pipe = get_backend("fft-cuda").make_pipeline(plan)
+        assert pipe.image_rfft is not None
+        runs = []
+        for image_rfft in (pipe.image_rfft, None):
+            pipe.image_rfft = image_rfft
+            with stages.stage_trace() as counts:
+                y = pipe.full(plan, x, k, bias=b)
+            y = y.full_tensor() if hasattr(y, "full_tensor") else y
+            runs.append((dict(counts), y))
+        assert runs[0][0] == runs[1][0]
+        assert runs[0][0]["input_transform"] == 1
+        assert torch.equal(runs[0][1], runs[1][1])
+    finally:
+        if mesh is not None:
+            M.destroy_process_group()

@@ -3,7 +3,8 @@
 - ``repro_torch.data.image_batch`` is bit-equal to ``repro.data``'s.
 - ``repro_torch.optim.adamw_update`` follows ``repro.optim``'s on a random
   parameter dict for five steps (warm-up, cosine decay, clipping, weight
-  decay), at 1e-6.
+  decay), at 1e-6; its global norm stays finite where float32 squares
+  would overflow (the JAX twin's would not).
 - The trainer twin (``repro_torch.examples.train_cnn_fftconv``) on
   ``fft-cuda`` (the kernels' plain versions on the CPU) takes three steps
   from the JAX example's own initial parameters, carried across by
@@ -51,6 +52,25 @@ def test_image_batch_bit_equal_to_jax():
         for key in ("images", "labels"):
             assert np.array_equal(ours[key].numpy(),
                                   np.asarray(theirs[key])), (step, key)
+
+
+def test_global_norm_past_float32_squares():
+    """A global norm whose square overflows float32 (about 1.8e19 and up)
+    is still the float64 norm, and the clipped step moves the parameters
+    by the learning rate, as an unclipped unit gradient would; a float32
+    sum of squares would read inf and clip the step to nothing."""
+    g = {"a": torch.full((4, 5), 4e18), "b": torch.full((3,), -6e18)}
+    want = np.sqrt(20 * 4e18 ** 2 + 3 * 6e18 ** 2)
+    assert float(toptim.global_norm(g)) == pytest.approx(want, rel=1e-6)
+    params = {n: torch.zeros_like(t) for n, t in g.items()}
+    cfg = toptim.AdamWConfig(lr=1e-2, warmup_steps=0, weight_decay=0.0,
+                             clip_norm=1.0)
+    new, _, info = toptim.adamw_update(g, toptim.adamw_init(params), params,
+                                       cfg)
+    assert np.isfinite(float(info["grad_norm"]))
+    for n, t in g.items():    # Adam's first step: lr times the sign
+        np.testing.assert_allclose(new[n].numpy(),
+                                   -1e-2 * np.sign(t.numpy()), rtol=1e-5)
 
 
 def test_adamw_matches_jax():
