@@ -12,7 +12,10 @@ Backends:
   direct     ``F.conv2d`` (cuDNN on the card; the oracle path, and the
              winner for small channel counts / tiny kernels by the cost
              model).  Opaque execute, native autograd; the plan epilogue
-             is applied right after the conv.
+             is applied right after the conv, or on the card, in inference,
+             a ReLU epilogue (with its bias and residual) inside cuDNN's
+             fused conv call.  The only backend that runs a strided plan
+             (the FFT pipelines refuse one at planning).
   fft-torch  the paper's 4-stage pipeline composed from
              ``repro_torch.conv.stages`` with the PyTorch matmul CGEMM.
   fft-cuda   the same stage graph on the hand-written CUDA kernels: the
@@ -113,12 +116,38 @@ def _cuda_fused_inverse_real(Zr, Zi, spec, epilogue, bias, *, tiles=None):
         y.reshape(spec.B, spec.Cout, spec.X, spec.D, d, d), spec)
 
 
+def _cudnn_fused(plan, x, k, bias, residual):
+    """The conv and a ReLU epilogue (bias and residual optional) in one
+    cuDNN call, where one serves: CUDA operands that autograd need not
+    see, no operand cast.  cuDNN fuses the tail into the conv kernel's
+    store (its fallback, where no fused engine fits, runs the tail in
+    place).  ``None`` where it does not serve."""
+    if plan.epilogue.activation != "relu" or not x.is_cuda \
+            or plan.compute_dtype is not None or (
+                torch.is_grad_enabled() and any(
+                    t is not None and t.requires_grad
+                    for t in (x, k, bias, residual))):
+        return None
+    stride, pad = list(plan.stride), list(plan.padding)
+    if residual is None:
+        return torch.cudnn_convolution_relu(x, k, bias, stride, pad, [1, 1],
+                                            1)
+    return torch.cudnn_convolution_add_relu(x, k, residual, 1.0, bias,
+                                            stride, pad, [1, 1], 1)
+
+
 def _exec_direct(plan, x, k, bias=None, residual=None):
-    y = F.conv2d_direct(x, k, padding=plan.padding,
-                        compute_dtype=plan.compute_dtype)
-    out_dtype = y.dtype
-    return apply_epilogue(y, plan.epilogue, bias=bias,
-                          residual=residual).to(out_dtype)
+    with span("conv/direct"):
+        y = _cudnn_fused(plan, x, k, bias, residual)
+        if y is not None:
+            return y
+        y = F.conv2d_direct(x, k, padding=plan.padding, stride=plan.stride,
+                            compute_dtype=plan.compute_dtype)
+    if plan.epilogue.is_noop:
+        return y
+    with span("epilogue/direct"):
+        return apply_epilogue(y, plan.epilogue, bias=bias,
+                              residual=residual).to(y.dtype)
 
 
 def _fft_torch_pipeline(plan):

@@ -160,8 +160,10 @@ def _bind_mesh(cfg: Optional[dict], mesh=None):
 
 def plan_config(plan) -> dict:
     """JSON-able resolved plan config, with the JAX package's keys
-    (``backend`` holds the port's name); ``rebuild_plan`` inverts it."""
-    return {
+    (``backend`` holds the port's name), and ``stride`` where it is not 1
+    (a unit-stride record is the JAX package's); ``rebuild_plan`` inverts
+    it."""
+    cfg = {
         "x_shape": list(plan.x_shape),
         "k_shape": list(plan.k_shape),
         "padding": list(plan.padding),
@@ -182,6 +184,9 @@ def plan_config(plan) -> dict:
         "spectrum": plan.spectrum,
         "overlap": plan.overlap,
     }
+    if plan.strided:
+        cfg["stride"] = list(plan.stride)
+    return cfg
 
 
 def _plan_kwargs(cfg: dict, mesh) -> dict:
@@ -192,7 +197,8 @@ def _plan_kwargs(cfg: dict, mesh) -> dict:
         data_axis=cfg["data_axis"], model_axis=cfg["model_axis"],
         replicate_kernel_transform=cfg["replicate_kernel_transform"],
         epilogue=Epilogue(**cfg["epilogue"]), spectrum=cfg["spectrum"],
-        overlap=cfg["overlap"])
+        overlap=cfg["overlap"],
+        stride=tuple(int(s) for s in cfg.get("stride", (1, 1))))
 
 
 def rebuild_plan(cfg: dict, *, mesh=None):

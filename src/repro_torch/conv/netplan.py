@@ -50,7 +50,8 @@ class NetworkConv:
     Geometry + the layer's fused epilogue; everything else (backend,
     schedule, precision) is shared network-wide via ``plan_network``
     kwargs, with ``overrides`` as the per-layer escape hatch (e.g. a tiny
-    first layer that wants ``backend="direct"``).
+    first layer that wants ``backend="direct"``).  A ``stride`` past 1
+    needs a backend that runs it (``direct``: an override, or ``auto``).
     """
     name: str
     x_shape: tuple
@@ -58,12 +59,14 @@ class NetworkConv:
     padding: Any = 0
     epilogue: Epilogue = Epilogue()
     overrides: tuple = ()        # (("backend", "direct"), ...) — hashable
+    stride: Any = 1
 
     def plan_kwargs(self, shared: dict) -> dict:
         kw = dict(shared)
         kw.update(dict(self.overrides))
         kw["padding"] = self.padding
         kw["epilogue"] = self.epilogue
+        kw["stride"] = self.stride
         return kw
 
 

@@ -61,6 +61,13 @@ positive value, the port takes only what its kernels were compiled with.
 
 ``backend="fft-cuda"`` runs tiles up to ``kernels.dft_tile.ops.MAX_DELTA``
 (32); a larger ``delta`` is refused when the plan is made.
+
+``stride`` rides on the plan, not on its ``ConvSpec`` (which stays the JAX
+package's twin field for field): ``out_shape`` and ``flops`` follow it,
+and only ``direct`` runs a stride other than 1.  ``auto`` and ``tuned``
+resolve a strided geometry to ``direct``; ``fft-torch`` and ``fft-cuda``
+refuse it when the plan is made.  A unit-stride plan's cache key,
+``describe()`` and artifact record carry no stride.
 """
 from __future__ import annotations
 
@@ -111,6 +118,7 @@ class ConvPlan:
     epilogue: Epilogue = Epilogue()    # fused elementwise tail (stage 4)
     spectrum: str = "real"             # "real" (compact Hermitian) | "complex"
     overlap: str = "off"               # "off" | "slab:<k>" sub-slab overlap
+    stride: tuple = (1, 1)             # (s_h, s_w); direct only past 1
 
     @property
     def num_slabs(self) -> int:
@@ -238,9 +246,14 @@ class ConvPlan:
         return (s.Cout, s.C, s.kh, s.kw)
 
     @property
+    def strided(self) -> bool:
+        return self.stride != (1, 1)
+
+    @property
     def out_shape(self) -> tuple:
         s = self.spec
-        return (s.B, s.Cout, s.Ho, s.Wo)
+        sh, sw = self.stride
+        return (s.B, s.Cout, (s.Ho - 1) // sh + 1, (s.Wo - 1) // sw + 1)
 
     @property
     def differentiable(self) -> bool:
@@ -250,15 +263,19 @@ class ConvPlan:
     def flops(self) -> int:
         """Cost-model FLOPs of the planned path (for rooflines)."""
         if self.backend == "direct":
-            return self.spec.direct_flops()
+            B, Co, Ho, Wo = self.out_shape
+            s = self.spec
+            return 2 * B * Co * s.C * Ho * Wo * s.kh * s.kw
         return self.spec.cgemm_flops(three_m=self.three_m,
                                      spectrum=self.spectrum) \
             + self.spec.transform_flops()
 
     def describe(self) -> str:
         s = self.spec
+        stride = f" stride={self.stride}" if self.strided else ""
         lines = [
-            f"ConvPlan {self.x_shape} * {self.k_shape} -> {self.out_shape}",
+            f"ConvPlan {self.x_shape} * {self.k_shape} -> {self.out_shape}"
+            f"{stride}",
             f"  backend={self.backend} schedule={self.schedule} "
             f"three_m={self.three_m} delta={s.delta} "
             f"spectrum={self.spectrum} epilogue={self.epilogue.describe()}",
@@ -418,8 +435,16 @@ def _build_spec(x_shape, k_shape, padding, delta) -> ConvSpec:
                     delta=max(delta, kh, kw))
 
 
+def _normalize_stride(stride) -> tuple:
+    sh, sw = (stride, stride) if isinstance(stride, int) else stride
+    if int(sh) < 1 or int(sw) < 1:
+        raise ValueError(f"stride must be >= 1, got {stride!r}")
+    return (int(sh), int(sw))
+
+
 def _auto_backend(spec: ConvSpec, three_m: bool) -> str:
-    """Direct-vs-FFT crossover on the ConvSpec cost model."""
+    """Direct-vs-FFT crossover on the ConvSpec cost model (of a unit-stride
+    geometry: ``_resolve`` gives a strided one to ``direct`` first)."""
     fft = spec.cgemm_flops(three_m=three_m) + spec.transform_flops()
     return "direct" if spec.direct_flops() <= fft else "fft-torch"
 
@@ -553,7 +578,7 @@ def _cuda_blocks(bm, bn, bk) -> tuple:
 def _resolve(x_shape, k_shape, padding, delta, backend, schedule, mesh,
              three_m, bm, bn, bk, dft_bt, compute_dtype, data_axis,
              model_axis, replicate_kernel_transform, epilogue, spectrum,
-             overlap) -> ConvPlan:
+             overlap, stride=(1, 1)) -> ConvPlan:
     _, _, kh, kw = k_shape
     if spectrum not in SPECTRA:
         raise ValueError(
@@ -568,6 +593,14 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, mesh,
         raise ValueError(
             f"kernel {kh}x{kw} exceeds tile size delta={delta}; only the "
             f"'direct' backend supports it (requested {backend!r})")
+    # Overlap-save tiles compute every output position: a strided conv
+    # would throw most of them away, so the pipelines take none.
+    strided = stride != (1, 1)
+    if strided and backend not in ("auto", "direct"):
+        registry.get_backend(backend)        # unknown names error first
+        raise ValueError(
+            f"backend {backend!r} runs unit-stride convolutions only; "
+            f"stride {stride} runs on the 'direct' backend")
     spec = _build_spec(x_shape, k_shape, padding, delta)
 
     if schedule == "auto":
@@ -578,7 +611,7 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, mesh,
     # boundary all-to-alls: no divisibility precondition.
 
     if backend == "auto":
-        if oversize:
+        if oversize or strided:
             backend = "direct"
         else:
             backend = "fft-torch" if sched.requires_mesh \
@@ -618,7 +651,8 @@ def _resolve(x_shape, k_shape, padding, delta, backend, schedule, mesh,
                     dft_bt=dft_bt, compute_dtype=compute_dtype, mesh=mesh,
                     data_axis=data_axis, model_axis=model_axis,
                     replicate_kernel_transform=replicate_kernel_transform,
-                    epilogue=epilogue, spectrum=spectrum, overlap=overlap)
+                    epilogue=epilogue, spectrum=spectrum, overlap=overlap,
+                    stride=stride)
 
 
 def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
@@ -629,7 +663,7 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
               replicate_kernel_transform: bool = False,
               epilogue: Optional[Epilogue] = None,
               spectrum: str = "auto", overlap: str = "off",
-              cache: bool = True) -> ConvPlan:
+              stride=1, cache: bool = True) -> ConvPlan:
     """Create (or fetch from the plan cache) a ``ConvPlan``.
 
     Args:
@@ -695,6 +729,10 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
         overlap axis instead.  ``"slab:<k>"`` on a local plan, or a
         malformed value, is a ``ValueError``, with the reference's
         message.
+      stride: int or ``(s_h, s_w)``, at least 1.  Only ``direct`` runs a
+        stride past 1: ``auto`` and ``tuned`` resolve such a geometry to
+        it, and ``fft-torch``/``fft-cuda`` refuse it (``ValueError``).
+        The output is ``((H + 2 p - k) // s + 1, ...)``, as ``F.conv2d``'s.
       cache: memoize the plan under its argument key (bounded LRU, see
         ``plan_cache_capacity``).
 
@@ -728,6 +766,7 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
         delta = 16 if delta is None else delta
     x_shape, k_shape = tuple(map(int, x_shape)), tuple(map(int, k_shape))
     padding = _normalize_padding(padding)
+    stride = _normalize_stride(stride)
     epilogue = Epilogue() if epilogue is None else epilogue
     if mesh is not None:
         _check_mesh(mesh, data_axis, model_axis)
@@ -736,8 +775,8 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
         # is memoized under the *resolved* config: a cost-model fallback
         # (measurement disabled) is never frozen in — once the tuning
         # cache warms, the next call adopts the winner.
-        if max(k_shape[2], k_shape[3]) > delta:
-            backend = "direct"      # oversize kernel: only direct fits
+        if max(k_shape[2], k_shape[3]) > delta or stride != (1, 1):
+            backend = "direct"      # oversize or strided: only direct fits
         else:
             from repro_torch.conv import autotune
             if schedule != "auto":
@@ -775,6 +814,8 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
            _mesh_cache_key(mesh), three_m, bm, bn, bk, dft_bt, compute_dtype,
            data_axis, model_axis, replicate_kernel_transform, epilogue,
            spectrum, overlap)
+    if stride != (1, 1):
+        key += (stride,)    # a unit-stride key stays what it always was
     if cache:
         with _cache_lock:
             plan = _plan_cache.get(key)
@@ -785,7 +826,7 @@ def plan_conv(spec, k_shape=None, *, padding=None, delta: Optional[int] = None,
     plan = _resolve(x_shape, k_shape, padding, delta, backend, schedule,
                     mesh, three_m, bm, bn, bk, dft_bt, compute_dtype,
                     data_axis, model_axis, replicate_kernel_transform,
-                    epilogue, spectrum, overlap)
+                    epilogue, spectrum, overlap, stride)
     if cache:
         with _cache_lock:
             _cache_misses += 1

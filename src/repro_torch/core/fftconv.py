@@ -67,21 +67,22 @@ def _pair(padding):
     return (padding, padding) if isinstance(padding, int) else tuple(padding)
 
 
-def conv2d_direct(x, k, *, padding=0, compute_dtype=None):
+def conv2d_direct(x, k, *, padding=0, stride=1, compute_dtype=None):
     """Direct convolution oracle: ``F.conv2d``, NCHW/OIHW.
 
     ``padding`` is an int or ``(pad_h, pad_w)``, symmetric per axis — the
-    same convention as the FFT path.  ``compute_dtype`` rounds the operands
-    to that dtype and convolves them in float32 (exact products, float32
-    accumulation), returning ``x.dtype`` — the direct-backend analogue of
-    the FFT schedules' hot CGEMM operand cast.
+    same convention as the FFT path; ``stride`` an int or ``(s_h, s_w)``
+    (the FFT path runs unit stride only).  ``compute_dtype`` rounds the
+    operands to that dtype and convolves them in float32 (exact products,
+    float32 accumulation), returning ``x.dtype`` — the direct-backend
+    analogue of the FFT schedules' hot CGEMM operand cast.
     """
-    pad = _pair(padding)
+    pad, stride = _pair(padding), _pair(stride)
     if compute_dtype is None:
-        return TF.conv2d(x, k, padding=pad)
+        return TF.conv2d(x, k, stride=stride, padding=pad)
     xc = x.to(compute_dtype).to(torch.float32)
     kc = k.to(compute_dtype).to(torch.float32)
-    return TF.conv2d(xc, kc, padding=pad).to(x.dtype)
+    return TF.conv2d(xc, kc, stride=stride, padding=pad).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,9 @@ are counted when they run, through a thread-local context manager::
     assert counts["cgemm"] == 1
 
 ``repro_torch.conv.stages`` documents the keys it counts and re-exports
-these names.
+these names.  A model's forward counts its convs by backend with
+``_count``: ``("backend", <backend>)`` and ``("conv", <backend>, <stride>,
+<k>)`` once a conv call (``repro_torch.models.resnet``).
 
 Spans.  ``span(name)`` marks a region of the program in a
 ``torch.profiler`` trace as ``rt:<name>``, on the thread that runs it and
@@ -26,6 +28,12 @@ clock of its own.  The names, by layer:
   ``copy/pack``      the sharded schedules' packing of (re, im) pairs;
   ``vjp/{dx,dk,dbias,act}``  the plan-level VJP's parts, in the thread
                      that runs the backward pass;
+  ``conv/direct``    the ``direct`` backend's conv (cuDNN), with a ReLU
+                     tail where cuDNN's fused call takes it (the card, in
+                     inference);
+  ``epilogue/direct`` its unfused bias, residual and activation tail;
+  ``resnet/block``   one bottleneck of an eager ResNet forward;
+  ``resnet/fold``    folding batch norm into the convs at prepare;
   ``optim/adamw``    one optimizer step;
   ``serve/batch``    one turn of the serving engine's drain loop, from
                      forming a batch to its bookkeeping, holding

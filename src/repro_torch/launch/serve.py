@@ -1,7 +1,9 @@
 """Serving launcher, on the GPU unless ``--device cpu`` is given: an LM
 architecture (prefill + greedy decode over the KV/SSM cache, random
 weights from ``--seed``), or with ``--convnet vgg`` the paper's VGG conv
-trunk through whole-net planning and prepared kernels.
+trunk through whole-net planning and prepared kernels, or with
+``--convnet resnet50`` ResNet-50 v1.5 through the serving engine (batch
+norm folded at prepare, one bucket of ``--batch``, one CUDA graph).
 
     # an LM: qwen3-14b at full width by default; --smoke for the small form
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
@@ -17,6 +19,11 @@ trunk through whole-net planning and prepared kernels.
     # on the host, the kernels' plain PyTorch versions at a small size:
     PYTHONPATH=src python -m repro_torch.launch.serve --convnet vgg \
         --conv-backend fft-cuda --smoke --batch 1 --gen 2 --device cpu
+
+    # ResNet-50 v1.5: its 13 unit-stride 3x3 convs on fft-cuda, the other
+    # 40 on cuDNN (--smoke: every width / 8 at 64x64, for the host):
+    PYTHONPATH=src python -m repro_torch.launch.serve --convnet resnet50 \
+        --batch 128 --gen 8
 
     # the measured autotuner picks each layer's backend, spectrum and
     # CGEMM tile on the device before the first request (cached per
@@ -134,6 +141,8 @@ def serve_convnet(args) -> ServeResult:
     from repro_torch.configs.paper_convs import network_convs
     from repro_torch.conv import autotune, plan_network, prepared_cache_info
 
+    if args.convnet == "resnet50":
+        return serve_resnet(args)
     if args.serve_trace:
         return serve_trace(args)
 
@@ -213,6 +222,65 @@ def serve_convnet(args) -> ServeResult:
     return ServeResult(y=y, x=x, kernels=kernels, biases=biases, net=net,
                        prepare_s=t_prepare, serve_s=t_serve,
                        latencies_s=lats)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ResNetServed:
+    """What one ``serve_resnet`` run served."""
+    y: Any                       # logits of the last request
+    x: Any                       # the request batch
+    engine: Any                  # the ServeEngine
+
+
+def serve_resnet(args) -> ResNetServed:
+    """Serve ResNet-50 v1.5 through the engine: unfolded parameters from
+    ``--seed``, batch norm folded into the convs, one bucket of
+    ``--batch`` images planned, prepared and (on the card) captured, then
+    ``--gen`` requests of one batch each.  ``--conv-backend`` names the
+    backend of the 13 unit-stride 3x3 convs (``auto``: ``fft-cuda``;
+    ``--tune`` measures theirs); the other 40 convs run on ``direct``."""
+    from repro_torch.launch.batcher import BucketPolicy, ServeEngine
+    from repro_torch.models import resnet
+
+    device = resolve_device(args.device)
+    image = args.image if args.image else (64 if args.smoke else 224)
+    width_div = 8 if args.smoke else 1
+    fft = None if args.tune else (resnet.FFT_BACKEND if args.conv_backend
+                                  == "auto" else args.conv_backend)
+    params = resnet.init_params(args.seed, device=device,
+                                width_div=width_div)
+    t0 = time.perf_counter()
+    folded = resnet.fold_batchnorm(params)
+    _sync(device)
+    fold_s = time.perf_counter() - t0
+    eng = ServeEngine(
+        lambda b: resnet.network_convs(b, image=image, width_div=width_div,
+                                       fft_backend=fft),
+        folded.kernels,
+        policy=BucketPolicy(max_batch=args.batch, min_batch=args.batch),
+        forward=resnet.make_forward(folded),
+        timing="async" if args.timing == "async" else "per-batch",
+        device=device, backend="tuned" if args.tune else "auto")
+    g = torch.Generator(device=device)
+    g.manual_seed(args.seed)
+    x = torch.randn((args.batch, 3, image, image), generator=g,
+                    device=device)
+    t0 = time.perf_counter()
+    for _ in range(args.gen):
+        rid = eng.submit(x)
+        eng.drain()
+    eng.finish()
+    serve_s = time.perf_counter() - t0
+    y = eng.results[rid]
+    net = eng.nets[(args.batch, None)]
+    n_fft = sum(net[n].backend != "direct" for n in net)
+    print(f"convnet=resnet50 image={image} batch={args.batch} "
+          f"device={device} convs: {n_fft} FFT, {len(net) - n_fft} direct "
+          f"fold={fold_s * 1e3:.1f}ms startup={eng.startup_s:.2f}s "
+          f"serve={serve_s * 1e3:.1f}ms/{args.gen} batches "
+          f"({args.gen * args.batch / serve_s:.1f} images/s)")
+    print("output:", tuple(y.shape), float(y.float().mean()))
+    return ResNetServed(y=y, x=x, engine=eng)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -460,9 +528,10 @@ def certify_loaded(path: str, report: dict) -> bool:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen3-14b")
-    ap.add_argument("--convnet", choices=["vgg"], default=None,
-                    help="serve the paper's conv trunk via plan_network "
-                         "instead of an LM arch")
+    ap.add_argument("--convnet", choices=["vgg", "resnet50"], default=None,
+                    help="serve the paper's VGG conv trunk via "
+                         "plan_network, or ResNet-50 v1.5 through the "
+                         "serving engine, instead of an LM arch")
     # "auto" matches the planner's cost-model default (direct for tiny
     # layers, fft-torch past the crossover); fft-cuda puts the hand-written
     # CUDA kernels on the hot path.
